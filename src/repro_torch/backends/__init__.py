@@ -1,0 +1,39 @@
+"""Execution backends of the port: ``Backend.bind(plan) -> BoundSolve``.
+
+Built in: ``kernel`` (the CUDA kernels; their plain version on CPU
+tensors) and ``scan`` (the plain PyTorch executor). See ``base`` for the
+protocol and ``registry`` for registration.
+"""
+from repro_torch.backends.base import (
+    Backend,
+    BoundSolve,
+    expected_entry_count,
+    masked_value_gather,
+)
+from repro_torch.backends.registry import (
+    available_backends,
+    bind,
+    get_backend,
+    register_backend,
+    unregister_backend,
+)
+
+# the built-ins register themselves on import
+from repro_torch.backends.kernel import KernelBackend, KernelBoundSolve  # noqa: E402
+from repro_torch.backends.scan import ScanBackend, ScanBoundSolve  # noqa: E402
+
+__all__ = [
+    "Backend",
+    "BoundSolve",
+    "KernelBackend",
+    "KernelBoundSolve",
+    "ScanBackend",
+    "ScanBoundSolve",
+    "available_backends",
+    "bind",
+    "expected_entry_count",
+    "get_backend",
+    "masked_value_gather",
+    "register_backend",
+    "unregister_backend",
+]

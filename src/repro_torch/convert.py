@@ -1,0 +1,48 @@
+"""Carry state into the port from plain numpy fields.
+
+A plan or a matrix made elsewhere (for example by the JAX package, whose
+dataclasses become dicts through ``dataclasses.asdict``) enters the port as
+a dict of numpy arrays and scalars; nothing here imports that package.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.plan import ExecPlan
+from repro_torch.sparse.csr import CSRMatrix
+
+PLAN_FIELDS = (
+    "n", "k", "W", "row_ids", "col_idx", "vals", "diag", "accum",
+    "step_bounds", "val_src", "diag_src",
+)
+
+
+def exec_plan_from_numpy(fields: dict) -> ExecPlan:
+    """An ``ExecPlan`` from its fields (``n, k, W`` and the plan arrays);
+    arrays are copied, so the port never shares memory with the source."""
+    missing = [f for f in PLAN_FIELDS if f not in fields]
+    if missing:
+        raise ValueError(f"plan fields missing: {missing}")
+
+    def arr(name):
+        a = fields[name]
+        return None if a is None else np.array(a, copy=True)
+
+    return ExecPlan(
+        n=int(fields["n"]),
+        k=int(fields["k"]),
+        W=int(fields["W"]),
+        **{f: arr(f) for f in PLAN_FIELDS[3:]},
+    )
+
+
+def csr_from_numpy(n_rows: int, n_cols: int, indptr, indices, data) -> CSRMatrix:
+    """A ``CSRMatrix`` from raw ``(indptr, indices, data)`` arrays, in the
+    dtypes the port's inspector uses (int64 indices, float64 values)."""
+    return CSRMatrix(
+        int(n_rows),
+        int(n_cols),
+        np.array(indptr, dtype=np.int64),
+        np.array(indices, dtype=np.int64),
+        np.array(data, dtype=np.float64),
+    )
