@@ -22,7 +22,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
              of 20), plain version on the card, torch.triangular_solve on a
              sparse-CSR L (the library yardstick, never called by the port),
-             and the byte/operation bound of the H100 data sheet
+             and the byte/operation bound of the H100 data sheet for the
+             plan's real entries (padding left out; the padded plan's byte
+             bound and padding share are printed beside it)
 
 then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -132,7 +134,7 @@ def main() -> int:
             for width in (None, 2):
                 plan = repro_torch.TriangularSolver.plan(
                     L, k=k, width=width, device="cpu").exec_plan
-                pa_cpu = plan_arrays(plan)
+                pa_cpu = plan_arrays(plan, device="cpu")
                 pa_gpu = kernel_plan_arrays(plan, device=dev)
                 pa_plain_gpu = plan_arrays(plan, device=dev)
                 rng = np.random.default_rng(k)
@@ -279,9 +281,20 @@ def main() -> int:
 
     timing = {}
     for name, gpu in solvers.items():
-        pa = kernel_plan_arrays(gpu.exec_plan, device=dev)
+        plan = gpu.exec_plan
+        pa = kernel_plan_arrays(plan, device=dev)
         plan_bytes = sum(t.numel() * t.element_size() for t in pa[:6])
         T, k, W = pa.col_idx.shape
+        esize = pa.vals.element_size()
+        # what this run's data needs: the plan's real entries and real lane
+        # steps; padding gathers the scratch slot and is left out
+        entries = int((plan.val_src >= 0).sum())
+        real = plan.row_ids < plan.n
+        lane_steps = int(real.sum())
+        finishes = int((real & ~plan.accum).sum())
+        padding_share = 1.0 - entries / (T * k * W)
+        data_bytes = (entries * (4 + esize) + lane_steps * (4 + esize + 1)
+                      + pa.step_bounds.numel() * 4)
         for kname, m in (("sptrsv_single", None), ("sptrsv_mrhs", MAIN_M)):
             shape = (gpu.n + 1,) if m is None else (gpu.n + 1, m)
             b_pad = torch.randn(shape, generator=torch.Generator().manual_seed(7)).to(dev)
@@ -295,14 +308,21 @@ def main() -> int:
             lib, lib_gap, lib_err = library_ms(
                 mats[name], gpu.source_values, rhs, gpu.solve(rhs))
             cols = 1 if m is None else m
-            nbytes = plan_bytes + 2 * b_pad.numel() * b_pad.element_size()
-            ops = 2 * T * k * (W + 1) * cols  # fma chain + subtract/divide
+            rhs_bytes = 2 * gpu.n * cols * esize  # b read, x written
+            nbytes = data_bytes + rhs_bytes
+            ops = 2 * (entries + finishes) * cols  # fma; subtract and divide
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / FP32_FLOPS * 1e3
+            # the padded plan as the kernel reads it, padding included
+            plan_total = plan_bytes + 2 * b_pad.numel() * b_pad.element_size()
             rec = {"matrix": name, "kernel": kname, "m": cols, "ms": ms,
                    "launches_per_solve": 1, "bound_us": max(bytes_ms, ops_ms) * 1e3,
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                   "bytes": nbytes, "ops": ops, "plain_ms": statistics.median(plain),
+                   "bytes": nbytes, "ops": ops, "entries": entries,
+                   "padding_share": padding_share,
+                   "bound_padded_plan_us": plan_total / HBM_BYTES_PER_S * 1e6,
+                   "padded_plan_bytes": plan_total,
+                   "plain_ms": statistics.median(plain),
                    "plain_reps": len(plain), "library_ms": lib,
                    "library": "torch.triangular_solve(B, L_csr, upper=False)",
                    "library_rel_gap_to_port": lib_gap,

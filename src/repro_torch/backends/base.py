@@ -1,8 +1,8 @@
 """The execution-backend protocol: ``Backend.bind(plan) -> BoundSolve``.
 
   * ``Backend`` — a named, stateless factory. ``bind(exec_plan, *, dtype,
-    device, steps_per_tile)`` moves the plan tensors to the device once and
-    returns a ``BoundSolve``.
+    device)`` moves the plan tensors to the device (the card unless the
+    caller passes ``device="cpu"``) once and returns a ``BoundSolve``.
   * ``BoundSolve`` — an immutable bound solver:
       - ``solve(b)`` for ``b`` f[n] or f[n, m] (multi-RHS), a tensor on
         the bound's device, in plan row order;
@@ -108,15 +108,8 @@ class Backend(abc.ABC):
     name: str
 
     @abc.abstractmethod
-    def bind(
-        self,
-        exec_plan,
-        *,
-        dtype=torch.float32,
-        device="cpu",
-        steps_per_tile: int = 8,
-    ) -> BoundSolve:
+    def bind(self, exec_plan, *, dtype=torch.float32, device=None) -> BoundSolve:
         """Move ``exec_plan``'s tensors to ``device`` and return a
-        ``BoundSolve``. ``steps_per_tile`` is the TPU kernel's tile size:
-        accepted so one parameter set drives every backend, reported by
-        ``describe()``, and read by no kernel of the port."""
+        ``BoundSolve``. ``device=None`` means the card and raises without
+        CUDA (``repro_torch.device.resolve_device``); pass ``"cpu"`` to
+        bind on the CPU."""

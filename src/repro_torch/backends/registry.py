@@ -51,5 +51,6 @@ def available_backends() -> Tuple[str, ...]:
 
 
 def bind(name: str, exec_plan, **params) -> BoundSolve:
-    """Convenience: ``get_backend(name).bind(exec_plan, **params)``."""
+    """Convenience: ``get_backend(name).bind(exec_plan, **params)``; with
+    no ``device`` the plan goes to the card (raises without CUDA)."""
     return get_backend(name).bind(exec_plan, **params)

@@ -14,20 +14,19 @@ from repro_torch.backends.base import (
     numpy_dtype,
 )
 from repro_torch.backends.registry import register_backend
+from repro_torch.device import resolve_device
 from repro_torch.solver.executor import PlanArrays, plan_arrays, solve_with_plan
 
 
 class ScanBoundSolve(BoundSolve):
     backend = "scan"
 
-    def __init__(self, pa: PlanArrays, val_src, diag_src, *, n_entries,
-                 steps_per_tile):
+    def __init__(self, pa: PlanArrays, val_src, diag_src, *, n_entries):
         self._pa = pa
         self._val_src = val_src  # int32[T, k, W] on the device
         self._diag_src = diag_src  # int32[T, k] on the device
         self.n = pa.n
         self.n_entries = n_entries
-        self._steps_per_tile = steps_per_tile
 
     def solve(self, b):
         return solve_with_plan(self._pa, b)
@@ -49,7 +48,6 @@ class ScanBoundSolve(BoundSolve):
             self._val_src,  # index tensors shared, read-only
             self._diag_src,
             n_entries=self.n_entries,
-            steps_per_tile=self._steps_per_tile,
         )
 
     def describe(self) -> dict:
@@ -63,7 +61,6 @@ class ScanBoundSolve(BoundSolve):
             "W": W,
             "dtype": str(self._pa.vals.dtype).replace("torch.", ""),
             "device": str(self._pa.vals.device),
-            "steps_per_tile": self._steps_per_tile,
             "device_bytes": int(sum(t.numel() * t.element_size() for t in tensors)),
         }
 
@@ -80,9 +77,9 @@ class ScanBackend(Backend):
     def plan_arrays(exec_plan, *, dtype, device):
         return plan_arrays(exec_plan, dtype=dtype, device=device)
 
-    def bind(self, exec_plan, *, dtype=torch.float32, device="cpu",
-             steps_per_tile=8) -> BoundSolve:
+    def bind(self, exec_plan, *, dtype=torch.float32, device=None) -> BoundSolve:
         numpy_dtype(dtype)
+        device = resolve_device(device)
         with obs.span("backend.bind", cat="backend", backend=self.name,
                       n=exec_plan.n):
             if exec_plan.val_src is None or exec_plan.diag_src is None:
@@ -92,5 +89,4 @@ class ScanBackend(Backend):
                 torch.as_tensor(np.asarray(exec_plan.val_src, np.int32)).to(device),
                 torch.as_tensor(np.asarray(exec_plan.diag_src, np.int32)).to(device),
                 n_entries=expected_entry_count(exec_plan),
-                steps_per_tile=steps_per_tile,
             )

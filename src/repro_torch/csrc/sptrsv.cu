@@ -139,9 +139,7 @@ template <typename T>
 int launch_single(const void* row_ids, const void* col_idx, const void* vals,
                   const void* diag, const void* accum, const void* step_bounds,
                   int n_supersteps, int k, int W, const void* b, void* x,
-                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                  void* stream) {
   int threads = ((k + 31) / 32) * 32;  // whole warps, one thread per lane
   if (threads > kMaxThreads) threads = kMaxThreads;
   if (threads < 32) threads = 32;
@@ -157,9 +155,7 @@ template <typename T>
 int launch_mrhs(const void* row_ids, const void* col_idx, const void* vals,
                 const void* diag, const void* accum, const void* step_bounds,
                 int n_supersteps, int k, int W, int m, const void* b, void* x,
-                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                void* stream) {
   int lanes = k;  // thread rows; more lanes than that are looped over
   if (lanes > kMaxThreads / kColsPerBlock) lanes = kMaxThreads / kColsPerBlock;
   if (lanes < 1) lanes = 1;
@@ -177,39 +173,40 @@ int launch_mrhs(const void* row_ids, const void* col_idx, const void* vals,
 
 // Plain C entry points, bound with ctypes by kernels/sptrsv.py. Each launches
 // on the given stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). They leave the current device alone:
+// the caller makes the stream's device current around the call.
 extern "C" {
 
 int sptrsv_single_f32(const void* row_ids, const void* col_idx, const void* vals,
                       const void* diag, const void* accum, const void* step_bounds,
                       int n_supersteps, int k, int W, const void* b, void* x,
-                      int device, void* stream) {
+                      void* stream) {
   return launch_single<float>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                              n_supersteps, k, W, b, x, device, stream);
+                              n_supersteps, k, W, b, x, stream);
 }
 
 int sptrsv_single_f64(const void* row_ids, const void* col_idx, const void* vals,
                       const void* diag, const void* accum, const void* step_bounds,
                       int n_supersteps, int k, int W, const void* b, void* x,
-                      int device, void* stream) {
+                      void* stream) {
   return launch_single<double>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                               n_supersteps, k, W, b, x, device, stream);
+                               n_supersteps, k, W, b, x, stream);
 }
 
 int sptrsv_mrhs_f32(const void* row_ids, const void* col_idx, const void* vals,
                     const void* diag, const void* accum, const void* step_bounds,
                     int n_supersteps, int k, int W, int m, const void* b, void* x,
-                    int device, void* stream) {
+                    void* stream) {
   return launch_mrhs<float>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                            n_supersteps, k, W, m, b, x, device, stream);
+                            n_supersteps, k, W, m, b, x, stream);
 }
 
 int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
                     const void* diag, const void* accum, const void* step_bounds,
                     int n_supersteps, int k, int W, int m, const void* b, void* x,
-                    int device, void* stream) {
+                    void* stream) {
   return launch_mrhs<double>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                             n_supersteps, k, W, m, b, x, device, stream);
+                             n_supersteps, k, W, m, b, x, stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import ExecPlan
+from repro_torch.device import resolve_device
 from repro_torch.kernels.sptrsv import sptrsv_cuda
 from repro_torch.solver.executor import PlanArrays, pad_rhs, plan_arrays
 
@@ -34,9 +35,10 @@ def check_plan_indices(plan: ExecPlan) -> None:
 
 
 def kernel_plan_arrays(
-    plan: ExecPlan, *, dtype=torch.float32, device="cuda"
+    plan: ExecPlan, *, dtype=torch.float32, device=None
 ) -> PlanArrays:
-    """The plan tensors on ``device``, index contents checked."""
+    """The plan tensors on ``device`` (``None``: the card, raising without
+    CUDA), index contents checked."""
     check_plan_indices(plan)
     return plan_arrays(plan, dtype=dtype, device=device)
 
@@ -52,9 +54,11 @@ def solve_with_kernel_arrays(pa: PlanArrays, b: torch.Tensor) -> torch.Tensor:
     return x[: pa.n]
 
 
-def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device="cuda"):
-    """Bind the plan tensors once; returns ``solve(b) -> x`` where ``b`` is
-    f[n] or f[n, m] (batched multi-RHS)."""
+def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device=None):
+    """Bind the plan tensors once on ``device`` (``None``: the card);
+    returns ``solve(b) -> x`` where ``b`` is f[n] or f[n, m] (batched
+    multi-RHS)."""
+    device = resolve_device(device)
     pa = kernel_plan_arrays(plan, dtype=dtype, device=device)
 
     def solve(b):
@@ -65,7 +69,7 @@ def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device="cuda"):
     return solve
 
 
-def sptrsv_kernel_solve(plan: ExecPlan, b, *, dtype=torch.float32, device="cuda"):
+def sptrsv_kernel_solve(plan: ExecPlan, b, *, dtype=torch.float32, device=None):
     """Solve L x = b with the kernels. ``b``: f[n] (returns x f[n]) or
     f[n, m] for a batched multi-RHS solve (returns x f[n, m])."""
     return bind_kernel_solver(plan, dtype=dtype, device=device)(b)

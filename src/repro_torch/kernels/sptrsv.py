@@ -28,8 +28,8 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "single": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
-    "mrhs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "single": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "mrhs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -104,20 +104,15 @@ def sptrsv_cuda(row_ids, col_idx, vals, diag, accum, step_bounds, b_pad):
     if b_pad.numel() == 0:
         return x
     ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, step_bounds)]
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
     S = step_bounds.shape[0] - 1
-    if b_pad.dim() == 1:
-        kind = "single"
-        err = _entry(kind, vals.dtype)(
-            *ptrs, S, k, W, b_pad.data_ptr(), x.data_ptr(), index, stream
-        )
-    else:
-        kind = "mrhs"
-        err = _entry(kind, vals.dtype)(
-            *ptrs, S, k, W, b_pad.shape[1], b_pad.data_ptr(), x.data_ptr(),
-            index, stream,
-        )
+    kind = "single" if b_pad.dim() == 1 else "mrhs"
+    shape = (S, k, W) if kind == "single" else (S, k, W, b_pad.shape[1])
+    entry = _entry(kind, vals.dtype)
+    # a launch must target the current device's stream; the guard makes
+    # b_pad's device current for the call and restores the caller's after
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = entry(*ptrs, *shape, b_pad.data_ptr(), x.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"sptrsv_{kind} launch failed: CUDA error {err}")
     launches[kind] += 1

@@ -41,6 +41,7 @@ from repro_torch.backends import get_backend
 from repro_torch.backends.base import numpy_dtype
 from repro_torch.core import apply_reordering, compile_plan
 from repro_torch.core.plan import ExecPlan
+from repro_torch.device import resolve_device
 from repro_torch.pipeline.cache import PlanCache
 from repro_torch.pipeline.registry import ScheduleOptions, get_scheduler
 from repro_torch.sparse.csr import (
@@ -52,28 +53,15 @@ from repro_torch.sparse.csr import (
 from repro_torch.sparse.dag import dag_from_lower_csr
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; without CUDA that raises instead of
-    falling back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch solves on the CUDA device by default and CUDA "
-                "is not available; pass device='cpu' to solve on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def binding_fingerprint(*, backend, dtype, width, steps_per_tile, device) -> tuple:
+def binding_fingerprint(*, backend, dtype, width, device) -> tuple:
     """The backend-binding part of a plan's identity — everything beyond
     (pattern, strategy, options, orientation) that changes the bound
-    solver."""
+    solver. ``steps_per_tile`` is not part of it: no kernel of the port
+    reads it."""
     return (
         backend,
         str(dtype),
         width if width is not None else "auto",
-        steps_per_tile,
         str(device),
     )
 
@@ -154,9 +142,7 @@ class TriangularSolver:
         self._inv = torch.as_tensor(total_inv, dtype=torch.int64).to(device)
         # bind once; numeric refreshes go through the bound solve's
         # device-side update_values gather, never back here
-        self._bound = get_backend(backend).bind(
-            exec_plan, dtype=dtype, device=device, steps_per_tile=steps_per_tile
-        )
+        self._bound = get_backend(backend).bind(exec_plan, dtype=dtype, device=device)
 
     @property
     def bound(self):
@@ -237,6 +223,7 @@ class TriangularSolver:
             "lower": self.lower,
             "n_supersteps": self.n_supersteps,
             "inspector_seconds": self.inspector_seconds,
+            "steps_per_tile": self._steps_per_tile,
             "plan": self.exec_plan.stats(),
             "binding": self._bound.describe(),
         }
@@ -266,8 +253,9 @@ class TriangularSolver:
         or ``"scan"``. With ``cache``, a repeated sparsity pattern skips the
         inspector: identical values return the cached solver as-is; new
         values return a clone with refreshed numerics (solvers from earlier
-        calls are never mutated). ``steps_per_tile`` is accepted and
-        reported by ``bound.describe()``; the CUDA kernels do not tile."""
+        calls are never mutated). ``steps_per_tile`` (the TPU kernel's tile
+        size) is accepted and reported by ``info()``; the CUDA kernels do
+        not tile, so it changes neither the binding nor the cache key."""
         strategy = strategy.lower()
         get_backend(backend)  # fail fast on an unknown backend
         np_dtype = numpy_dtype(dtype)
@@ -280,8 +268,7 @@ class TriangularSolver:
         get_scheduler(strategy)  # fail fast on an unknown strategy
         fp = pattern_fingerprint(a)
         key = (fp, strategy, o, lower) + binding_fingerprint(
-            backend=backend, dtype=dtype, width=width,
-            steps_per_tile=steps_per_tile, device=dev,
+            backend=backend, dtype=dtype, width=width, device=dev
         )
 
         def build() -> "TriangularSolver":

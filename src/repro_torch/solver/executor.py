@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import ExecPlan
+from repro_torch.device import resolve_device
 
 
 class PlanArrays(NamedTuple):
@@ -41,7 +42,11 @@ class PlanArrays(NamedTuple):
     n: int
 
 
-def plan_arrays(plan: ExecPlan, dtype=torch.float32, device="cpu") -> PlanArrays:
+def plan_arrays(plan: ExecPlan, dtype=torch.float32, device=None) -> PlanArrays:
+    """The plan's tensors on ``device`` (``None``: the card, raising
+    without CUDA)."""
+    device = resolve_device(device)
+
     def put(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
 
@@ -96,8 +101,10 @@ def solve_with_plan(pa: PlanArrays, b: torch.Tensor) -> torch.Tensor:
     return x[: pa.n]
 
 
-def make_solver(plan: ExecPlan, dtype=torch.float32, device="cpu"):
-    """Bind a plan; returns ``solve(b) -> x`` for ``b`` f[n] or f[n, m]."""
+def make_solver(plan: ExecPlan, dtype=torch.float32, device=None):
+    """Bind a plan on ``device`` (``None``: the card, raising without
+    CUDA); returns ``solve(b) -> x`` for ``b`` f[n] or f[n, m]."""
+    device = resolve_device(device)
     pa = plan_arrays(plan, dtype=dtype, device=device)
 
     def solve(b):

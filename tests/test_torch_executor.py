@@ -80,7 +80,7 @@ def test_plain_solve_bitwise_vs_jax(name, k, width, m):
     _, _, jp = _jax_plan(name, k, width)
     b = _rhs(jp.n, m)
     x_jax = np.asarray(jsolve_with_plan(jplan_arrays(jp), jnp.asarray(b)))
-    x_port = solve_with_plan(plan_arrays(_port_plan(jp)), torch.from_numpy(b)).numpy()
+    x_port = solve_with_plan(plan_arrays(_port_plan(jp), device="cpu"), torch.from_numpy(b)).numpy()
     _assert_bitwise(x_jax, x_port)
 
 
@@ -98,7 +98,7 @@ def test_sptrsv_ref_matches_pallas_interpret(n, density, k, width):
     arrays = jkernel_plan_arrays(jp, steps_per_tile=4)
     b_pad = jnp.concatenate([jnp.asarray(b), jnp.zeros(1, jnp.float32)])
     x_pallas = np.asarray(sptrsv_pallas(*arrays, b_pad, steps_per_tile=4, interpret=True))
-    pa = plan_arrays(_port_plan(jp))
+    pa = plan_arrays(_port_plan(jp), device="cpu")
     x_ref = sptrsv_ref(
         pa.row_ids, pa.col_idx, pa.vals, pa.diag, pa.accum, pad_rhs(torch.from_numpy(b))
     ).numpy()
@@ -148,8 +148,8 @@ def test_update_values_rejects_wrong_length():
 
 def test_describe_reports_binding():
     _, _, jp = _jax_plan("nb", 4, 3)
-    d = get_backend("kernel").bind(_port_plan(jp), device="cpu", steps_per_tile=16).describe()
-    assert d["backend"] == "kernel" and d["steps_per_tile"] == 16
+    d = get_backend("kernel").bind(_port_plan(jp), device="cpu").describe()
+    assert d["backend"] == "kernel" and "steps_per_tile" not in d
     assert (d["n"], d["n_steps"], d["k"], d["W"]) == (jp.n, jp.n_steps, 4, 3)
     assert d["dtype"] == "float32" and d["device"] == "cpu"
 
@@ -169,7 +169,7 @@ def test_check_plan_indices_rejects_bad_plans():
 
 def test_sptrsv_cuda_input_checks():
     _, _, jp = _jax_plan("er", 8, None)
-    pa = plan_arrays(_port_plan(jp))
+    pa = plan_arrays(_port_plan(jp), device="cpu")
     b_pad = pad_rhs(torch.from_numpy(_rhs(jp.n, None)))
     args = [pa.row_ids, pa.col_idx, pa.vals, pa.diag, pa.accum, pa.step_bounds, b_pad]
     for i, bad, err in [
@@ -194,7 +194,7 @@ def test_one_shot_solvers_agree_on_cpu():
     _, _, jp = _jax_plan("nb", 8, None)
     p = _port_plan(jp)
     B = _rhs(jp.n, 3, seed=8)
-    x = make_solver(p)(B).numpy()
+    x = make_solver(p, device="cpu")(B).numpy()
     _assert_bitwise(x, sptrsv_kernel_solve(p, B, device="cpu").numpy())
     _assert_bitwise(x, np.asarray(jsolve_with_plan(jplan_arrays(jp), jnp.asarray(B))))
 

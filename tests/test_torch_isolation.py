@@ -12,8 +12,11 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import backends
+from repro_torch.backends import get_backend
 from repro_torch.kernels import build, sptrsv
-from repro_torch.solver.executor import pad_rhs, plan_arrays
+from repro_torch.kernels.ops import bind_kernel_solver, kernel_plan_arrays
+from repro_torch.solver.executor import make_solver, pad_rhs, plan_arrays
 from repro_torch.sparse import erdos_renyi_lower
 
 REPO = Path(__file__).resolve().parents[1]
@@ -83,10 +86,45 @@ def test_plan_without_device_raises_without_cuda(monkeypatch):
         repro_torch.factor_pair(L)
 
 
+def _bind_kernel(plan):
+    return get_backend("kernel").bind(plan)
+
+
+def _bind_scan(plan):
+    return get_backend("scan").bind(plan)
+
+
+def _registry_bind(plan):
+    return backends.bind("kernel", plan)
+
+
+def _kernel_plan_arrays(plan):
+    return kernel_plan_arrays(plan)
+
+
+def _bind_kernel_solver(plan):
+    return bind_kernel_solver(plan)
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
+     _kernel_plan_arrays, _bind_kernel_solver],
+)
+def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
+    # every entry point that places tensors defaults to the card
+    plan = repro_torch.TriangularSolver.plan(
+        erdos_renyi_lower(50, 0.05, seed=0), device="cpu"
+    ).exec_plan
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(plan)
+
+
 def test_sptrsv_cuda_on_cpu_takes_plain_path():
     L = erdos_renyi_lower(120, 0.05, seed=2)
     solver = repro_torch.TriangularSolver.plan(L, device="cpu")
-    pa = plan_arrays(solver.exec_plan)
+    pa = plan_arrays(solver.exec_plan, device="cpu")
     sptrsv.reset_launches()
     b1 = pad_rhs(torch.ones(120))
     bm = pad_rhs(torch.ones(120, 3))

@@ -46,7 +46,7 @@ def test_kernel_matches_plain_bitwise(cuda, gen, k, width, m, dtype):
     plan = repro_torch.TriangularSolver.plan(L, k=k, width=width, device="cpu").exec_plan
     rng = np.random.default_rng(1)
     b = torch.as_tensor(rng.standard_normal(2000 if m is None else (2000, m)), dtype=dtype)
-    x_cpu = solve_with_plan(plan_arrays(plan, dtype=dtype), b)
+    x_cpu = solve_with_plan(plan_arrays(plan, dtype=dtype, device="cpu"), b)
     before = dict(sptrsv.launches)
     x_gpu = solve_with_kernel_arrays(
         kernel_plan_arrays(plan, dtype=dtype, device=cuda), b.to(cuda)
@@ -55,6 +55,22 @@ def test_kernel_matches_plain_bitwise(cuda, gen, k, width, m, dtype):
     kind = "single" if m is None else "mrhs"
     assert sptrsv.launches[kind] == before[kind] + 1
     assert _bits_equal(x_gpu, x_cpu)
+
+
+def test_launch_leaves_current_device(cuda):
+    # the wrapper makes b's device current only for the launch
+    plan = repro_torch.TriangularSolver.plan(
+        narrow_band_lower(500, 0.14, 10, seed=4), device="cpu"
+    ).exec_plan
+    b = torch.ones(500)
+    x_cpu = solve_with_plan(plan_arrays(plan, device="cpu"), b)
+    for index in range(torch.cuda.device_count()):
+        before = torch.cuda.current_device()
+        dev = torch.device("cuda", index)
+        x = solve_with_kernel_arrays(kernel_plan_arrays(plan, device=dev), b.to(dev))
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == before
+        assert _bits_equal(x, x_cpu)
 
 
 def test_front_door_on_cuda(cuda):

@@ -150,6 +150,15 @@ def test_plan_cache_lru_and_pins():
     assert cache.pinned == frozenset()
 
 
+def test_plan_cache_ignores_steps_per_tile():
+    # no kernel of the port tiles, so the tile size binds nothing new
+    _, tA = _pair("er")
+    cache = PlanCache()
+    s8 = TriangularSolver.plan(tA, cache=cache, device="cpu", steps_per_tile=8)
+    s32 = TriangularSolver.plan(tA, cache=cache, device="cpu", steps_per_tile=32)
+    assert s32 is s8 and (cache.stats.misses, cache.stats.hits) == (1, 1)
+
+
 def test_factor_pair_ichol_bitwise():
     jL, tL = _pair("ichol")
     jf, jb = jfactor_pair(jL)
@@ -179,7 +188,7 @@ def test_info_and_options():
     info = ts.info()
     assert info["backend"] == "kernel" and info["strategy"] == "growlocal"
     assert info["device"] == "cpu" and info["plan"]["k"] == 4
-    assert info["binding"]["steps_per_tile"] == 32 and info["binding"]["W"] == 3
+    assert info["steps_per_tile"] == 32 and info["binding"]["W"] == 3
     assert info["binding"]["dtype"] == "float64"
     x = ts.solve(_rhs(tA.n_rows, None))
     assert x.dtype == torch.float64
