@@ -1,8 +1,9 @@
 """Execution backends of the port: ``Backend.bind(plan) -> BoundSolve``.
 
 Built in: ``kernel`` (the CUDA kernels; their plain version on CPU
-tensors) and ``scan`` (the plain PyTorch executor). See ``base`` for the
-protocol and ``registry`` for registration.
+tensors) and ``scan`` (the plain PyTorch executor), both with the
+``"elastic"`` capability. See ``base`` for the protocol and ``registry``
+for registration.
 """
 from repro_torch.backends.base import (
     Backend,
@@ -19,12 +20,22 @@ from repro_torch.backends.registry import (
 )
 
 # the built-ins register themselves on import
-from repro_torch.backends.kernel import KernelBackend, KernelBoundSolve  # noqa: E402
-from repro_torch.backends.scan import ScanBackend, ScanBoundSolve  # noqa: E402
+from repro_torch.backends.kernel import (  # noqa: E402
+    ElasticKernelBoundSolve,
+    KernelBackend,
+    KernelBoundSolve,
+)
+from repro_torch.backends.scan import (  # noqa: E402
+    ElasticScanBoundSolve,
+    ScanBackend,
+    ScanBoundSolve,
+)
 
 __all__ = [
     "Backend",
     "BoundSolve",
+    "ElasticKernelBoundSolve",
+    "ElasticScanBoundSolve",
     "KernelBackend",
     "KernelBoundSolve",
     "ScanBackend",

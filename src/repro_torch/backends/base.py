@@ -1,8 +1,10 @@
 """The execution-backend protocol: ``Backend.bind(plan) -> BoundSolve``.
 
   * ``Backend`` — a named, stateless factory. ``bind(exec_plan, *, dtype,
-    device)`` moves the plan tensors to the device (the card unless the
-    caller passes ``device="cpu"``) once and returns a ``BoundSolve``.
+    device, slack)`` moves the plan tensors to the device (the card unless
+    the caller passes ``device="cpu"``) once and returns a ``BoundSolve``;
+    ``slack > 0`` binds ``mode="elastic"`` where ``capabilities()`` lists
+    ``"elastic"``.
   * ``BoundSolve`` — an immutable bound solver:
       - ``solve(b)`` for ``b`` f[n] or f[n, m] (multi-RHS), a tensor on
         the bound's device, in plan row order;
@@ -23,6 +25,7 @@ never registers into the JAX package's.
 from __future__ import annotations
 
 import abc
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -108,8 +111,22 @@ class Backend(abc.ABC):
     name: str
 
     @abc.abstractmethod
-    def bind(self, exec_plan, *, dtype=torch.float32, device=None) -> BoundSolve:
+    def bind(
+        self, exec_plan, *, dtype=torch.float32, device=None, slack: int = 0
+    ) -> BoundSolve:
         """Move ``exec_plan``'s tensors to ``device`` and return a
         ``BoundSolve``. ``device=None`` means the card and raises without
         CUDA (``repro_torch.device.resolve_device``); pass ``"cpu"`` to
-        bind on the CPU."""
+        bind on the CPU.
+
+        ``slack > 0`` requests ``mode="elastic"`` (bounded-slack execution,
+        see ``core.elastic``); a backend that does not advertise the
+        ``"elastic"`` capability must raise rather than silently fall back
+        to bulk-synchronous."""
+
+    def capabilities(self) -> Tuple[str, ...]:
+        """Optional features this backend's bounds implement beyond the
+        core contract. Known so far: ``"elastic"`` — ``bind(slack=s)``
+        executes the bounded-slack mode, bitwise-identical to the
+        bulk-synchronous bound."""
+        return ()

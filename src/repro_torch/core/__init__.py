@@ -6,10 +6,18 @@ has come.
   * ``Schedule`` / ``check_validity`` / ``bsp_cost`` / ``serial_schedule``
     — Def. 2.1 + cost model
   * ``compile_plan`` — schedule -> padded ExecPlan for the executors
+  * ``elastic_transform`` — the bounded-slack certificate of
+    ``mode="elastic"`` (``ElasticPlan``, ``DEFAULT_SLACK``)
 
 Copies of the JAX package's ``repro.core`` modules of the same names. The
 front door for solving is ``repro_torch.pipeline.TriangularSolver``.
 """
+from repro_torch.core.elastic import (
+    DEFAULT_SLACK,
+    ElasticPlan,
+    elastic_transform,
+    step_dependencies,
+)
 from repro_torch.core.growlocal import grow_local
 from repro_torch.core.plan import ExecPlan, compile_plan, plans_bitwise_equal
 from repro_torch.core.reorder import Reordering, apply_reordering, schedule_order
@@ -34,4 +42,8 @@ __all__ = [
     "ExecPlan",
     "compile_plan",
     "plans_bitwise_equal",
+    "DEFAULT_SLACK",
+    "ElasticPlan",
+    "elastic_transform",
+    "step_dependencies",
 ]

@@ -57,6 +57,11 @@ class ExecPlan:
     new matrix with the *same* sparsity pattern without recompiling — the
     plan-cache ``numeric_update`` path (and, device-side, the
     ``repro_torch.backends`` ``BoundSolve.update_values`` gather).
+
+    ``elastic`` (optional) attaches the bounded-slack certificate from
+    ``core.elastic.elastic_transform`` when the plan was built for
+    ``mode="elastic"`` — the executors' macro-step/wave geometry;
+    ``stats()`` then reports barrier counts before/after fusion.
     """
 
     n: int
@@ -70,6 +75,7 @@ class ExecPlan:
     step_bounds: np.ndarray
     val_src: np.ndarray | None = None
     diag_src: np.ndarray | None = None
+    elastic: "object | None" = None  # core.elastic.ElasticPlan when elastic
 
     def numeric_update(self, data: np.ndarray) -> None:
         """Overwrite ``vals``/``diag`` in place from ``data`` — the ``.data``
@@ -101,7 +107,7 @@ class ExecPlan:
             real_nnz = int((self.val_src >= 0).sum())
         else:  # plans built without source maps fall back to the value test
             real_nnz = int((self.vals != 0).sum())
-        return {
+        out = {
             "n_steps": self.n_steps,
             "n_supersteps": self.n_supersteps,
             "k": self.k,
@@ -113,6 +119,10 @@ class ExecPlan:
                 + self.row_ids.size * 4 + self.diag.size * self.diag.itemsize
             ),
         }
+        if self.elastic is not None:
+            # barrier accounting before/after bounded-slack fusion
+            out["elastic"] = self.elastic.stats()
+        return out
 
 
 def _resolve_width(row_nnz_off: np.ndarray, n: int, width: int | None) -> int:

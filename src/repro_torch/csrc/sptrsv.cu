@@ -47,20 +47,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "rn.cuh"
 
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-__device__ __forceinline__ float finish_rn(float b, float acc, float d) {
-  return __fdiv_rn(__fsub_rn(b, acc), d);
-}
-__device__ __forceinline__ double finish_rn(double b, double acc, double d) {
-  return __ddiv_rn(__dsub_rn(b, acc), d);
-}
+namespace {
 
 template <typename T>
 __global__ void sptrsv_single_kernel(
@@ -82,10 +71,10 @@ __global__ void sptrsv_single_kernel(
         const int64_t tl = static_cast<int64_t>(t) * k + l;
         const int32_t* c = col_idx + tl * W;
         const T* v = vals + tl * W;
-        for (int w = 0; w < W; ++w) acc = fma_rn(v[w], x[c[w]], acc);
+        for (int w = 0; w < W; ++w) acc = rn::fma(v[w], x[c[w]], acc);
         if (!accum[tl]) {
           const int32_t r = row_ids[tl];
-          x[r] = finish_rn(b[r], acc, diag[tl]);
+          x[r] = rn::finish(b[r], acc, diag[tl]);
           acc = T(0);
         }
       }
@@ -118,11 +107,11 @@ __global__ void sptrsv_mrhs_kernel(
           const int32_t* ci = col_idx + tl * W;
           const T* v = vals + tl * W;
           for (int w = 0; w < W; ++w) {
-            acc = fma_rn(v[w], x[static_cast<int64_t>(ci[w]) * m + c], acc);
+            acc = rn::fma(v[w], x[static_cast<int64_t>(ci[w]) * m + c], acc);
           }
           if (!accum[tl]) {
             const int64_t rc = static_cast<int64_t>(row_ids[tl]) * m + c;
-            x[rc] = finish_rn(b[rc], acc, diag[tl]);
+            x[rc] = rn::finish(b[rc], acc, diag[tl]);
             acc = T(0);
           }
         }

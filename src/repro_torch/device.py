@@ -2,8 +2,9 @@
 the CPU.
 
 Every entry point that places tensors (``TriangularSolver.plan``,
-``Backend.bind``, ``plan_arrays``, ``make_solver`` and the kernel
-wrappers in ``kernels.ops``) takes ``device=None`` and resolves it here.
+``Backend.bind``, ``plan_arrays``, ``elastic_plan_arrays``,
+``make_solver``, the kernel wrappers in ``kernels.ops`` and
+``kernels.spmv.spmv``) takes ``device=None`` and resolves it here.
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file is compiled on first use into a shared library with
 a plain C interface, bound with ``ctypes``. The library goes into
 ``build/repro_torch/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source builds anew and an unchanged one
-is reused. A missing ``nvcc`` or a failed build raises: nothing falls back.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source builds anew and an unchanged one is reused. A missing ``nvcc`` or a
+failed build raises: nothing falls back. ``build`` takes no lock, so
+several sources can be compiled at once (``chip_smoke.py`` does).
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>_<hash>.so <src>
@@ -29,8 +31,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
-_LIBS: Dict[Path, ctypes.CDLL] = {}
-_LOGS: Dict[Path, str] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}  # loaded libraries by source name
 
 
 def nvcc_path() -> str:
@@ -50,10 +51,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """The library of ``source``, named by a hash of the source, the
+    headers beside it (``*.cuh``, which it may include) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Tuple[Path, str]:
@@ -80,19 +84,13 @@ def build(source: Path) -> Tuple[Path, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    source = CSRC / f"{name}.cu"
+    """Build (if needed) and load ``csrc/<name>.cu``. Cached per process by
+    name, so a launch pays no hashing of the sources (which costs a
+    millisecond or more on a slow file system); a source edited while a
+    process runs is built by the next process."""
     with _LOCK:
-        path = library_path(source)
-        lib = _LIBS.get(path)
+        lib = _LIBS.get(name)
         if lib is None:
-            path, log = build(source)
-            lib = _LIBS[path] = ctypes.CDLL(str(path))
-            _LOGS[path] = log
+            path, _ = build(CSRC / f"{name}.cu")
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
-
-
-def build_log(name: str) -> str:
-    """The compiler messages of this process's build of ``name`` (empty
-    when the library was already on disk)."""
-    return _LOGS.get(library_path(CSRC / f"{name}.cu"), "")

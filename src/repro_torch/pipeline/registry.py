@@ -29,6 +29,10 @@ class ScheduleOptions:
     k: int = 8  # cores (plan lanes)
     L: float = DEFAULT_L  # barrier penalty (paper §2.2)
     reorder: bool = True  # §5 locality reordering (consumed by the solver)
+    # elastic staleness window (consumed by the solver's backend binding,
+    # not the schedulers): 0 = bulk-synchronous, s > 0 runs the plan in
+    # s-step windows (core.elastic; mode="elastic")
+    slack: int = 0
 
     def replace(self, **kw) -> "ScheduleOptions":
         return dataclasses.replace(self, **kw)

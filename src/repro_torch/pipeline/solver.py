@@ -14,6 +14,8 @@ The solver runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises when CUDA is not available;
 it never drops silently to the CPU. The default backend ``"kernel"`` runs
 the CUDA kernels; ``"scan"`` runs the plain PyTorch executor.
+``mode="elastic"`` runs the plan in readiness waves inside ``slack``-step
+windows (``core.elastic``), bitwise-identical to the default ``"bsp"``.
 
 ``lower=False`` solves an *upper*-triangular system via the
 reverse-permutation trick (an upper-triangular matrix reversed
@@ -39,7 +41,12 @@ import torch
 from repro_torch import obs
 from repro_torch.backends import get_backend
 from repro_torch.backends.base import numpy_dtype
-from repro_torch.core import apply_reordering, compile_plan
+from repro_torch.core import (
+    DEFAULT_SLACK,
+    apply_reordering,
+    compile_plan,
+    elastic_transform,
+)
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
 from repro_torch.pipeline.cache import PlanCache
@@ -53,16 +60,18 @@ from repro_torch.sparse.csr import (
 from repro_torch.sparse.dag import dag_from_lower_csr
 
 
-def binding_fingerprint(*, backend, dtype, width, device) -> tuple:
+def binding_fingerprint(*, backend, dtype, width, device, slack=0) -> tuple:
     """The backend-binding part of a plan's identity — everything beyond
     (pattern, strategy, options, orientation) that changes the bound
-    solver. ``steps_per_tile`` is not part of it: no kernel of the port
-    reads it."""
+    solver. ``slack > 0`` marks an elastic binding, a different execution
+    from the bulk one even though the plan tensors match.
+    ``steps_per_tile`` is not part of it: no kernel of the port reads it."""
     return (
         backend,
         str(dtype),
         width if width is not None else "auto",
         str(device),
+        slack,
     )
 
 
@@ -124,6 +133,7 @@ class TriangularSolver:
         lower: bool,
         inspector_seconds: float,
         steps_per_tile: int = 8,
+        slack: int = 0,
     ):
         self.exec_plan = exec_plan
         self.backend = backend
@@ -134,6 +144,7 @@ class TriangularSolver:
         self.lower = lower
         self.inspector_seconds = inspector_seconds
         self._steps_per_tile = steps_per_tile
+        self._slack = slack  # > 0: elastic execution mode
         self._source_data: Optional[np.ndarray] = None  # set by plan()
         self.plan_key = None  # plan-cache key, set by plan()
         total_inv = np.empty_like(total_perm)
@@ -142,7 +153,9 @@ class TriangularSolver:
         self._inv = torch.as_tensor(total_inv, dtype=torch.int64).to(device)
         # bind once; numeric refreshes go through the bound solve's
         # device-side update_values gather, never back here
-        self._bound = get_backend(backend).bind(exec_plan, dtype=dtype, device=device)
+        self._bound = get_backend(backend).bind(
+            exec_plan, dtype=dtype, device=device, slack=slack
+        )
 
     @property
     def bound(self):
@@ -219,6 +232,8 @@ class TriangularSolver:
         return {
             "strategy": self.strategy,
             "backend": self.backend,
+            "mode": "elastic" if self._slack else "bsp",
+            "slack": self._slack,
             "device": str(self.device),
             "lower": self.lower,
             "n_supersteps": self.n_supersteps,
@@ -243,6 +258,7 @@ class TriangularSolver:
         options: Optional[ScheduleOptions] = None,
         cache: Optional[PlanCache] = None,
         steps_per_tile: int = 8,
+        mode: Optional[str] = None,
         device=None,
         **opts,
     ) -> "TriangularSolver":
@@ -255,9 +271,18 @@ class TriangularSolver:
         values return a clone with refreshed numerics (solvers from earlier
         calls are never mutated). ``steps_per_tile`` (the TPU kernel's tile
         size) is accepted and reported by ``info()``; the CUDA kernels do
-        not tile, so it changes neither the binding nor the cache key."""
+        not tile, so it changes neither the binding nor the cache key.
+
+        ``mode`` selects the execution mode: ``"bsp"`` (bulk-synchronous,
+        the default) or ``"elastic"`` — the plan runs in readiness waves
+        inside ``slack``-step windows (``core.elastic``), with bitwise the
+        same result. ``mode="elastic"`` takes the window from ``slack=...``
+        (a ``ScheduleOptions`` knob) or ``core.DEFAULT_SLACK``; ``slack >
+        0`` alone also selects elastic. The backend must advertise the
+        ``"elastic"`` capability."""
         strategy = strategy.lower()
-        get_backend(backend)  # fail fast on an unknown backend
+        # fail fast on an unknown backend, with the registry naming options
+        backend_caps = get_backend(backend).capabilities()
         np_dtype = numpy_dtype(dtype)
         dev = resolve_device(device)
         o = options or ScheduleOptions()
@@ -265,10 +290,27 @@ class TriangularSolver:
             o = o.replace(k=k)
         if opts:
             o = o.replace(**opts)
+        if o.slack < 0:  # the JAX package takes it for bsp, and info() for elastic
+            raise ValueError(f"slack must be >= 0; got {o.slack}")
+        if mode is not None and mode not in ("bsp", "elastic"):
+            raise ValueError(
+                f"mode must be 'bsp' or 'elastic'; got {mode!r}"
+            )
+        if mode == "elastic" and o.slack == 0:
+            o = o.replace(slack=DEFAULT_SLACK)
+        if mode == "bsp" and o.slack > 0:
+            raise ValueError(
+                f"mode='bsp' conflicts with slack={o.slack}; drop one"
+            )
+        if o.slack > 0 and "elastic" not in backend_caps:
+            raise ValueError(
+                f"backend {backend!r} does not support mode='elastic' "
+                f"(requested slack={o.slack}, no 'elastic' capability)"
+            )
         get_scheduler(strategy)  # fail fast on an unknown strategy
         fp = pattern_fingerprint(a)
         key = (fp, strategy, o, lower) + binding_fingerprint(
-            backend=backend, dtype=dtype, width=width, device=dev
+            backend=backend, dtype=dtype, width=width, device=dev, slack=o.slack
         )
 
         def build() -> "TriangularSolver":
@@ -289,6 +331,11 @@ class TriangularSolver:
                 m2, s2, inner = m0, s, np.arange(n, dtype=np.int64)
 
             plan = compile_plan(m2, s2, width=width, dtype=np_dtype)
+            if o.slack > 0:
+                # attach the slack certificate so the backend bind (and
+                # ExecPlan.stats barrier accounting) reuse one transform
+                with obs.span("inspector.elastic", cat="inspector", n=n):
+                    plan.elastic = elastic_transform(plan, o.slack)
 
             # rebase the plan's value-source maps onto a's entry order so
             # numeric_update() consumes a.data directly
@@ -312,6 +359,7 @@ class TriangularSolver:
                 lower=lower,
                 inspector_seconds=time.perf_counter() - t0,
                 steps_per_tile=steps_per_tile,
+                slack=o.slack,
             )
             solver._source_data = np.array(a.data)
             solver.plan_key = key

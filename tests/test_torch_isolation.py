@@ -2,6 +2,7 @@
 with JAX blocked, never drops silently to the CPU, and leaves the kernel
 launch counters alone when its kernels' plain versions run."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -14,9 +15,19 @@ import torch
 import repro_torch
 from repro_torch import backends
 from repro_torch.backends import get_backend
-from repro_torch.kernels import build, sptrsv
-from repro_torch.kernels.ops import bind_kernel_solver, kernel_plan_arrays
-from repro_torch.solver.executor import make_solver, pad_rhs, plan_arrays
+from repro_torch.core import elastic_transform
+from repro_torch.kernels import build, spmv, sptrsv
+from repro_torch.kernels.ops import (
+    bind_kernel_solver,
+    elastic_kernel_arrays,
+    kernel_plan_arrays,
+)
+from repro_torch.solver.executor import (
+    elastic_plan_arrays,
+    make_solver,
+    pad_rhs,
+    plan_arrays,
+)
 from repro_torch.sparse import erdos_renyi_lower
 
 REPO = Path(__file__).resolve().parents[1]
@@ -83,6 +94,8 @@ def test_plan_without_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.TriangularSolver.plan(L)
     with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.TriangularSolver.plan(L, mode="elastic")
+    with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.factor_pair(L)
 
 
@@ -106,10 +119,33 @@ def _bind_kernel_solver(plan):
     return bind_kernel_solver(plan)
 
 
+def _elastic_plan_arrays(plan):
+    return elastic_plan_arrays(plan, slack=4)
+
+
+def _elastic_kernel_arrays(plan):
+    return elastic_kernel_arrays(
+        dataclasses.replace(plan, elastic=elastic_transform(plan, 4))
+    )
+
+
+def _bind_kernel_elastic(plan):
+    return get_backend("kernel").bind(plan, slack=4)
+
+
+def _bind_scan_elastic(plan):
+    return backends.bind("scan", plan, slack=4)
+
+
+def _spmv(plan):
+    return spmv.spmv(erdos_renyi_lower(plan.n, 0.05, seed=0), np.ones(plan.n))
+
+
 @pytest.mark.parametrize(
     "entry",
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
-     _kernel_plan_arrays, _bind_kernel_solver],
+     _kernel_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
+     _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv],
 )
 def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     # every entry point that places tensors defaults to the card
@@ -124,14 +160,19 @@ def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry
 def test_sptrsv_cuda_on_cpu_takes_plain_path():
     L = erdos_renyi_lower(120, 0.05, seed=2)
     solver = repro_torch.TriangularSolver.plan(L, device="cpu")
+    elastic = repro_torch.TriangularSolver.plan(L, device="cpu", mode="elastic")
     pa = plan_arrays(solver.exec_plan, device="cpu")
     sptrsv.reset_launches()
+    spmv.reset_launches()
     b1 = pad_rhs(torch.ones(120))
     bm = pad_rhs(torch.ones(120, 3))
     x1 = sptrsv.sptrsv_cuda(*pa[:6], b1)
     xm = sptrsv.sptrsv_cuda(*pa[:6], bm)
     solver.solve(np.ones(120))
-    assert sptrsv.launches == {"single": 0, "mrhs": 0}
+    assert torch.equal(elastic.solve(np.ones((120, 3))), solver.solve(np.ones((120, 3))))
+    spmv.spmv(L, np.ones(120), device="cpu")
+    assert set(sptrsv.launches) == {"single", "mrhs", "elastic_single", "elastic_mrhs"}
+    assert not any(sptrsv.launches.values()) and spmv.launches == {"spmv": 0}
     assert torch.equal(xm[:, 0], x1)
     assert not build._LIBS  # nothing was built or loaded
 
