@@ -10,8 +10,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              one nvcc per source, all at once
   kernels    on ER and NB matrices of n=2,000, each kernel against its plain
              version run on the CPU, bitwise: the bulk SpTRSV kernels (k in
-             {8, 32}, width in {None, 2}, single RHS and m in {5, 64, 300};
-             the largest ulp gap to the plain version run on the card is
+             {8, 32}, width in {None, 2}, single RHS through the level-ordered
+             kernel and m in {5, 64, 300} through the multi-RHS kernel; the
+             largest ulp gap to the plain version run on the card is
              reported), the elastic kernels (k in {8, 32}, slack in {1, 8},
              single RHS and m in {5, 64}; also bitwise-equal to the bulk
              plain version) and the SpMV kernel (width in {None, 2})
@@ -32,12 +33,15 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
              of 20; for SpMV also the replay of a CUDA graph of the call,
              its device time without the host's launch path), plain version
-             on the card (the elastic one once), the
+             on the card (SpTRSV once, SpMV median of 5), the
              library yardstick (torch.triangular_solve on a sparse-CSR L for
              SpTRSV, the sparse-CSR matvec for SpMV; never called by the
              port), and the byte/operation bound of the H100 data sheet for
              the real entries (padding left out; the padded plan's byte
-             bound and padding share are printed beside it)
+             bound and padding share are printed beside it). The single-RHS
+             line also reports the level order: its host seconds, levels
+             (= block barriers), widest level, the supersteps and the DAG's
+             longest path beside them
 
 then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -99,19 +103,28 @@ def main() -> int:
     import repro_torch
     from repro_torch.core import elastic_transform
     from repro_torch.kernels import build, spmv, sptrsv
+    from repro_torch.kernels.levels import level_order
     from repro_torch.kernels.ops import (
         elastic_kernel_args,
         elastic_kernel_arrays,
         kernel_plan_arrays,
+        level_plan_arrays,
     )
-    from repro_torch.kernels.ref import sptrsv_elastic_ref, sptrsv_ref, spmv_ell_ref
+    from repro_torch.kernels.ref import (
+        spmv_ell_ref,
+        sptrsv_elastic_ref,
+        sptrsv_level_ref,
+        sptrsv_ref,
+    )
     from repro_torch.solver.executor import pad_rhs, plan_arrays
     from repro_torch.sparse import (
+        dag_from_lower_csr,
         erdos_renyi_lower,
         ichol0,
         narrow_band_lower,
         poisson2d_matrix,
     )
+    from repro_torch.sparse.dag import longest_path_length
 
     dev = torch.device("cuda")
 
@@ -179,19 +192,24 @@ def main() -> int:
                     L, k=k, width=width, device="cpu").exec_plan
                 pa_cpu = plan_arrays(plan, device="cpu")
                 pa_gpu = kernel_plan_arrays(plan, device=dev)
-                pa_plain_gpu = plan_arrays(plan, device=dev)
+                la_gpu = level_plan_arrays(plan, device=dev)
                 rng = np.random.default_rng(k)
                 for m in (None, 5, 64, 300):
                     b = torch.as_tensor(rng.standard_normal(
                         2000 if m is None else (2000, m)), dtype=torch.float32)
                     b_pad = pad_rhs(b)
                     x_cpu = sptrsv_ref(*pa_cpu[:5], b_pad)
-                    x_gpu = sptrsv.sptrsv_cuda(*pa_gpu[:6], b_pad.to(dev))
-                    x_plain_gpu = sptrsv_ref(*pa_plain_gpu[:5], b_pad.to(dev))
+                    if m is None:  # the level-ordered kernel and its plain version
+                        x_gpu = sptrsv.sptrsv_level_cuda(*la_gpu[:7], b_pad.to(dev))
+                        x_plain_gpu = sptrsv_level_ref(*la_gpu[:7], b_pad.to(dev))
+                    else:
+                        x_gpu = sptrsv.sptrsv_cuda(*pa_gpu[:6], b_pad.to(dev))
+                        x_plain_gpu = sptrsv_ref(*pa_gpu[:5], b_pad.to(dev))
                     torch.cuda.synchronize()
                     same = bitwise_equal(x_gpu, x_cpu)
                     cells.append({"matrix": gen_name, "k": k, "W": plan.W,
                                   "T": plan.n_steps, "m": m, "bitwise": same,
+                                  "levels": int(la_gpu.level_ptr.numel() - 1),
                                   "ulp_vs_plain_on_card": ulp_gap(x_gpu, x_plain_gpu)})
                     require(same, f"kernel != CPU plain version at {cells[-1]}")
     emit({"phase": "kernels", "names": ["sptrsv_single", "sptrsv_mrhs"],
@@ -289,7 +307,8 @@ def main() -> int:
         new_data = dominant(L, L.data * rng.uniform(0.5, 1.5, L.nnz))
         inputs[name] = (b, B, new_data)
         row = {"matrix": name, "n": n, "nnz": L.nnz, "plan_s": round(plan_s, 3),
-               **{key: gpu.info()["plan"][key] for key in ("n_steps", "n_supersteps", "W", "k")}}
+               **{key: gpu.info()["plan"][key] for key in ("n_steps", "n_supersteps", "W", "k")},
+               "n_levels": gpu.bound.describe()["n_levels"]}
         for stage in ("initial", "numeric_update"):
             if stage == "numeric_update":
                 gpu.numeric_update(new_data)
@@ -483,25 +502,39 @@ def main() -> int:
     timing = {}
     for name, gpu in solvers.items():
         plan = gpu.exec_plan
+        t0 = time.perf_counter()
+        order = level_order(plan)
+        level_s = time.perf_counter() - t0
         pa = kernel_plan_arrays(plan, device=dev)
-        plan_bytes = sum(t.numel() * t.element_size() for t in pa[:6])
+        la = level_plan_arrays(plan, device=dev, order=order)
         esize = pa.vals.element_size()
         work = plan_work(plan, esize)
         for kname, m in (("sptrsv_single", None), ("sptrsv_mrhs", MAIN_M)):
             b_pad = rhs_pad(gpu.n, m)
-            args = (*pa[:6], b_pad)
-            ms = statistics.median(cuda_times(lambda: sptrsv.sptrsv_cuda(*args), 3, 20))
-            pa_plain = plan_arrays(gpu.exec_plan, device=dev)
-            plain = cuda_times(lambda: sptrsv_ref(*pa_plain[:5], b_pad), 1, 3)
+            if m is None:  # the level-ordered kernel
+                kernel_in, kernel = la[:7], sptrsv.sptrsv_level_cuda
+                plain_fn, plain_in = sptrsv_level_ref, la[:7]
+            else:
+                kernel_in, kernel = pa[:6], sptrsv.sptrsv_cuda
+                plain_fn, plain_in = sptrsv_ref, pa[:5]
+            ms = statistics.median(cuda_times(lambda: kernel(*kernel_in, b_pad), 3, 20))
+            x = kernel(*kernel_in, b_pad)
+            # the plain version once: it launches tens of operations per level or step
+            x_plain = []
+            plain = cuda_times(lambda: x_plain.append(plain_fn(*plain_in, b_pad)), 0, 1)
+            require(bitwise_equal(x, x_plain[0]), f"{name} {kname}: timed kernel != plain")
             # the library solves L itself (caller row order), so it is
             # checked against the front door's answer, not the plan's
             rhs = b_pad[:-1].contiguous()
             lib, lib_gap, lib_err = library_ms(
                 mats[name], gpu.source_values, rhs, gpu.solve(rhs))
             cols = 1 if m is None else m
-            rhs_bytes = 2 * gpu.n * cols * esize  # b read, x written
-            # the padded plan as the kernel reads it, padding included
-            plan_total = plan_bytes + 2 * b_pad.numel() * b_pad.element_size()
+            # the bound is the solve's data alone, the same for every layout:
+            # the plan's real work and step bounds, b read and x written
+            rhs_bytes = 2 * gpu.n * cols * esize
+            # the kernel's arrays as it reads them, padding slots included
+            plan_total = (sum(t.numel() * t.element_size() for t in kernel_in)
+                          + 2 * b_pad.numel() * b_pad.element_size())
             rec = {"matrix": name, "kernel": kname, "m": cols, "ms": ms,
                    "launches_per_solve": 1,
                    **bound(work["bytes"] + pa.step_bounds.numel() * 4 + rhs_bytes,
@@ -515,6 +548,11 @@ def main() -> int:
                    "library": "torch.triangular_solve(B, L_csr, upper=False)",
                    "library_rel_gap_to_port": lib_gap,
                    "library_error": lib_err, **card}
+            if m is None:  # one block barrier per level
+                rec.update(order.stats(), barriers=order.n_levels,
+                           supersteps=plan.n_supersteps, level_order_s=level_s,
+                           dag_longest_path=longest_path_length(
+                               dag_from_lower_csr(mats[name])))
             timing[(name, kname)] = rec
             emit({"phase": "timing", **rec})
 

@@ -9,23 +9,59 @@ from repro_torch.backends.scan import (
     ElasticScanBoundSolve,
     ScanBackend,
     ScanBoundSolve,
+    _device_bytes,
 )
 from repro_torch.kernels.ops import (
     elastic_kernel_arrays,
     kernel_plan_arrays,
+    level_plan_arrays,
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
 )
 
 
+def kernel_arrays(exec_plan, *, dtype, device):
+    """``(PlanArrays, LevelArrays)``: the plan for the multi-RHS kernel and
+    its level order for the single-RHS kernel."""
+    return (
+        kernel_plan_arrays(exec_plan, dtype=dtype, device=device),
+        level_plan_arrays(exec_plan, dtype=dtype, device=device),
+    )
+
+
 class KernelBoundSolve(ScanBoundSolve):
-    """Same tensors and value refresh as the scan bound; the solve runs
-    ``sptrsv_cuda``."""
+    """The scan bound's plan tensors and value refresh, plus the plan in
+    level order; a single-RHS solve runs ``sptrsv_level_cuda``, a
+    multi-RHS solve ``sptrsv_cuda``. A value refresh gathers the level
+    tensors from the refreshed plan tensors by the level order's ``perm``,
+    on the device."""
 
     backend = "kernel"
 
+    def __init__(self, arrays, val_src, diag_src, *, n_entries):
+        pa, self._la = arrays
+        super().__init__(pa, val_src, diag_src, n_entries=n_entries)
+
     def solve(self, b):
-        return solve_with_kernel_arrays(self._pa, b)
+        return solve_with_kernel_arrays(self._pa, self._la, b)
+
+    def update_values(self, data) -> "KernelBoundSolve":
+        vals, diag = self._refreshed(data)
+        la = self._la
+        lvals = vals.reshape(-1, vals.shape[-1])[la.perm]
+        ldiag = diag.reshape(-1)[la.perm]
+        return type(self)(
+            (self._pa._replace(vals=vals, diag=diag), la._replace(vals=lvals, diag=ldiag)),
+            self._val_src,  # index tensors shared, read-only
+            self._diag_src,
+            n_entries=self.n_entries,
+        )
+
+    def describe(self) -> dict:
+        out = super().describe()
+        out["n_levels"] = self._la.level_ptr.numel() - 1
+        out["device_bytes"] += _device_bytes(self._la[:8])
+        return out
 
 
 class ElasticKernelBoundSolve(ElasticScanBoundSolve):
@@ -42,15 +78,16 @@ class ElasticKernelBoundSolve(ElasticScanBoundSolve):
 
 @register_backend
 class KernelBackend(ScanBackend):
-    """Single- and multi-RHS CUDA kernels: one launch per solve, one block
-    barrier per superstep (bulk) or per readiness wave (elastic) inside it.
-    Binding also checks the plan's index contents and the elastic
-    certificate, which the kernels read unchecked."""
+    """Single- and multi-RHS CUDA kernels: one launch per solve; inside it
+    one block barrier per level (single RHS, bulk), per superstep (multi
+    RHS, bulk) or per readiness wave (elastic). Binding also checks the
+    plan's index contents and the elastic certificate, which the kernels
+    read unchecked."""
 
     name = "kernel"
     bound_cls = KernelBoundSolve
     elastic_bound_cls = ElasticKernelBoundSolve
-    plan_arrays = staticmethod(kernel_plan_arrays)
+    plan_arrays = staticmethod(kernel_arrays)
 
     @staticmethod
     def elastic_arrays(exec_plan, *, dtype, device):

@@ -10,40 +10,53 @@
 //     if !accum[t,l]:  x[row_ids[t,l]] = (b[row] - acc) / diag[t,l];  acc = 0
 // with one fused multiply-add per entry and a correctly rounded subtract and
 // divide (the _rn intrinsics; this file must never be built with
-// --use_fast_math). The Pallas bodies tree-sum over W instead; this kernel
-// follows the executor, so it matches the plain PyTorch version
+// --use_fast_math). The Pallas bodies tree-sum over W instead; these kernels
+// follow the executor, so they match the plain PyTorch versions
 // (kernels/ref.py) bit for bit.
 //
-// Bound on this card. The solve reads each plan tensor once (row_ids, diag,
-// accum: T*k entries; col_idx, vals: T*k*W entries; step_bounds: S+1), reads
-// b and writes x (n+1 entries per right-hand side). Those bytes over the
-// H100's 3.35 TB/s are the least time the card could take. The real limit is
-// latency: the T steps are a chain of dependent gathers (a step reads x rows
-// that earlier steps wrote), so each step pays at least one load of its
-// indices and one dependent load of x before the next step of the lane can
-// begin.
+// Bound on this card. A solve reads each real plan entry and lane-step once
+// and the index arrays that order them, reads b and writes x (n+1 entries
+// per right-hand side). Those bytes over the H100's 3.35 TB/s are the least
+// time the card could take. The real limit is latency: a row reads x rows
+// that earlier rows wrote, so the solve is a chain of dependent gathers
+// (index load, then x load, then the FMA chain, then the store) as long as
+// the dependency structure the kernel keeps.
 //
-// Design. Within one superstep a lane depends only on its own earlier steps
-// (the BSP validity of the schedule: a cross-core edge always crosses a
-// superstep boundary, see core/plan.py), so each thread walks its lane's chain
-// alone, the accumulator lives in a register, and the block synchronises once
-// per superstep, not once per step. The accumulator is zero at every
-// superstep boundary (virtual rows of one vertex are consecutive steps of one
-// lane in one superstep), so it starts at zero for each lane and superstep.
-// x stays in device memory and L2: at the paper's sizes it is larger than a
-// block's shared memory, and it is written inside the kernel, so it is read
-// through a plain pointer (no __ldg, no const __restrict__). Padding lanes
-// target the scratch slot n and write the 0 that the plain version writes
-// there; accum lanes write nothing (the plain version writes x[row] back
-// unchanged).
-//   Single right-hand side: one block, thread l owns lane l.
-//   Multi right-hand side: columns never interact, so the grid runs over
-//   chunks of 32 columns; thread (c, l) owns column c of lane l, and the 32
-//   threads of a warp read neighbouring columns of one row of x f[n+1, m]
-//   (row-major, right-hand side minor), so their loads coalesce.
-// Left for later: staging x or the plan in shared memory, prefetching the
-// next step's indices, and using more than one SM for a single right-hand
-// side.
+// Within one superstep a lane depends only on its own earlier steps (the BSP
+// validity of the schedule: a cross-core edge always crosses a superstep
+// boundary, see core/plan.py). x stays in device memory and L2: at the
+// paper's sizes it is larger than a block's shared memory, and it is written
+// inside the kernel, so it is read through a plain pointer (no __ldg, no
+// const __restrict__); the plan arrays are read through __ldg.
+//
+// Single right-hand side: one block solves each superstep level by level
+// (kernels/levels.py). A vertex is a lane's run of accum steps plus the step
+// that finishes it; its level is 1 + the highest level of a vertex of its
+// own superstep whose row it reads, or 0. The host orders the real
+// lane-steps by (superstep, level, lane, step) and passes the vertex and
+// level bounds; the block's threads stride over one level's vertices, each
+// walking its vertex's steps in order with the accumulator in a register,
+// and one __syncthreads() ends the level, which also makes the level's x
+// rows visible to the next. A vertex reads only rows finished in an earlier
+// superstep or at a lower level of its own, both complete behind an earlier
+// barrier. The chain of dependent gathers is then one per level (80 on the
+// paper's ER set at n = 100,000, against T = 13,561 plan steps). Every row
+// still gets the plan's exact FMA chain, padding slots included: each one
+// computes fma(+0, x[n] = +0, acc), which maps an acc of -0 to +0, so
+// skipping them would change bits. Padding lane-steps are dropped: they only
+// write the +0 that x already holds in the scratch slot n.
+//
+// Multi right-hand side: columns never interact, so the grid runs over
+// chunks of 32 columns; thread (c, l) owns column c of lane l, walks the
+// lane's chain of each superstep, and the block synchronises once per
+// superstep. The 32 threads of a warp read neighbouring columns of one row
+// of x f[n+1, m] (row-major, right-hand side minor), so their loads
+// coalesce. Padding lanes target the scratch slot n and write the 0 that the
+// plain version writes there; accum lanes write nothing.
+//
+// Left for later: skipping padding slots (with an acc + 0 where padding
+// stood), staging the plan in shared memory, more than one block for a
+// level wider than one block, the level order for the m right-hand sides.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,34 +65,36 @@
 namespace {
 
 template <typename T>
-__global__ void sptrsv_single_kernel(
-    const int32_t* __restrict__ row_ids,      // [T, k]
-    const int32_t* __restrict__ col_idx,      // [T, k, W]
-    const T* __restrict__ vals,               // [T, k, W]
-    const T* __restrict__ diag,               // [T, k]
-    const uint8_t* __restrict__ accum,        // [T, k] (bool)
-    const int32_t* __restrict__ step_bounds,  // [S + 1]
-    int n_supersteps, int k, int W,
-    const T* __restrict__ b,                  // [n + 1]
-    T* x) {                                   // [n + 1], zeroed by the caller
-  for (int s = 0; s < n_supersteps; ++s) {
-    const int t0 = step_bounds[s];
-    const int t1 = step_bounds[s + 1];
-    for (int l = threadIdx.x; l < k; l += blockDim.x) {
+__global__ void sptrsv_level_kernel(
+    const int32_t* __restrict__ row_ids,    // [P]
+    const int32_t* __restrict__ col_idx,    // [P, W]
+    const T* __restrict__ vals,             // [P, W]
+    const T* __restrict__ diag,             // [P]
+    const uint8_t* __restrict__ accum,      // [P] (bool)
+    const int32_t* __restrict__ vert_ptr,   // [V + 1]
+    const int32_t* __restrict__ level_ptr,  // [n_levels + 1]
+    int n_levels, int W,
+    const T* __restrict__ b,                // [n + 1]
+    T* x) {                                 // [n + 1], zeroed by the caller
+  int v0 = __ldg(level_ptr);
+  for (int lv = 0; lv < n_levels; ++lv) {
+    const int v1 = __ldg(level_ptr + lv + 1);
+    for (int v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+      const int p1 = __ldg(vert_ptr + v + 1);
       T acc = T(0);
-      for (int t = t0; t < t1; ++t) {
-        const int64_t tl = static_cast<int64_t>(t) * k + l;
-        const int32_t* c = col_idx + tl * W;
-        const T* v = vals + tl * W;
-        for (int w = 0; w < W; ++w) acc = rn::fma(v[w], x[c[w]], acc);
-        if (!accum[tl]) {
-          const int32_t r = row_ids[tl];
-          x[r] = rn::finish(b[r], acc, diag[tl]);
-          acc = T(0);
+      for (int p = __ldg(vert_ptr + v); p < p1; ++p) {
+        const int32_t* c = col_idx + static_cast<int64_t>(p) * W;
+        const T* a = vals + static_cast<int64_t>(p) * W;
+#pragma unroll 4
+        for (int w = 0; w < W; ++w) acc = rn::fma(__ldg(a + w), x[__ldg(c + w)], acc);
+        if (!__ldg(accum + p)) {
+          const int32_t r = __ldg(row_ids + p);
+          x[r] = rn::finish(__ldg(b + r), acc, __ldg(diag + p));
         }
       }
     }
     __syncthreads();
+    v0 = v1;
   }
 }
 
@@ -126,17 +141,15 @@ constexpr int kColsPerBlock = 32;
 
 template <typename T>
 int launch_single(const void* row_ids, const void* col_idx, const void* vals,
-                  const void* diag, const void* accum, const void* step_bounds,
-                  int n_supersteps, int k, int W, const void* b, void* x,
-                  void* stream) {
-  int threads = ((k + 31) / 32) * 32;  // whole warps, one thread per lane
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  if (threads < 32) threads = 32;
-  sptrsv_single_kernel<T><<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+                  const void* diag, const void* accum, const void* vert_ptr,
+                  const void* level_ptr, int n_levels, int W, const void* b,
+                  void* x, void* stream) {
+  sptrsv_level_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_idx),
       static_cast<const T*>(vals), static_cast<const T*>(diag),
-      static_cast<const uint8_t*>(accum), static_cast<const int32_t*>(step_bounds),
-      n_supersteps, k, W, static_cast<const T*>(b), static_cast<T*>(x));
+      static_cast<const uint8_t*>(accum), static_cast<const int32_t*>(vert_ptr),
+      static_cast<const int32_t*>(level_ptr), n_levels, W,
+      static_cast<const T*>(b), static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,19 +180,19 @@ int launch_mrhs(const void* row_ids, const void* col_idx, const void* vals,
 extern "C" {
 
 int sptrsv_single_f32(const void* row_ids, const void* col_idx, const void* vals,
-                      const void* diag, const void* accum, const void* step_bounds,
-                      int n_supersteps, int k, int W, const void* b, void* x,
-                      void* stream) {
-  return launch_single<float>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                              n_supersteps, k, W, b, x, stream);
+                      const void* diag, const void* accum, const void* vert_ptr,
+                      const void* level_ptr, int n_levels, int W, const void* b,
+                      void* x, void* stream) {
+  return launch_single<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                              level_ptr, n_levels, W, b, x, stream);
 }
 
 int sptrsv_single_f64(const void* row_ids, const void* col_idx, const void* vals,
-                      const void* diag, const void* accum, const void* step_bounds,
-                      int n_supersteps, int k, int W, const void* b, void* x,
-                      void* stream) {
-  return launch_single<double>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                               n_supersteps, k, W, b, x, stream);
+                      const void* diag, const void* accum, const void* vert_ptr,
+                      const void* level_ptr, int n_levels, int W, const void* b,
+                      void* x, void* stream) {
+  return launch_single<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                               level_ptr, n_levels, W, b, x, stream);
 }
 
 int sptrsv_mrhs_f32(const void* row_ids, const void* col_idx, const void* vals,

@@ -2,10 +2,12 @@
 
 ``sptrsv_kernel_solve(plan, b)`` is the counterpart of
 ``solver.executor.solve_with_plan`` backed by the CUDA kernels (the plain
-version for CPU tensors). The bulk kernels walk the plan in place, so unlike
-the TPU tiling no step padding is needed; the elastic kernels
-(``elastic_kernel_arrays`` / ``solve_with_elastic_kernel_arrays``) read the
-plan padded to whole slack windows, as the certificate's tiles are.
+version for CPU tensors). The multi-RHS kernel walks the plan in place, so
+unlike the TPU tiling no step padding is needed; the single-RHS kernel reads
+the plan's real lane-steps in level order (``level_plan_arrays``, layout in
+``kernels.levels``); the elastic kernels (``elastic_kernel_arrays`` /
+``solve_with_elastic_kernel_arrays``) read the plan padded to whole slack
+windows, as the certificate's tiles are.
 
 This module is the device half of the ``kernel`` entry in
 ``repro_torch.backends`` — bind through the registry
@@ -13,14 +15,15 @@ This module is the device half of the ``kernel`` entry in
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
-from repro_torch.kernels.sptrsv import sptrsv_cuda, sptrsv_elastic_cuda
+from repro_torch.kernels.levels import LevelOrder, level_order
+from repro_torch.kernels.sptrsv import sptrsv_cuda, sptrsv_elastic_cuda, sptrsv_level_cuda
 from repro_torch.solver.executor import (
     ElasticArrays,
     PlanArrays,
@@ -53,14 +56,60 @@ def kernel_plan_arrays(
     return plan_arrays(plan, dtype=dtype, device=device)
 
 
-def solve_with_kernel_arrays(pa: PlanArrays, b: torch.Tensor) -> torch.Tensor:
-    """The kernel-calling convention in one place: cast ``b``, append the
-    scratch row, run ``sptrsv_cuda``, drop the scratch row. Shared by
-    ``bind_kernel_solver`` and the ``kernel`` backend."""
-    b_pad = pad_rhs(b.to(pa.vals.dtype))
-    x = sptrsv_cuda(
-        pa.row_ids, pa.col_idx, pa.vals, pa.diag, pa.accum, pa.step_bounds, b_pad
+class LevelArrays(NamedTuple):
+    """The plan's real lane-steps in level order on the solver's device:
+    the single-RHS kernel's tensors (``kernels.levels``)."""
+
+    row_ids: torch.Tensor  # int32[P]
+    col_idx: torch.Tensor  # int32[P, W]
+    vals: torch.Tensor  # f[P, W]
+    diag: torch.Tensor  # f[P]
+    accum: torch.Tensor  # bool[P]
+    vert_ptr: torch.Tensor  # int32[V+1]
+    level_ptr: torch.Tensor  # int32[L+1]
+    perm: torch.Tensor  # int64[P]: each lane-step's flat (step * k + lane) plan index
+    n: int
+
+
+def level_plan_arrays(
+    plan: ExecPlan, *, dtype=torch.float32, device=None, order: LevelOrder | None = None
+) -> LevelArrays:
+    """The plan tensors gathered into level order on ``device`` (``None``:
+    the card, raising without CUDA), index contents checked. ``order`` is
+    ``plan``'s level order where the caller has it already."""
+    check_plan_indices(plan)
+    device = resolve_device(device)
+    if order is None:
+        order = level_order(plan)
+    perm = order.perm
+    W = plan.W
+
+    def put(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+
+    return LevelArrays(
+        row_ids=put(plan.row_ids.reshape(-1)[perm], torch.int32),
+        col_idx=put(plan.col_idx.reshape(-1, W)[perm], torch.int32),
+        vals=put(plan.vals.reshape(-1, W)[perm], dtype),
+        diag=put(plan.diag.reshape(-1)[perm], dtype),
+        accum=put(plan.accum.reshape(-1)[perm], torch.bool),
+        vert_ptr=put(order.vert_ptr, torch.int32),
+        level_ptr=put(order.level_ptr, torch.int32),
+        perm=put(perm, torch.int64),
+        n=plan.n,
     )
+
+
+def solve_with_kernel_arrays(pa: PlanArrays, la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
+    """The kernel-calling convention in one place: cast ``b``, append the
+    scratch row, run ``sptrsv_level_cuda`` over ``la`` (b f[n]) or
+    ``sptrsv_cuda`` over ``pa`` (b f[n, m]), drop the scratch row. Shared
+    by ``bind_kernel_solver`` and the ``kernel`` backend."""
+    b_pad = pad_rhs(b.to(pa.vals.dtype))
+    if b_pad.dim() == 1:
+        x = sptrsv_level_cuda(*la[:7], b_pad)
+    else:
+        x = sptrsv_cuda(*pa[:6], b_pad)
     return x[: pa.n]
 
 
@@ -136,10 +185,11 @@ def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device=None):
     multi-RHS)."""
     device = resolve_device(device)
     pa = kernel_plan_arrays(plan, dtype=dtype, device=device)
+    la = level_plan_arrays(plan, dtype=dtype, device=device)
 
     def solve(b):
         return solve_with_kernel_arrays(
-            pa, torch.as_tensor(b, dtype=dtype, device=device)
+            pa, la, torch.as_tensor(b, dtype=dtype, device=device)
         )
 
     return solve

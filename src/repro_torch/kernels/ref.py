@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels in this package.
 
-``sptrsv_ref`` is the plain version of the bulk CUDA SpTRSV kernels: the
-same function, run as a loop of eager PyTorch operations over the
-executor's step bodies (it is not a second implementation).
-``sptrsv_elastic_ref`` is the plain version of the elastic kernels and
+``sptrsv_ref`` is the plain version of the bulk multi-RHS CUDA SpTRSV
+kernel: the same function, run as a loop of eager PyTorch operations over
+the executor's step bodies (it is not a second implementation).
+``sptrsv_level_ref`` is the plain version of the level-ordered single-RHS
+kernel, ``sptrsv_elastic_ref`` that of the elastic kernels and
 ``spmv_ell_ref`` that of the SpMV kernel. The CPU tests use them, the
 ``scan`` backend runs ``sptrsv_ref``, the kernel wrappers run them for CPU
 tensors, and ``chip_smoke.py`` holds the kernels against them.
@@ -30,6 +31,38 @@ def sptrsv_ref(row_ids, col_idx, vals, diag, accum, b_pad):
         x, acc = step(
             x, acc, row_ids[t], col_idx[t], vals[t], diag[t], accum[t], b_pad
         )
+    return x
+
+
+def sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
+    """Plain level-ordered SpTRSV, one right-hand side.
+
+    Shapes: the plan's real lane-steps in level order (``kernels.levels``):
+    row_ids int32[P]; col_idx int32[P,W]; vals f[P,W]; diag f[P]; accum
+    bool[P]; vert_ptr int32[V+1]; level_ptr int32[L+1]; b_pad f[n+1].
+    Returns x f[n+1] (the last row is scratch and stays 0). Level by level;
+    within a level, vectorized over its vertices and, for the g-th
+    lane-step of every vertex that has one, chaining ``torch.addcmul`` over
+    w from the vertex's carried accumulator, as the bulk step does; a
+    finishing step writes x. Bitwise-equal to ``sptrsv_ref`` on the plan.
+    """
+    x = torch.zeros_like(b_pad)
+    vert_ptr = vert_ptr.long()
+    levels = level_ptr.tolist()
+    for v0, v1 in zip(levels[:-1], levels[1:]):
+        start = vert_ptr[v0:v1]
+        length = vert_ptr[v0 + 1 : v1 + 1] - start
+        acc = b_pad.new_zeros(v1 - v0)
+        for g in range(int(length.max())):
+            live = torch.nonzero(length > g).squeeze(1)
+            p = start[live] + g
+            a = acc[live]
+            for w in range(col_idx.shape[1]):
+                a = torch.addcmul(a, vals[p, w], x[col_idx[p, w]])
+            acc[live] = a
+            fin = ~accum[p]
+            rows = row_ids[p][fin]
+            x[rows] = (b_pad[rows] - a[fin]) / diag[p][fin]
     return x
 
 

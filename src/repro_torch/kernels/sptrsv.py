@@ -1,12 +1,14 @@
 """The SpTRSV kernels on the card: wrappers over ``csrc/sptrsv.cu`` (bulk)
 and ``csrc/sptrsv_elastic.cu`` (readiness waves, ``mode="elastic"``).
 
-``sptrsv_cuda`` replaces the JAX package's ``sptrsv_pallas`` (the TPU
-kernels ``_sptrsv_kernel`` and ``_sptrsv_mrhs_kernel``);
-``sptrsv_elastic_cuda`` replaces ``sptrsv_pallas_elastic`` (the TPU kernels
-``_sptrsv_elastic_kernel`` and ``_sptrsv_elastic_mrhs_kernel``). Each takes
-the plan tensors and the right-hand side padded with the scratch row, and
-returns x shaped like ``b_pad`` (the last row is scratch):
+``sptrsv_level_cuda`` (one right-hand side, the plan in level order,
+``kernels.levels``) and ``sptrsv_cuda`` (m right-hand sides) replace the
+JAX package's ``sptrsv_pallas`` (the TPU kernels ``_sptrsv_kernel`` and
+``_sptrsv_mrhs_kernel``); ``sptrsv_elastic_cuda`` replaces
+``sptrsv_pallas_elastic`` (the TPU kernels ``_sptrsv_elastic_kernel`` and
+``_sptrsv_elastic_mrhs_kernel``). Each takes the plan tensors and the
+right-hand side padded with the scratch row, and returns x shaped like
+``b_pad`` (the last row is scratch):
 
   * tensors on the CPU take the plain version (``kernels.ref``), and only
     because they lie on the CPU;
@@ -24,7 +26,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import sptrsv_elastic_ref, sptrsv_ref
+from repro_torch.kernels.ref import sptrsv_elastic_ref, sptrsv_level_ref, sptrsv_ref
 
 launches = {"single": 0, "mrhs": 0, "elastic_single": 0, "elastic_mrhs": 0}
 
@@ -32,7 +34,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "single": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "single": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "mrhs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "elastic_single": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "elastic_mrhs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -54,14 +56,9 @@ def _entry(kind: str, dtype: torch.dtype):
     return fn
 
 
-def _check(row_ids, col_idx, vals, diag, accum, b_pad, **vectors):
-    """The plan tensors' device, layout, types and shapes; ``vectors`` are
-    the 1-D int32 index tensors of the entry point (step bounds, or wave
-    ids and wave counts)."""
-    tensors = dict(
-        row_ids=row_ids, col_idx=col_idx, vals=vals, diag=diag,
-        accum=accum, b_pad=b_pad, **vectors,
-    )
+def _check_tensors(tensors, int_names, vals, accum, b_pad):
+    """Device, layout and types of an entry point's tensors: ``tensors``
+    by name, ``int_names`` those that are int32 indices."""
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -71,7 +68,7 @@ def _check(row_ids, col_idx, vals, diag, accum, b_pad, **vectors):
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("row_ids", "col_idx", *vectors):
+    for name in int_names:
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {tensors[name].dtype}")
     if accum.dtype != torch.bool:
@@ -83,11 +80,26 @@ def _check(row_ids, col_idx, vals, diag, accum, b_pad, **vectors):
             raise TypeError(
                 f"{name} is {tensors[name].dtype}, vals is {vals.dtype}"
             )
-    if row_ids.dim() != 2 or col_idx.dim() != 3:
-        raise ValueError("expected row_ids [T, k] and col_idx [T, k, W]")
+
+
+def _check_vectors(vectors):
     for name, t in vectors.items():
         if t.dim() != 1:
             raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+
+
+def _check(row_ids, col_idx, vals, diag, accum, b_pad, **vectors):
+    """The plan tensors' device, layout, types and shapes; ``vectors`` are
+    the 1-D int32 index tensors of the entry point (step bounds, or wave
+    ids and wave counts)."""
+    tensors = dict(
+        row_ids=row_ids, col_idx=col_idx, vals=vals, diag=diag,
+        accum=accum, b_pad=b_pad, **vectors,
+    )
+    _check_tensors(tensors, ("row_ids", "col_idx", *vectors), vals, accum, b_pad)
+    if row_ids.dim() != 2 or col_idx.dim() != 3:
+        raise ValueError("expected row_ids [T, k] and col_idx [T, k, W]")
+    _check_vectors(vectors)
     T, k = row_ids.shape
     if col_idx.shape[:2] != (T, k) or vals.shape != col_idx.shape:
         raise ValueError(
@@ -116,23 +128,63 @@ def _launch(kind, vals, b_pad, *args):
 
 
 def sptrsv_cuda(row_ids, col_idx, vals, diag, accum, step_bounds, b_pad):
-    """Scheduled bulk SpTRSV; see the module docstring. Index contents
-    (rows and columns in [0, n], monotone step bounds ending at T) are
-    the plan compiler's guarantee and are checked at bind time by
+    """Scheduled bulk SpTRSV; see the module docstring. On the card it
+    runs m right-hand sides (``b_pad`` f[n+1, m]) and raises for one:
+    that is ``sptrsv_level_cuda``'s. Index contents (rows and columns in
+    [0, n], monotone step bounds ending at T) are the plan compiler's
+    guarantee and are checked at bind time by
     ``kernels.ops.kernel_plan_arrays``."""
     _check(row_ids, col_idx, vals, diag, accum, b_pad, step_bounds=step_bounds)
     if b_pad.device.type == "cpu":
         return sptrsv_ref(row_ids, col_idx, vals, diag, accum, b_pad)
-    T, k = row_ids.shape
-    W = col_idx.shape[2]
+    if b_pad.dim() == 1:
+        raise ValueError(
+            "sptrsv_cuda runs m right-hand sides on the card; one right-hand "
+            "side is sptrsv_level_cuda's (kernels.ops.level_plan_arrays)"
+        )
+    k, W = col_idx.shape[1:]
     x = torch.zeros_like(b_pad)
     if b_pad.numel() == 0:
         return x
     ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, step_bounds)]
     S = step_bounds.shape[0] - 1
-    kind = "single" if b_pad.dim() == 1 else "mrhs"
-    shape = (S, k, W) if kind == "single" else (S, k, W, b_pad.shape[1])
-    _launch(kind, vals, b_pad, *ptrs, *shape, b_pad.data_ptr(), x.data_ptr())
+    _launch("mrhs", vals, b_pad, *ptrs, S, k, W, b_pad.shape[1], b_pad.data_ptr(),
+            x.data_ptr())
+    return x
+
+
+def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
+    """Scheduled SpTRSV of one right-hand side over the plan's real
+    lane-steps in level order (``kernels.levels``): row_ids int32[P],
+    col_idx int32[P, W], vals f[P, W], diag f[P], accum bool[P], vert_ptr
+    int32[V+1], level_ptr int32[L+1], b_pad f[n+1]. Bitwise-equal to
+    ``sptrsv_cuda`` on the plan. Index contents are checked at bind time
+    by ``kernels.ops.level_plan_arrays``."""
+    tensors = dict(
+        row_ids=row_ids, col_idx=col_idx, vals=vals, diag=diag, accum=accum,
+        vert_ptr=vert_ptr, level_ptr=level_ptr, b_pad=b_pad,
+    )
+    _check_tensors(tensors, ("row_ids", "col_idx", "vert_ptr", "level_ptr"),
+                   vals, accum, b_pad)
+    _check_vectors(dict(row_ids=row_ids, diag=diag, accum=accum, vert_ptr=vert_ptr,
+                        level_ptr=level_ptr, b_pad=b_pad))
+    P = row_ids.shape[0]
+    if col_idx.dim() != 2 or col_idx.shape[0] != P or vals.shape != col_idx.shape:
+        raise ValueError(
+            f"col_idx {tuple(col_idx.shape)} and vals {tuple(vals.shape)} must be [P={P}, W]"
+        )
+    if diag.shape != (P,) or accum.shape != (P,):
+        raise ValueError(f"diag and accum must be [P={P}]")
+    if vert_ptr.shape[0] < 1 or level_ptr.shape[0] < 1 or b_pad.shape[0] < 1:
+        raise ValueError("vert_ptr, level_ptr and b_pad must not be empty")
+    if b_pad.device.type == "cpu":
+        return sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                level_ptr, b_pad)
+    x = torch.zeros_like(b_pad)
+    ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                   level_ptr)]
+    _launch("single", vals, b_pad, *ptrs, level_ptr.shape[0] - 1, col_idx.shape[1],
+            b_pad.data_ptr(), x.data_ptr())
     return x
 
 

@@ -7,7 +7,8 @@ plan carried across with ``convert.exec_plan_from_numpy``:
     within rtol=atol=1e-4 (the reference's own kernel tolerance,
     tests/test_kernels.py: the Pallas body tree-sums over W);
   * ``update_values`` == a fresh bind, and == the JAX scan bound's
-    ``update_values``, bitwise;
+    ``update_values``, bitwise (for the kernel backend also its level-order
+    tensors, and on data holding explicit and signed zeros);
   * the kernel wrapper's input checks.
 """
 import dataclasses
@@ -137,6 +138,23 @@ def test_update_values_bitwise(name, backend):
         bound.solve(torch.from_numpy(_rhs(jp.n, None))).numpy(),
         np.asarray(jget_backend("scan").bind(jp).solve(jnp.asarray(_rhs(jp.n, None)))),
     )
+    if backend == "kernel":
+        # the single-RHS kernel's tensors, refreshed through the source maps
+        # in level order, and data holding explicit and signed zeros
+        for a, b in zip(refreshed._la[:7], fresh._la[:7]):
+            assert torch.equal(a, b) and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        zeros = data.copy()
+        zeros[::3] = np.where(np.arange(zeros[::3].size) % 2, -0.0, 0.0)
+        zeros[L2.indices == L2.row_of_entry()] = data[L2.indices == L2.row_of_entry()]
+        fresh0 = get_backend(backend).bind(
+            _port_plan(jcore.compile_plan(dataclasses.replace(L2, data=zeros), s2, width=2)),
+            device="cpu",
+        )
+        refreshed0 = refreshed.update_values(zeros)
+        b = torch.from_numpy(_rhs(jp.n, None, seed=4))
+        _assert_bitwise(refreshed0.solve(b).numpy(), fresh0.solve(b).numpy())
+        for a, b in zip(refreshed0._la[2:4], fresh0._la[2:4]):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_update_values_rejects_wrong_length():
@@ -152,6 +170,9 @@ def test_describe_reports_binding():
     assert d["backend"] == "kernel" and "steps_per_tile" not in d
     assert (d["n"], d["n_steps"], d["k"], d["W"]) == (jp.n, jp.n_steps, 4, 3)
     assert d["dtype"] == "float32" and d["device"] == "cpu"
+    assert d["n_levels"] > 0
+    scan = get_backend("scan").bind(_port_plan(jp), device="cpu").describe()
+    assert d["device_bytes"] > scan["device_bytes"]  # the level-order tensors
 
 
 def test_check_plan_indices_rejects_bad_plans():

@@ -21,6 +21,7 @@ from repro_torch.kernels.ops import (
     bind_kernel_solver,
     elastic_kernel_arrays,
     kernel_plan_arrays,
+    level_plan_arrays,
 )
 from repro_torch.solver.executor import (
     elastic_plan_arrays,
@@ -115,6 +116,10 @@ def _kernel_plan_arrays(plan):
     return kernel_plan_arrays(plan)
 
 
+def _level_plan_arrays(plan):
+    return level_plan_arrays(plan)
+
+
 def _bind_kernel_solver(plan):
     return bind_kernel_solver(plan)
 
@@ -144,7 +149,7 @@ def _spmv(plan):
 @pytest.mark.parametrize(
     "entry",
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
-     _kernel_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
+     _kernel_plan_arrays, _level_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
      _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv],
 )
 def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
@@ -168,12 +173,13 @@ def test_sptrsv_cuda_on_cpu_takes_plain_path():
     bm = pad_rhs(torch.ones(120, 3))
     x1 = sptrsv.sptrsv_cuda(*pa[:6], b1)
     xm = sptrsv.sptrsv_cuda(*pa[:6], bm)
+    xl = sptrsv.sptrsv_level_cuda(*level_plan_arrays(solver.exec_plan, device="cpu")[:7], b1)
     solver.solve(np.ones(120))
     assert torch.equal(elastic.solve(np.ones((120, 3))), solver.solve(np.ones((120, 3))))
     spmv.spmv(L, np.ones(120), device="cpu")
     assert set(sptrsv.launches) == {"single", "mrhs", "elastic_single", "elastic_mrhs"}
     assert not any(sptrsv.launches.values()) and spmv.launches == {"spmv": 0}
-    assert torch.equal(xm[:, 0], x1)
+    assert torch.equal(xm[:, 0], x1) and torch.equal(xl, x1)
     assert not build._LIBS  # nothing was built or loaded
 
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels (bulk and elastic SpTRSV, SpMV) against their plain
-versions, on the card.
+"""The CUDA kernels (bulk SpTRSV, single RHS in level order and multi-RHS;
+elastic SpTRSV; SpMV) against their plain versions, on the card.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device (it
 adds no pass there). On the card run it with
@@ -23,11 +23,12 @@ from repro_torch.kernels import spmv, sptrsv
 from repro_torch.kernels.ops import (
     elastic_kernel_arrays,
     kernel_plan_arrays,
+    level_plan_arrays,
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
 )
-from repro_torch.kernels.ref import spmv_ell_ref
-from repro_torch.solver.executor import plan_arrays, solve_with_plan
+from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref
+from repro_torch.solver.executor import pad_rhs, plan_arrays, solve_with_plan
 from repro_torch.sparse import erdos_renyi_lower, narrow_band_lower
 
 pytestmark = pytest.mark.cuda
@@ -59,10 +60,12 @@ def test_kernel_matches_plain_bitwise(cuda, gen, k, width, m, dtype):
     x_cpu = solve_with_plan(plan_arrays(plan, dtype=dtype, device="cpu"), b)
     before = dict(sptrsv.launches)
     x_gpu = solve_with_kernel_arrays(
-        kernel_plan_arrays(plan, dtype=dtype, device=cuda), b.to(cuda)
+        kernel_plan_arrays(plan, dtype=dtype, device=cuda),
+        level_plan_arrays(plan, dtype=dtype, device=cuda),
+        b.to(cuda),
     )
     torch.cuda.synchronize()
-    kind = "single" if m is None else "mrhs"
+    kind = "single" if m is None else "mrhs"  # single: the level kernel
     assert sptrsv.launches[kind] == before[kind] + 1
     assert _bits_equal(x_gpu, x_cpu)
 
@@ -77,10 +80,40 @@ def test_launch_leaves_current_device(cuda):
     for index in range(torch.cuda.device_count()):
         before = torch.cuda.current_device()
         dev = torch.device("cuda", index)
-        x = solve_with_kernel_arrays(kernel_plan_arrays(plan, device=dev), b.to(dev))
+        x = solve_with_kernel_arrays(
+            kernel_plan_arrays(plan, device=dev), level_plan_arrays(plan, device=dev), b.to(dev)
+        )
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == before
         assert _bits_equal(x, x_cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gen", ["er", "nb", "wide"])
+def test_level_kernel_matches_level_ref_bitwise(cuda, gen, dtype):
+    # "wide": levels of several thousand vertices, more than one block's threads
+    L = {"er": lambda: erdos_renyi_lower(2000, 1e-3, seed=0),
+         "nb": lambda: narrow_band_lower(2000, 0.14, 10, seed=0),
+         "wide": lambda: erdos_renyi_lower(20000, 2e-5, seed=1)}[gen]()
+    plan = repro_torch.TriangularSolver.plan(L, k=8, width=2, device="cpu").exec_plan
+    b_pad = pad_rhs(torch.as_tensor(np.random.default_rng(3).standard_normal(L.n_rows), dtype=dtype))
+    la_cpu = level_plan_arrays(plan, dtype=dtype, device="cpu")
+    la = level_plan_arrays(plan, dtype=dtype, device=cuda)
+    before = sptrsv.launches["single"]
+    x = sptrsv.sptrsv_level_cuda(*la[:7], b_pad.to(cuda))
+    torch.cuda.synchronize()
+    assert sptrsv.launches["single"] == before + 1
+    assert _bits_equal(x, sptrsv_level_ref(*la_cpu[:7], b_pad))
+    assert _bits_equal(x, sptrsv.sptrsv_cuda(*plan_arrays(plan, dtype=dtype, device="cpu")[:6], b_pad))
+
+
+def test_bulk_kernel_refuses_single_rhs_on_card(cuda):
+    plan = repro_torch.TriangularSolver.plan(
+        narrow_band_lower(500, 0.14, 10, seed=4), device="cpu"
+    ).exec_plan
+    pa = kernel_plan_arrays(plan, device=cuda)
+    with pytest.raises(ValueError, match="sptrsv_level_cuda"):
+        sptrsv.sptrsv_cuda(*pa[:6], torch.zeros(501, device=cuda))
 
 
 def test_front_door_on_cuda(cuda):

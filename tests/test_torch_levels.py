@@ -1,0 +1,213 @@
+"""The single-RHS kernel's layout and plain version, on the CPU:
+
+  * the level order of a plan (``kernels.levels.level_order``) on ER, NB and
+    IC(0) plans at n ~ 2,000, k in {4, 8, 16}, width in {None, 2, 3} (widths
+    2 and 3 force accumulate rows): ``perm`` covers every real lane-step
+    once, each vertex's steps are contiguous and in plan order, supersteps
+    come in order, and every in-neighbour of a vertex sits at a strictly
+    lower level (at exactly one level below for the deepest one);
+  * ``sptrsv_level_ref`` == ``sptrsv_ref`` == the JAX package's
+    ``solve_with_plan``, bitwise, in f32 and f64, and on inputs that hold
+    signed zeros and explicit zero entries;
+  * the wrappers' checks: ``sptrsv_level_cuda``'s input checks, and
+    ``sptrsv_cuda`` refusing one right-hand side off the CPU.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as jcore
+import repro.sparse as jsparse
+import repro_torch
+from repro.solver.executor import plan_arrays as jplan_arrays
+from repro.solver.executor import solve_with_plan as jsolve_with_plan
+from repro_torch.convert import exec_plan_from_numpy
+from repro_torch.kernels import sptrsv
+from repro_torch.kernels.levels import level_order
+from repro_torch.kernels.ops import level_plan_arrays
+from repro_torch.kernels.ref import sptrsv_level_ref, sptrsv_ref
+from repro_torch.solver.executor import pad_rhs, plan_arrays
+from repro_torch.sparse import erdos_renyi_lower, ichol0, narrow_band_lower, poisson2d_matrix
+
+_TORCH = {"float32": torch.float32, "float64": torch.float64}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_plan(name, k, width):
+    L = {
+        "er": lambda: erdos_renyi_lower(2000, 2e-3, seed=3),
+        "nb": lambda: narrow_band_lower(2000, 0.14, 10, seed=4),
+        "ichol": lambda: ichol0(poisson2d_matrix(45)),
+    }[name]()
+    return repro_torch.TriangularSolver.plan(
+        L, k=k, width=width, device="cpu", backend="scan"
+    ).exec_plan
+
+
+@pytest.mark.parametrize("width", [None, 2, 3])
+@pytest.mark.parametrize("k", [4, 8, 16])
+@pytest.mark.parametrize("name", ["er", "nb", "ichol"])
+def test_level_order_properties(name, k, width):
+    plan = _port_plan(name, k, width)
+    n, W = plan.n, plan.W
+    order = level_order(plan)
+    perm, vp, lp = order.perm, order.vert_ptr, order.level_ptr
+    V, n_levels = len(vp) - 1, order.n_levels
+
+    # perm covers every real lane-step exactly once
+    assert np.array_equal(np.sort(perm), np.flatnonzero(plan.row_ids.reshape(-1) != n))
+    assert vp[0] == 0 and vp[-1] == perm.size and (np.diff(vp) > 0).all()
+    assert lp[0] == 0 and lp[-1] == V and (np.diff(lp) > 0).all()
+
+    # each vertex: consecutive steps of one lane in plan order, one row,
+    # accumulating at every step but its last
+    step, lane = np.divmod(perm, plan.k)
+    rows = plan.row_ids.reshape(-1)[perm]
+    vertex = np.repeat(np.arange(V), np.diff(vp))
+    same = vertex[1:] == vertex[:-1]
+    assert (lane[1:][same] == lane[:-1][same]).all()
+    assert (step[1:][same] == step[:-1][same] + 1).all()
+    assert (rows[1:][same] == rows[:-1][same]).all()
+    last = np.append(~same, True)
+    assert np.array_equal(plan.accum.reshape(-1)[perm], ~last)
+    assert np.array_equal(np.sort(rows[last]), np.arange(n))  # each row finished once
+
+    # supersteps in order, one per level
+    bounds = np.asarray(plan.step_bounds)
+    superstep = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))[step]
+    assert (np.diff(superstep) >= 0).all()
+    level = np.repeat(np.arange(n_levels), np.diff(lp))  # level of each vertex
+    assert np.array_equal(order.level_superstep[level], superstep[vp[:-1]])
+
+    # every in-neighbour sits at a strictly lower level; a vertex's deepest
+    # in-neighbour of its own superstep one level below (levels are tight)
+    finisher = np.empty(n, np.int64)
+    finisher[rows[last]] = vertex[last]
+    cols = plan.col_idx.reshape(-1, W)[perm]
+    p, w = np.nonzero(cols != n)
+    u, v = finisher[cols[p, w]], vertex[p]
+    assert (level[u] < level[v]).all()
+    own = order.level_superstep[level[u]] == order.level_superstep[level[v]]
+    deepest = np.full(V, -1)
+    np.maximum.at(deepest, v[own], level[u[own]])
+    first_level = np.concatenate([[True], np.diff(order.level_superstep) != 0])
+    assert np.array_equal(deepest >= 0, ~first_level[level])
+    has = deepest >= 0
+    assert (deepest[has] == level[has] - 1).all()
+
+    stats = order.stats()
+    assert stats["levels"] == n_levels and sum(stats["levels_per_superstep"]) == n_levels
+    assert stats["level_width_max"] == int(np.diff(lp).max())
+
+
+def _jax_matrix(name):
+    return {
+        "er": lambda: jsparse.erdos_renyi_lower(700, 2e-3, seed=11),
+        "nb": lambda: jsparse.narrow_band_lower(700, 0.14, 10, seed=12),
+        "ichol": lambda: jsparse.ichol0(jsparse.poisson2d_matrix(24)),
+    }[name]()
+
+
+def _jax_plan(L, k, width, np_dtype):
+    s = jcore.grow_local(jsparse.dag_from_lower_csr(L), k)
+    L2, s2, _, _ = jcore.apply_reordering(L, s)
+    return jcore.compile_plan(L2, s2, width=width, dtype=np_dtype)
+
+
+def _bits(a):
+    a = np.ascontiguousarray(np.asarray(a))
+    return a.view(np.uint32 if a.dtype == np.float32 else np.uint64)
+
+
+def _assert_bitwise(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype
+    nd = int((_bits(a) != _bits(b)).sum())
+    assert nd == 0, f"{nd} of {a.size} entries differ"
+
+
+def _three_solves(jp, b, dtype):
+    """x from the level walk, the step walk and the JAX scan executor."""
+    plan = exec_plan_from_numpy({f.name: getattr(jp, f.name) for f in dataclasses.fields(jp)})
+    tdt = _TORCH[dtype]
+    b_pad = pad_rhs(torch.from_numpy(b))
+    la = level_plan_arrays(plan, dtype=tdt, device="cpu")
+    pa = plan_arrays(plan, dtype=tdt, device="cpu")
+    x_level = sptrsv_level_ref(*la[:7], b_pad)
+    x_step = sptrsv_ref(*pa[:5], b_pad)
+    with jax.enable_x64(dtype == "float64"):
+        x_jax = np.asarray(jsolve_with_plan(jplan_arrays(jp, dtype=jnp.dtype(dtype)), jnp.asarray(b)))
+    assert x_level[plan.n] == 0.0 and x_level[plan.n].sign() >= 0  # the scratch slot
+    return x_level[: plan.n].numpy(), x_step[: plan.n].numpy(), x_jax
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("k,width", [(8, None), (4, 2), (16, 3)])
+@pytest.mark.parametrize("name", ["er", "nb", "ichol"])
+def test_level_ref_bitwise_vs_step_walk_and_jax(name, k, width, dtype):
+    jp = _jax_plan(_jax_matrix(name), k, width, np.dtype(dtype))
+    b = np.random.default_rng(k).standard_normal(jp.n).astype(dtype)
+    x_level, x_step, x_jax = _three_solves(jp, b, dtype)
+    _assert_bitwise(x_level, x_step)
+    _assert_bitwise(x_level, x_jax)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_level_ref_bitwise_with_signed_zeros(dtype):
+    L = _jax_matrix("er")
+    rng = np.random.default_rng(5)
+    rows = L.row_of_entry()
+    off = np.flatnonzero(L.indices != rows)
+    data = np.array(L.data, dtype=np.float64)
+    zeros = rng.choice(off, off.size // 4, replace=False)  # explicit zero entries
+    data[zeros] = np.where(rng.random(zeros.size) < 0.5, -0.0, 0.0)
+    jp = _jax_plan(dataclasses.replace(L, data=data), 4, 2, np.dtype(dtype))
+    b = rng.standard_normal(jp.n).astype(dtype)
+    zero_b = rng.random(jp.n) < 0.5  # half of b is +0 or -0
+    b[zero_b] = np.where(rng.random(int(zero_b.sum())) < 0.5, -0.0, 0.0)
+    x_level, x_step, x_jax = _three_solves(jp, b, dtype)
+    assert (np.signbit(x_level) & (x_level == 0)).any()  # -0 reached x
+    _assert_bitwise(x_level, x_step)
+    _assert_bitwise(x_level, x_jax)
+
+
+def test_sptrsv_level_cuda_input_checks():
+    plan = _port_plan("nb", 4, 2)
+    la = level_plan_arrays(plan, device="cpu")
+    b_pad = pad_rhs(torch.from_numpy(np.random.default_rng(0).standard_normal(plan.n)).float())
+    args = [*la[:7], b_pad]
+    for i, bad, err in [
+        (0, la.row_ids.long(), TypeError),  # int64 indices
+        (6, la.level_ptr.long(), TypeError),  # int64 level bounds
+        (4, la.accum.float(), TypeError),  # float mask
+        (7, b_pad.double(), TypeError),  # dtype mismatch with vals
+        (1, la.col_idx.t(), ValueError),  # not contiguous
+        (3, la.diag[:-1], ValueError),  # wrong shape
+        (7, b_pad[:, None].contiguous(), ValueError),  # one right-hand side only
+    ]:
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(err):
+            sptrsv.sptrsv_level_cuda(*a)
+    sptrsv.reset_launches()
+    x = sptrsv.sptrsv_level_cuda(*args)
+    _assert_bitwise(x.numpy(), sptrsv_level_ref(*args).numpy())
+    assert not any(sptrsv.launches.values())  # the plain version is no launch
+
+
+def test_single_rhs_off_the_cpu_is_the_level_kernels():
+    # tensors off the CPU never take a plain version: the bulk wrapper
+    # refuses one right-hand side and names the level kernel's entry point
+    plan = _port_plan("er", 8, None)
+    pa = plan_arrays(plan, device="meta")
+    b_pad = torch.zeros(plan.n + 1, device="meta")
+    with pytest.raises(ValueError, match="sptrsv_level_cuda"):
+        sptrsv.sptrsv_cuda(*pa[:6], b_pad)
+    la = level_plan_arrays(plan, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        sptrsv.sptrsv_level_cuda(*la[:7], b_pad)
