@@ -13,9 +13,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              {8, 32}, width in {None, 2}, single RHS through the level-ordered
              kernel and m in {5, 64, 300} through the multi-RHS kernel; the
              largest ulp gap to the plain version run on the card is
-             reported), the elastic kernels (k in {8, 32}, slack in {1, 8},
-             single RHS and m in {5, 64}; also bitwise-equal to the bulk
-             plain version) and the SpMV kernel (width in {None, 2})
+             reported), the elastic kernels (the level walk over runs of
+             slack supersteps; k in {8, 32}, slack in {1, 8}, single RHS and
+             m in {5, 64}; also bitwise-equal to the bulk plain version) and
+             the SpMV kernel (width in {None, 2})
   main_path  the paper's synthetic sets at n=100,000 (§6.2.4 ER p=1e-4,
              §6.2.5 NB p=0.14 B=10, seed 0; NB with a dominant diagonal, as
              its own values overflow float32): TriangularSolver.plan(L) with
@@ -26,7 +27,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   main_path_elastic   TriangularSolver.plan(L, mode="elastic") on the same
              matrices, the same b, B and numeric_update: every answer
              bitwise-equal to the bulk answers above; the barrier counts
-             (supersteps against readiness waves)
+             (supersteps, the elastic level order's levels, and the
+             certificate's readiness waves the TPU kernel walks)
   main_path_spmv      spmv(L, x) on the same matrices, against scipy in f64
              Each main-path phase sets the launch counters to 0 just before
              it and reads them just after; its kernels must have launched.
@@ -41,7 +43,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              bound and padding share are printed beside it). The single-RHS
              line also reports the level order: its host seconds, levels
              (= block barriers), widest level, the supersteps and the DAG's
-             longest path beside them
+             longest path beside them; the elastic lines report the levels
+             of the order over runs of slack supersteps and its slack
 
 then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -61,15 +64,16 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, outside the tensor cores
-# kernel name -> (TPU kernel it replaces, CUDA source, launch counter)
+# kernel name -> (TPU kernel it replaces, CUDA source of its entry point,
+# launch counter, file that holds the kernel's body)
 KERNELS = {
-    "sptrsv_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "single"),
-    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "mrhs"),
+    "sptrsv_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "single", "level.cuh"),
+    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "mrhs", "sptrsv.cu"),
     "sptrsv_elastic_single": (
-        "src/repro/kernels/sptrsv.py:146", "sptrsv_elastic.cu", "elastic_single"),
+        "src/repro/kernels/sptrsv.py:146", "sptrsv_elastic.cu", "elastic_single", "level.cuh"),
     "sptrsv_elastic_mrhs": (
-        "src/repro/kernels/sptrsv.py:232", "sptrsv_elastic.cu", "elastic_mrhs"),
-    "spmv": ("src/repro/kernels/spmv.py:32", "spmv.cu", "spmv"),
+        "src/repro/kernels/sptrsv.py:232", "sptrsv_elastic.cu", "elastic_mrhs", "level.cuh"),
+    "spmv": ("src/repro/kernels/spmv.py:32", "spmv.cu", "spmv", "spmv.cu"),
 }
 KERNEL_REPLACES = {name: k[0] for name, k in KERNELS.items()}
 MAIN_M = 32
@@ -105,17 +109,11 @@ def main() -> int:
     from repro_torch.kernels import build, spmv, sptrsv
     from repro_torch.kernels.levels import level_order
     from repro_torch.kernels.ops import (
-        elastic_kernel_args,
         elastic_kernel_arrays,
         kernel_plan_arrays,
         level_plan_arrays,
     )
-    from repro_torch.kernels.ref import (
-        spmv_ell_ref,
-        sptrsv_elastic_ref,
-        sptrsv_level_ref,
-        sptrsv_ref,
-    )
+    from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref, sptrsv_ref
     from repro_torch.solver.executor import pad_rhs, plan_arrays
     from repro_torch.sparse import (
         dag_from_lower_csr,
@@ -226,19 +224,21 @@ def main() -> int:
             pa_cpu = plan_arrays(plan, device="cpu")
             for slack in (1, 8):
                 plan_e = dataclasses.replace(plan, elastic=elastic_transform(plan, slack))
-                args_cpu = elastic_kernel_args(*elastic_kernel_arrays(plan_e, device="cpu"))
-                args_gpu = elastic_kernel_args(*elastic_kernel_arrays(plan_e, device=dev))
+                la_cpu = elastic_kernel_arrays(plan_e, device="cpu")
+                la_gpu = elastic_kernel_arrays(plan_e, device=dev)
                 rng = np.random.default_rng(k + slack)
                 for m in (None, 5, 64):
                     b_pad = pad_rhs(torch.as_tensor(rng.standard_normal(
                         2000 if m is None else (2000, m)), dtype=torch.float32))
-                    x_cpu = sptrsv_elastic_ref(*args_cpu, b_pad)
+                    x_cpu = sptrsv_level_ref(*la_cpu[:7], b_pad)
                     x_bulk = sptrsv_ref(*pa_cpu[:5], b_pad)
-                    x_gpu = sptrsv.sptrsv_elastic_cuda(*args_gpu, b_pad.to(dev))
+                    x_gpu = sptrsv.sptrsv_elastic_cuda(*la_gpu[:7], b_pad.to(dev))
                     torch.cuda.synchronize()
                     same = bitwise_equal(x_gpu, x_cpu)
                     cells.append({"matrix": gen_name, "k": k, "slack": slack, "W": plan.W,
-                                  "T": plan.n_steps, "waves": int(plan_e.elastic.n_waves.sum()),
+                                  "T": plan.n_steps, "supersteps": plan.n_supersteps,
+                                  "levels": int(la_gpu.level_ptr.numel() - 1),
+                                  "waves": int(plan_e.elastic.n_waves.sum()),
                                   "m": m, "bitwise": same,
                                   "bitwise_vs_bulk": bitwise_equal(x_gpu, x_bulk)})
                     require(same and cells[-1]["bitwise_vs_bulk"],
@@ -378,9 +378,14 @@ def main() -> int:
                         f"{name} {stage} {kname}: elastic kernel != bulk answer")
                 main_err[kname] = max(main_err.get(kname, 0.0), max_abs(x, x_bulk))
         ep = el.exec_plan.elastic
+        # one block barrier per level of the order over runs of slack
+        # supersteps; the certificate's waves are what the TPU kernel walks
         rows.append({"matrix": name, "plan_s": round(plan_s, 3), "slack": ep.slack,
-                     "n_steps": ep.n_steps, "n_macro_steps": ep.n_macro_steps,
-                     "barriers_bulk": ep.n_supersteps, "barriers_elastic": int(ep.n_waves.sum()),
+                     "n_steps": ep.n_steps, "n_supersteps": ep.n_supersteps,
+                     "barriers_bulk": {"single": solvers[name].bound.describe()["n_levels"],
+                                       "mrhs": ep.n_supersteps},
+                     "barriers_elastic": el.bound.describe()["n_levels"],
+                     "waves_certificate": int(ep.n_waves.sum()),
                      "mean_waves_per_tile": float(ep.n_waves.mean())})
         elastic_solvers[name] = el
     elastic_launches = dict(sptrsv.launches)
@@ -559,27 +564,36 @@ def main() -> int:
     for name, el in elastic_solvers.items():
         plan = el.exec_plan
         ep = plan.elastic
-        args = elastic_kernel_args(*elastic_kernel_arrays(plan, device=dev))
-        esize = args[4].element_size()
+        t0 = time.perf_counter()
+        order = level_order(plan, slack=ep.slack)
+        level_s = time.perf_counter() - t0
+        la = level_plan_arrays(plan, device=dev, order=order)
+        esize = la.vals.element_size()
         work = plan_work(plan, esize)
-        wave_bytes = (args[0].numel() + args[1].numel()) * 4
         for kname, m in (("sptrsv_elastic_single", None), ("sptrsv_elastic_mrhs", MAIN_M)):
             b_pad = rhs_pad(el.n, m)  # the bulk timing's right-hand side
             ms = statistics.median(cuda_times(
-                lambda: sptrsv.sptrsv_elastic_cuda(*args, b_pad), 3, 20))
-            x = sptrsv.sptrsv_elastic_cuda(*args, b_pad)
-            # the plain version once: it launches tens of operations per wave
+                lambda: sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad), 3, 20))
+            x = sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad)
+            # the plain version once: it launches tens of operations per level
             x_plain = []
-            plain = cuda_times(lambda: x_plain.append(sptrsv_elastic_ref(*args, b_pad)), 0, 1)
+            plain = cuda_times(lambda: x_plain.append(sptrsv_level_ref(*la[:7], b_pad)), 0, 1)
             require(bitwise_equal(x, x_plain[0]), f"{name} {kname}: timed kernel != plain")
             cols = 1 if m is None else m
             bulk = timing[(name, kname.replace("elastic_", ""))]
+            stats = order.stats()
             rec = {"matrix": name, "kernel": kname, "m": cols, "ms": ms,
                    "launches_per_solve": 1,
-                   **bound(work["bytes"] + wave_bytes + 2 * el.n * cols * esize,
+                   # the solve's data alone, as for the bulk lines
+                   **bound(work["bytes"] + 2 * el.n * cols * esize,
                            2 * (work["entries"] + work["finishes"]) * cols),
                    "entries": work["entries"], "slack": ep.slack,
-                   "barriers": int(ep.n_waves.sum()), "barriers_bulk": ep.n_supersteps,
+                   # one block barrier per level (per column block for m RHS)
+                   "levels": order.n_levels, "barriers": order.n_levels,
+                   "level_width_max": stats["level_width_max"],
+                   "levels_per_run": stats["levels_per_run"], "level_order_s": level_s,
+                   "supersteps": ep.n_supersteps, "waves_certificate": int(ep.n_waves.sum()),
+                   "barriers_bulk": bulk["barriers"],
                    "bulk_ms": bulk["ms"], "ms_over_bulk": ms / bulk["ms"],
                    "plain_ms": statistics.median(plain), "plain_reps": len(plain),
                    # the same system and right-hand side as the bulk record
@@ -622,10 +636,11 @@ def main() -> int:
         emit({"phase": "timing", **rec})
 
     summary = []
-    for kname, (replaces, source, counter) in KERNELS.items():
+    for kname, (replaces, source, counter, body) in KERNELS.items():
         rec = timing[("er", kname)]
         summary.append({
             "name": kname, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "body": f"src/repro_torch/csrc/{body}",
             "replaces": replaces, "launches": path_launches[counter],
             "max_abs_err": main_err[kname], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"],

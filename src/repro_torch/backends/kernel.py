@@ -18,6 +18,7 @@ from repro_torch.kernels.ops import (
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
 )
+from repro_torch.solver.executor import elastic_plan_arrays
 
 
 def kernel_arrays(exec_plan, *, dtype, device):
@@ -27,6 +28,20 @@ def kernel_arrays(exec_plan, *, dtype, device):
         kernel_plan_arrays(exec_plan, dtype=dtype, device=device),
         level_plan_arrays(exec_plan, dtype=dtype, device=device),
     )
+
+
+def _refreshed_levels(la, vals, diag):
+    """``la`` with the values gathered by ``la.perm`` from refreshed plan
+    tensors (any layout whose flat ``step * k + lane`` index is the
+    plan's), on the device."""
+    return la._replace(vals=vals.reshape(-1, vals.shape[-1])[la.perm],
+                       diag=diag.reshape(-1)[la.perm])
+
+
+def _describe_levels(out, la):
+    out["n_levels"] = la.level_ptr.numel() - 1
+    out["device_bytes"] += _device_bytes(la[:8])
+    return out
 
 
 class KernelBoundSolve(ScanBoundSolve):
@@ -47,42 +62,57 @@ class KernelBoundSolve(ScanBoundSolve):
 
     def update_values(self, data) -> "KernelBoundSolve":
         vals, diag = self._refreshed(data)
-        la = self._la
-        lvals = vals.reshape(-1, vals.shape[-1])[la.perm]
-        ldiag = diag.reshape(-1)[la.perm]
         return type(self)(
-            (self._pa._replace(vals=vals, diag=diag), la._replace(vals=lvals, diag=ldiag)),
+            (self._pa._replace(vals=vals, diag=diag), _refreshed_levels(self._la, vals, diag)),
             self._val_src,  # index tensors shared, read-only
             self._diag_src,
             n_entries=self.n_entries,
         )
 
     def describe(self) -> dict:
-        out = super().describe()
-        out["n_levels"] = self._la.level_ptr.numel() - 1
-        out["device_bytes"] += _device_bytes(self._la[:8])
-        return out
+        return _describe_levels(super().describe(), self._la)
 
 
 class ElasticKernelBoundSolve(ElasticScanBoundSolve):
     """The ``mode="elastic"`` kernel bound: the elastic scan bound's
-    macro-step tensors and value refresh, plus the certificate's wave
-    tensors; the solve runs ``sptrsv_elastic_cuda`` (one block barrier per
-    readiness wave), bitwise-identical to ``KernelBoundSolve``."""
+    macro-step tensors and value refresh, plus the plan in the level order
+    over runs of ``slack`` supersteps; the solve runs
+    ``sptrsv_elastic_cuda`` (one block barrier per level),
+    bitwise-identical to ``KernelBoundSolve``. A value refresh gathers the
+    level tensors from the refreshed macro-step tensors by ``perm``, on the
+    device: the window padding sits after the T real steps, so a real
+    lane-step's flat ``step * k + lane`` index is the same in both."""
 
     backend = "kernel"
 
+    def __init__(self, arrays, elastic, val_src, diag_src, *, n_entries):
+        ea, self._la = arrays
+        super().__init__(ea, elastic, val_src, diag_src, n_entries=n_entries)
+
     def solve(self, b):
-        return solve_with_elastic_kernel_arrays(self._ea, *self._waves, b)
+        return solve_with_elastic_kernel_arrays(self._la, b)
+
+    def update_values(self, data) -> "ElasticKernelBoundSolve":
+        vals, diag = self._refreshed(data)
+        return type(self)(
+            (self._ea._replace(vals=vals, diag=diag), _refreshed_levels(self._la, vals, diag)),
+            self._elastic,
+            self._val_src,  # index tensors shared, read-only
+            self._diag_src,
+            n_entries=self.n_entries,
+        )
+
+    def describe(self) -> dict:
+        return _describe_levels(super().describe(), self._la)
 
 
 @register_backend
 class KernelBackend(ScanBackend):
     """Single- and multi-RHS CUDA kernels: one launch per solve; inside it
-    one block barrier per level (single RHS, bulk), per superstep (multi
-    RHS, bulk) or per readiness wave (elastic). Binding also checks the
-    plan's index contents and the elastic certificate, which the kernels
-    read unchecked."""
+    one block barrier per level (single RHS, bulk; elastic, over runs of
+    ``slack`` supersteps) or per superstep (multi RHS, bulk). Binding also
+    checks the plan's index contents and the elastic certificate, which
+    the kernels read unchecked."""
 
     name = "kernel"
     bound_cls = KernelBoundSolve
@@ -91,5 +121,10 @@ class KernelBackend(ScanBackend):
 
     @staticmethod
     def elastic_arrays(exec_plan, *, dtype, device):
-        ea, wave_id, n_waves = elastic_kernel_arrays(exec_plan, dtype=dtype, device=device)
-        return ea, (wave_id, n_waves)
+        """``(ElasticArrays, LevelArrays)``: the macro-step tensors (the
+        value refresh's source) and the elastic kernels' level tensors."""
+        return (
+            elastic_plan_arrays(exec_plan, slack=exec_plan.elastic.slack, dtype=dtype,
+                                device=device),
+            elastic_kernel_arrays(exec_plan, dtype=dtype, device=device),
+        )

@@ -96,16 +96,13 @@ class ScanBoundSolve(BoundSolve):
 class ElasticScanBoundSolve(ScanBoundSolve):
     """The ``mode="elastic"`` scan bound: ``ceil(T / slack)`` macro-steps,
     each replaying its window's steps (``core.elastic``), bitwise-identical
-    to ``ScanBoundSolve`` on the same plan. ``waves`` holds the
-    certificate's ``(wave_id, n_waves)`` on the device for the kernel
-    bound, which runs them; this bound does not read it."""
+    to ``ScanBoundSolve`` on the same plan."""
 
-    def __init__(self, ea, elastic, val_src, diag_src, *, n_entries, waves=None):
+    def __init__(self, ea, elastic, val_src, diag_src, *, n_entries):
         self._ea = ea  # solver.executor.ElasticArrays
         self._elastic = elastic  # core.elastic.ElasticPlan certificate
         self._val_src = val_src  # int32[M, S, k, W] on the device (-1 padded)
         self._diag_src = diag_src  # int32[M, S, k] on the device (-1 padded)
-        self._waves = waves
         self.n = ea.n
         self.n_entries = n_entries
 
@@ -123,7 +120,6 @@ class ElasticScanBoundSolve(ScanBoundSolve):
             self._val_src,  # index tensors shared, read-only
             self._diag_src,
             n_entries=self.n_entries,
-            waves=self._waves,
         )
 
     def describe(self) -> dict:
@@ -140,7 +136,7 @@ class ElasticScanBoundSolve(ScanBoundSolve):
             "dtype": _dtype_name(self._ea.vals),
             "device": str(self._ea.vals.device),
             "device_bytes": _device_bytes(
-                (*self._ea[:5], self._val_src, self._diag_src, *(self._waves or ()))
+                (*self._ea[:5], self._val_src, self._diag_src)
             ),
             # the certificate's barrier and step accounting
             "certificate": self._elastic.stats(),
@@ -163,11 +159,11 @@ class ScanBackend(Backend):
 
     @staticmethod
     def elastic_arrays(exec_plan, *, dtype, device):
-        """``(ElasticArrays, waves)``; the plain loop needs no wave tensors."""
-        ea = elastic_plan_arrays(
+        """The first argument of ``elastic_bound_cls``: here the plan in
+        macro-step layout (``ElasticArrays``)."""
+        return elastic_plan_arrays(
             exec_plan, slack=exec_plan.elastic.slack, dtype=dtype, device=device
         )
-        return ea, None
 
     def capabilities(self):
         return ("elastic",)
@@ -202,8 +198,7 @@ class ScanBackend(Backend):
         if ep is None or ep.slack != slack:
             ep = elastic_transform(exec_plan, slack)
             exec_plan = dataclasses.replace(exec_plan, elastic=ep)
-        ea, waves = self.elastic_arrays(exec_plan, dtype=dtype, device=device)
-        M, S = ea.row_ids.shape[:2]
+        M, S = ep.n_macro_steps, ep.slack
         pad = M * S - exec_plan.n_steps
 
         # the source maps ride the same window padding; -1 marks padding so
@@ -213,6 +208,6 @@ class ScanBackend(Backend):
             return torch.as_tensor(a.reshape(M, S, *a.shape[1:])).to(device)
 
         return self.elastic_bound_cls(
-            ea, ep, src(exec_plan.val_src), src(exec_plan.diag_src),
-            n_entries=n_entries, waves=waves,
+            self.elastic_arrays(exec_plan, dtype=dtype, device=device),
+            ep, src(exec_plan.val_src), src(exec_plan.diag_src), n_entries=n_entries,
         )

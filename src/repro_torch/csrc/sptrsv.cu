@@ -29,22 +29,11 @@
 // inside the kernel, so it is read through a plain pointer (no __ldg, no
 // const __restrict__); the plan arrays are read through __ldg.
 //
-// Single right-hand side: one block solves each superstep level by level
-// (kernels/levels.py). A vertex is a lane's run of accum steps plus the step
-// that finishes it; its level is 1 + the highest level of a vertex of its
-// own superstep whose row it reads, or 0. The host orders the real
-// lane-steps by (superstep, level, lane, step) and passes the vertex and
-// level bounds; the block's threads stride over one level's vertices, each
-// walking its vertex's steps in order with the accumulator in a register,
-// and one __syncthreads() ends the level, which also makes the level's x
-// rows visible to the next. A vertex reads only rows finished in an earlier
-// superstep or at a lower level of its own, both complete behind an earlier
-// barrier. The chain of dependent gathers is then one per level (80 on the
-// paper's ER set at n = 100,000, against T = 13,561 plan steps). Every row
-// still gets the plan's exact FMA chain, padding slots included: each one
-// computes fma(+0, x[n] = +0, acc), which maps an acc of -0 to +0, so
-// skipping them would change bits. Padding lane-steps are dropped: they only
-// write the +0 that x already holds in the scratch slot n.
+// Single right-hand side: the level walk of csrc/level.cuh over the plan in
+// the bulk level order (kernels/levels.py, a run per superstep): one block of
+// 1,024 threads, one __syncthreads() per level (80 on the paper's ER set at
+// n = 100,000, against T = 13,561 plan steps). mode="elastic" launches the
+// same code over runs of supersteps (csrc/sptrsv_elastic.cu).
 //
 // Multi right-hand side: columns never interact, so the grid runs over
 // chunks of 32 columns; thread (c, l) owns column c of lane l, walks the
@@ -56,47 +45,15 @@
 //
 // Left for later: skipping padding slots (with an acc + 0 where padding
 // stood), staging the plan in shared memory, more than one block for a
-// level wider than one block, the level order for the m right-hand sides.
+// level wider than one block, the level walk for the m right-hand sides
+// (csrc/level.cuh's column grid, as mode="elastic" runs it).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "level.cuh"
 #include "rn.cuh"
 
 namespace {
-
-template <typename T>
-__global__ void sptrsv_level_kernel(
-    const int32_t* __restrict__ row_ids,    // [P]
-    const int32_t* __restrict__ col_idx,    // [P, W]
-    const T* __restrict__ vals,             // [P, W]
-    const T* __restrict__ diag,             // [P]
-    const uint8_t* __restrict__ accum,      // [P] (bool)
-    const int32_t* __restrict__ vert_ptr,   // [V + 1]
-    const int32_t* __restrict__ level_ptr,  // [n_levels + 1]
-    int n_levels, int W,
-    const T* __restrict__ b,                // [n + 1]
-    T* x) {                                 // [n + 1], zeroed by the caller
-  int v0 = __ldg(level_ptr);
-  for (int lv = 0; lv < n_levels; ++lv) {
-    const int v1 = __ldg(level_ptr + lv + 1);
-    for (int v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
-      const int p1 = __ldg(vert_ptr + v + 1);
-      T acc = T(0);
-      for (int p = __ldg(vert_ptr + v); p < p1; ++p) {
-        const int32_t* c = col_idx + static_cast<int64_t>(p) * W;
-        const T* a = vals + static_cast<int64_t>(p) * W;
-#pragma unroll 4
-        for (int w = 0; w < W; ++w) acc = rn::fma(__ldg(a + w), x[__ldg(c + w)], acc);
-        if (!__ldg(accum + p)) {
-          const int32_t r = __ldg(row_ids + p);
-          x[r] = rn::finish(__ldg(b + r), acc, __ldg(diag + p));
-        }
-      }
-    }
-    __syncthreads();
-    v0 = v1;
-  }
-}
 
 template <typename T>
 __global__ void sptrsv_mrhs_kernel(
@@ -140,20 +97,6 @@ constexpr int kMaxThreads = 1024;
 constexpr int kColsPerBlock = 32;
 
 template <typename T>
-int launch_single(const void* row_ids, const void* col_idx, const void* vals,
-                  const void* diag, const void* accum, const void* vert_ptr,
-                  const void* level_ptr, int n_levels, int W, const void* b,
-                  void* x, void* stream) {
-  sptrsv_level_kernel<T><<<1, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_idx),
-      static_cast<const T*>(vals), static_cast<const T*>(diag),
-      static_cast<const uint8_t*>(accum), static_cast<const int32_t*>(vert_ptr),
-      static_cast<const int32_t*>(level_ptr), n_levels, W,
-      static_cast<const T*>(b), static_cast<T*>(x));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_mrhs(const void* row_ids, const void* col_idx, const void* vals,
                 const void* diag, const void* accum, const void* step_bounds,
                 int n_supersteps, int k, int W, int m, const void* b, void* x,
@@ -183,7 +126,7 @@ int sptrsv_single_f32(const void* row_ids, const void* col_idx, const void* vals
                       const void* diag, const void* accum, const void* vert_ptr,
                       const void* level_ptr, int n_levels, int W, const void* b,
                       void* x, void* stream) {
-  return launch_single<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
                               level_ptr, n_levels, W, b, x, stream);
 }
 
@@ -191,7 +134,7 @@ int sptrsv_single_f64(const void* row_ids, const void* col_idx, const void* vals
                       const void* diag, const void* accum, const void* vert_ptr,
                       const void* level_ptr, int n_levels, int W, const void* b,
                       void* x, void* stream) {
-  return launch_single<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
                                level_ptr, n_levels, W, b, x, stream);
 }
 

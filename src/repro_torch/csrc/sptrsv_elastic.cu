@@ -1,190 +1,50 @@
-// Scheduled sparse triangular solve in readiness waves (mode="elastic") for
-// NVIDIA Hopper.
+// Scheduled sparse triangular solve under a staleness bound (mode="elastic")
+// for NVIDIA Hopper.
 //
 // Replaces the TPU kernels of the JAX package:
 //   src/repro/kernels/sptrsv.py::_sptrsv_elastic_kernel       (one right-hand side)
 //   src/repro/kernels/sptrsv.py::_sptrsv_elastic_mrhs_kernel  (m right-hand sides)
 // and computes the bulk kernels' function (csrc/sptrsv.cu) bit for bit, in
-// another order. The T plan steps are padded to M tiles of S = slack steps;
-// the elastic certificate (src/repro_torch/core/elastic.py) splits each tile
-// into n_waves[i] runs of consecutive steps (wave_id) whose gathers were all
-// written before the run starts and whose accumulator chains do not cross
-// inside the run. So the (step, lane) pairs of one wave are independent:
-//     acc = accum[t-1,l] ? tot[t-1,l] : 0          (selected, never re-summed)
-//     acc = fma(vals[t,l,w], x[col_idx[t,l,w]], acc)   for w = 0..W-1, in order
-//     accum[t,l] ? tot[t,l] = acc : x[row_ids[t,l]] = (b[row] - acc) / diag[t,l]
-// with the same fused multiply-add chain and correctly rounded subtract and
-// divide as the bulk kernels (rn.cuh; never --use_fast_math). The entering
-// accumulator is the one the bulk walk holds at step t, so each x row gets
-// the bulk kernel's bits. The Pallas body tree-sums over W instead, and
-// recomputes all S*k*W gathers of its tile in every wave; this kernel runs
-// only the wave's own pairs.
+// another order. The elastic contract is the same bits with fewer barriers,
+// under a staleness bound of `slack`. The TPU kernels fill a VMEM tile of
+// `slack` plan steps and walk it in readiness waves; on this card a wave is
+// about one plan step (GrowLocal keeps dependency chains on one lane), so a
+// wave kernel pays a block barrier and a dependent gather per plan step.
+// These kernels take the level layout instead (kernels/levels.py): the
+// supersteps are grouped into runs of `slack`, one level numbering spans a
+// run, and the level walk of csrc/level.cuh ends each level in one block
+// barrier. A vertex reads only rows of an earlier run or of a lower level
+// of its own run, both complete behind an earlier barrier; the barrier
+// orders every lane, so a run needs no cut at cross-core reads. Each row
+// keeps the plan's exact FMA chain and correctly rounded finish (rn.cuh;
+// never --use_fast_math), so the bits are the bulk kernels'.
 //
-// Bound on this card. The bytes are the bulk kernels' (each plan entry and
-// lane step read once, b read, x written) plus the wave ids: the least time
-// is those bytes over 3.35 TB/s. The real limit is latency: every wave ends
-// in a block barrier, and a wave is about one plan step (GrowLocal keeps
-// dependency chains on one lane, so waves seldom merge steps), so the kernel
-// pays about one barrier and one dependent gather per plan step, where the
-// bulk kernel pays one barrier per superstep.
+// Bound on this card: the bulk kernels' bytes (each real plan entry and
+// lane-step read once, b read, x written) over 3.35 TB/s. The real limit is
+// latency: a dependent load chain and a block barrier per level, and one
+// block takes a wide level in rounds of 1,024 vertices. Runs of slack = 8
+// supersteps take 38 levels on the paper's ER set at n = 100,000 (80 per
+// superstep, 12,761 waves) and 1,460 on its NB set (2,020; 14,378 waves).
 //
-// Design. One block walks the tiles in order (the wave ids are per tile).
-// For each wave every thread finds the wave's step range [s0, s1) by reading
-// the tile's wave ids (the same few words for all threads, from L1), takes
-// (step, lane) pairs strided over the block, and the block synchronises once
-// after the wave, which makes its x rows and totals visible to the next.
-// tot is a device scratch tensor indexed by the absolute step, [T, k(, m)],
-// allocated by the wrapper: the accumulator carried into a tile's first step
-// is then tot[t-1] like any other, and no shared-memory limit caps S*k. It is
-// read only behind accum[t-1, l], whose write sits in an earlier wave, so it
-// needs no initialisation. x stays in device memory behind a plain pointer
-// (it is written inside the kernel).
-//   Single right-hand side: one block of up to S*k threads.
-//   Multi right-hand side: the grid runs over chunks of 32 columns; thread
-//   (c, p) owns column c of pair p, so a warp's loads of a row of x f[n+1, m]
-//   (right-hand side minor) coalesce.
-// Left for later: staging tot and x in shared memory, and merging waves
-// into fewer barriers where lanes do not interact.
+//   Single right-hand side: one block of 1,024 threads striding over each
+//   level's vertices: the bulk kernel's code over the elastic order.
+//   m right-hand sides: the grid runs over columns, block c walks the level
+//   order for column c. Columns never interact and a level's barrier is
+//   needed only within one column, so blocks never wait for each other.
+//   The strides of b and x are arguments. The wrapper passes a column-major
+//   copy (rows 1 apart, columns n + 1 apart), so a block's gathers and
+//   stores stay in its own column: at m = 32 that took 24% less time than
+//   row-major x on the paper's ER set and 3% less on NB, the copies included
+//   (kernels/level_sweep.py, H100 80GB HBM3 at 700 W), where row-major x
+//   spreads every row over 32 blocks' cache lines.
+//
+// Left for later: skipping padding slots (with an acc + 0 where padding
+// stood), staging the plan in shared memory, more than one block for a
+// level wider than one block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rn.cuh"
-
-namespace {
-
-// End of the wave that starts at step s0 of the tile [.., end): the wave ids
-// of a valid certificate rise by one from 0 across the tile.
-__device__ __forceinline__ int wave_end(const int32_t* wave_id, int s0, int end,
-                                        int r) {
-  int s1 = s0 + 1;
-  while (s1 < end && wave_id[s1] == r) ++s1;
-  return s1;
-}
-
-template <typename T>
-__global__ void sptrsv_elastic_single_kernel(
-    const int32_t* __restrict__ wave_id,  // [M * S]
-    const int32_t* __restrict__ n_waves,  // [M]
-    const int32_t* __restrict__ row_ids,  // [M * S, k]
-    const int32_t* __restrict__ col_idx,  // [M * S, k, W]
-    const T* __restrict__ vals,           // [M * S, k, W]
-    const T* __restrict__ diag,           // [M * S, k]
-    const uint8_t* __restrict__ accum,    // [M * S, k] (bool)
-    int M, int S, int k, int W,
-    const T* __restrict__ b,              // [n + 1]
-    T* x,                                 // [n + 1], zeroed by the caller
-    T* tot) {                             // [M * S, k] scratch
-  for (int i = 0; i < M; ++i) {
-    const int end = (i + 1) * S;
-    const int nw = n_waves[i];
-    int s0 = i * S;
-    for (int r = 0; r < nw && s0 < end; ++r) {
-      const int s1 = wave_end(wave_id, s0, end, r);
-      const int pairs = (s1 - s0) * k;
-      for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-        const int64_t tl = static_cast<int64_t>(s0) * k + p;  // (t, l) flat
-        T acc = (tl >= k && accum[tl - k]) ? tot[tl - k] : T(0);
-        const int32_t* c = col_idx + tl * W;
-        const T* v = vals + tl * W;
-        for (int w = 0; w < W; ++w) acc = rn::fma(v[w], x[c[w]], acc);
-        if (accum[tl]) {
-          tot[tl] = acc;
-        } else {
-          const int32_t row = row_ids[tl];
-          x[row] = rn::finish(b[row], acc, diag[tl]);
-        }
-      }
-      __syncthreads();
-      s0 = s1;
-    }
-  }
-}
-
-template <typename T>
-__global__ void sptrsv_elastic_mrhs_kernel(
-    const int32_t* __restrict__ wave_id,
-    const int32_t* __restrict__ n_waves,
-    const int32_t* __restrict__ row_ids,
-    const int32_t* __restrict__ col_idx,
-    const T* __restrict__ vals,
-    const T* __restrict__ diag,
-    const uint8_t* __restrict__ accum,
-    int M, int S, int k, int W, int m,
-    const T* __restrict__ b,              // [n + 1, m]
-    T* x,                                 // [n + 1, m], zeroed by the caller
-    T* tot) {                             // [M * S, k, m] scratch
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = c < m;  // idle threads still reach every barrier
-  for (int i = 0; i < M; ++i) {
-    const int end = (i + 1) * S;
-    const int nw = n_waves[i];
-    int s0 = i * S;
-    for (int r = 0; r < nw && s0 < end; ++r) {
-      const int s1 = wave_end(wave_id, s0, end, r);
-      const int pairs = (s1 - s0) * k;
-      if (live) {
-        for (int p = threadIdx.y; p < pairs; p += blockDim.y) {
-          const int64_t tl = static_cast<int64_t>(s0) * k + p;
-          T acc = (tl >= k && accum[tl - k]) ? tot[(tl - k) * m + c] : T(0);
-          const int32_t* ci = col_idx + tl * W;
-          const T* v = vals + tl * W;
-          for (int w = 0; w < W; ++w) {
-            acc = rn::fma(v[w], x[static_cast<int64_t>(ci[w]) * m + c], acc);
-          }
-          if (accum[tl]) {
-            tot[tl * m + c] = acc;
-          } else {
-            const int64_t rc = static_cast<int64_t>(row_ids[tl]) * m + c;
-            x[rc] = rn::finish(b[rc], acc, diag[tl]);
-          }
-        }
-      }
-      __syncthreads();
-      s0 = s1;
-    }
-  }
-}
-
-constexpr int kMaxThreads = 1024;
-constexpr int kColsPerBlock = 32;
-
-template <typename T>
-int launch_single(const void* wave_id, const void* n_waves, const void* row_ids,
-                  const void* col_idx, const void* vals, const void* diag,
-                  const void* accum, int M, int S, int k, int W, const void* b,
-                  void* x, void* tot, void* stream) {
-  int threads = ((S * k + 31) / 32) * 32;  // whole warps, a thread per pair
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  if (threads < 32) threads = 32;
-  sptrsv_elastic_single_kernel<T><<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(wave_id), static_cast<const int32_t*>(n_waves),
-      static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_idx),
-      static_cast<const T*>(vals), static_cast<const T*>(diag),
-      static_cast<const uint8_t*>(accum), M, S, k, W, static_cast<const T*>(b),
-      static_cast<T*>(x), static_cast<T*>(tot));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_mrhs(const void* wave_id, const void* n_waves, const void* row_ids,
-                const void* col_idx, const void* vals, const void* diag,
-                const void* accum, int M, int S, int k, int W, int m, const void* b,
-                void* x, void* tot, void* stream) {
-  int rows = S * k;  // thread rows, a pair each; more pairs are looped over
-  if (rows > kMaxThreads / kColsPerBlock) rows = kMaxThreads / kColsPerBlock;
-  if (rows < 1) rows = 1;
-  const dim3 block(kColsPerBlock, rows);
-  const dim3 grid((m + kColsPerBlock - 1) / kColsPerBlock);
-  sptrsv_elastic_mrhs_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(wave_id), static_cast<const int32_t*>(n_waves),
-      static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_idx),
-      static_cast<const T*>(vals), static_cast<const T*>(diag),
-      static_cast<const uint8_t*>(accum), M, S, k, W, m, static_cast<const T*>(b),
-      static_cast<T*>(x), static_cast<T*>(tot));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "level.cuh"
 
 // Plain C entry points, bound with ctypes by kernels/sptrsv.py. Each launches
 // on the given stream, allocates nothing, does not synchronise, and returns
@@ -192,40 +52,42 @@ int launch_mrhs(const void* wave_id, const void* n_waves, const void* row_ids,
 // current around the call.
 extern "C" {
 
-int sptrsv_elastic_single_f32(const void* wave_id, const void* n_waves,
-                              const void* row_ids, const void* col_idx,
+int sptrsv_elastic_single_f32(const void* row_ids, const void* col_idx,
                               const void* vals, const void* diag, const void* accum,
-                              int M, int S, int k, int W, const void* b, void* x,
-                              void* tot, void* stream) {
-  return launch_single<float>(wave_id, n_waves, row_ids, col_idx, vals, diag, accum,
-                              M, S, k, W, b, x, tot, stream);
+                              const void* vert_ptr, const void* level_ptr,
+                              int n_levels, int W, const void* b, void* x,
+                              void* stream) {
+  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr,
+                              n_levels, W, b, x, stream);
 }
 
-int sptrsv_elastic_single_f64(const void* wave_id, const void* n_waves,
-                              const void* row_ids, const void* col_idx,
+int sptrsv_elastic_single_f64(const void* row_ids, const void* col_idx,
                               const void* vals, const void* diag, const void* accum,
-                              int M, int S, int k, int W, const void* b, void* x,
-                              void* tot, void* stream) {
-  return launch_single<double>(wave_id, n_waves, row_ids, col_idx, vals, diag, accum,
-                               M, S, k, W, b, x, tot, stream);
+                              const void* vert_ptr, const void* level_ptr,
+                              int n_levels, int W, const void* b, void* x,
+                              void* stream) {
+  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr,
+                               n_levels, W, b, x, stream);
 }
 
-int sptrsv_elastic_mrhs_f32(const void* wave_id, const void* n_waves,
-                            const void* row_ids, const void* col_idx,
+int sptrsv_elastic_mrhs_f32(const void* row_ids, const void* col_idx,
                             const void* vals, const void* diag, const void* accum,
-                            int M, int S, int k, int W, int m, const void* b, void* x,
-                            void* tot, void* stream) {
-  return launch_mrhs<float>(wave_id, n_waves, row_ids, col_idx, vals, diag, accum,
-                            M, S, k, W, m, b, x, tot, stream);
+                            const void* vert_ptr, const void* level_ptr, int n_levels,
+                            int W, int m, int64_t row_stride, int64_t col_stride,
+                            const void* b, void* x, void* stream) {
+  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                   level_ptr, n_levels, W, m, row_stride, col_stride, b,
+                                   x, stream);
 }
 
-int sptrsv_elastic_mrhs_f64(const void* wave_id, const void* n_waves,
-                            const void* row_ids, const void* col_idx,
+int sptrsv_elastic_mrhs_f64(const void* row_ids, const void* col_idx,
                             const void* vals, const void* diag, const void* accum,
-                            int M, int S, int k, int W, int m, const void* b, void* x,
-                            void* tot, void* stream) {
-  return launch_mrhs<double>(wave_id, n_waves, row_ids, col_idx, vals, diag, accum,
-                             M, S, k, W, m, b, x, tot, stream);
+                            const void* vert_ptr, const void* level_ptr, int n_levels,
+                            int W, int m, int64_t row_stride, int64_t col_stride,
+                            const void* b, void* x, void* stream) {
+  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                    level_ptr, n_levels, W, m, row_stride, col_stride, b,
+                                    x, stream);
 }
 
 }  // extern "C"

@@ -15,7 +15,7 @@ This module is the device half of the ``kernel`` entry in
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,13 +24,7 @@ from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.levels import LevelOrder, level_order
 from repro_torch.kernels.sptrsv import sptrsv_cuda, sptrsv_elastic_cuda, sptrsv_level_cuda
-from repro_torch.solver.executor import (
-    ElasticArrays,
-    PlanArrays,
-    elastic_plan_arrays,
-    pad_rhs,
-    plan_arrays,
-)
+from repro_torch.solver.executor import PlanArrays, pad_rhs, plan_arrays
 
 
 def check_plan_indices(plan: ExecPlan) -> None:
@@ -114,69 +108,39 @@ def solve_with_kernel_arrays(pa: PlanArrays, la: LevelArrays, b: torch.Tensor) -
 
 
 def check_elastic_certificate(plan: ExecPlan) -> None:
-    """Raise unless ``plan.elastic`` is a certificate for this plan whose
-    wave ids the elastic kernels can walk: [M, slack] with M =
-    ceil(T / slack), each tile's ids rising by at most one from 0, and
-    ``n_waves`` the tile's last id + 1."""
+    """Raise unless ``plan.elastic`` is a certificate that fits this plan:
+    its step and superstep counts are the plan's and its slack is at
+    least 1. The elastic kernels read only its slack."""
     ep = plan.elastic
     if ep is None:
         raise ValueError("plan has no elastic certificate attached (plan.elastic)")
-    M = max(1, -(-plan.n_steps // ep.slack))
-    wave = np.asarray(ep.wave_id)
-    nw = np.asarray(ep.n_waves)
-    if ep.n_steps != plan.n_steps or wave.shape != (M, ep.slack) or nw.shape != (M,):
+    if ep.n_steps != plan.n_steps or ep.n_supersteps != plan.n_supersteps or ep.slack < 1:
         raise ValueError(
             f"plan.elastic does not fit the plan: T={plan.n_steps}, "
-            f"slack={ep.slack}, wave_id {wave.shape}, n_waves {nw.shape}"
+            f"supersteps={plan.n_supersteps}; certificate T={ep.n_steps}, "
+            f"supersteps={ep.n_supersteps}, slack={ep.slack}"
         )
-    steps = np.diff(wave, axis=1)
-    if (wave[:, 0] != 0).any() or ((steps != 0) & (steps != 1)).any() or (
-        nw != wave[:, -1] + 1
-    ).any():
-        raise ValueError("plan.elastic wave ids must rise by 0 or 1 from 0 in each tile")
 
 
-def elastic_kernel_arrays(
-    plan: ExecPlan, *, dtype=torch.float32, device=None
-) -> Tuple[ElasticArrays, torch.Tensor, torch.Tensor]:
-    """``(ea, wave_id, n_waves)`` for the elastic kernels on ``device``
-    (``None``: the card, raising without CUDA): the plan in macro-step
-    layout, window-padded to ``M * slack`` steps, and the wave tensors of
-    the certificate attached to the plan (``plan.elastic``, from
-    ``core.elastic.elastic_transform``), whose slack is the tile size.
+def elastic_kernel_arrays(plan: ExecPlan, *, dtype=torch.float32, device=None) -> LevelArrays:
+    """The elastic kernels' tensors on ``device`` (``None``: the card,
+    raising without CUDA): the plan's real lane-steps in the level order
+    over runs of ``plan.elastic.slack`` supersteps (``kernels.levels``).
     Index contents and the certificate are checked."""
-    check_plan_indices(plan)
     check_elastic_certificate(plan)
+    check_plan_indices(plan)
     device = resolve_device(device)
-    ep = plan.elastic
-    ea = elastic_plan_arrays(plan, slack=ep.slack, dtype=dtype, device=device)
-
-    def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32).reshape(-1)).to(device)
-
-    return ea, put(ep.wave_id), put(ep.n_waves)
+    order = level_order(plan, slack=plan.elastic.slack)
+    return level_plan_arrays(plan, dtype=dtype, device=device, order=order)
 
 
-def elastic_kernel_args(ea: ElasticArrays, wave_id: torch.Tensor, n_waves: torch.Tensor):
-    """The arguments of ``sptrsv_elastic_cuda`` before ``b_pad``: the wave
-    tensors and the macro-step tensors flattened to [M * slack, ...]
-    (views, no copy)."""
-    M, S, k = ea.row_ids.shape
-    T = M * S
-    return (
-        wave_id, n_waves, ea.row_ids.view(T, k), ea.col_idx.view(T, k, -1),
-        ea.vals.view(T, k, -1), ea.diag.view(T, k), ea.accum.view(T, k),
-    )
-
-
-def solve_with_elastic_kernel_arrays(
-    ea: ElasticArrays, wave_id: torch.Tensor, n_waves: torch.Tensor, b: torch.Tensor
-) -> torch.Tensor:
+def solve_with_elastic_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
     """Elastic twin of ``solve_with_kernel_arrays``: cast ``b``, append the
-    scratch row, run ``sptrsv_elastic_cuda``, drop the scratch row."""
-    b_pad = pad_rhs(b.to(ea.vals.dtype))
-    x = sptrsv_elastic_cuda(*elastic_kernel_args(ea, wave_id, n_waves), b_pad)
-    return x[: ea.n]
+    scratch row, run ``sptrsv_elastic_cuda`` (b f[n] or f[n, m]), drop the
+    scratch row."""
+    b_pad = pad_rhs(b.to(la.vals.dtype))
+    x = sptrsv_elastic_cuda(*la[:7], b_pad)
+    return x[: la.n]
 
 
 def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device=None):

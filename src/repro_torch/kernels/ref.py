@@ -3,9 +3,9 @@
 ``sptrsv_ref`` is the plain version of the bulk multi-RHS CUDA SpTRSV
 kernel: the same function, run as a loop of eager PyTorch operations over
 the executor's step bodies (it is not a second implementation).
-``sptrsv_level_ref`` is the plain version of the level-ordered single-RHS
-kernel, ``sptrsv_elastic_ref`` that of the elastic kernels and
-``spmv_ell_ref`` that of the SpMV kernel. The CPU tests use them, the
+``sptrsv_level_ref`` is the plain version of the level-ordered kernels
+(the bulk single-RHS kernel and both elastic kernels) and ``spmv_ell_ref``
+that of the SpMV kernel. The CPU tests use them, the
 ``scan`` backend runs ``sptrsv_ref``, the kernel wrappers run them for CPU
 tensors, and ``chip_smoke.py`` holds the kernels against them.
 """
@@ -35,73 +35,38 @@ def sptrsv_ref(row_ids, col_idx, vals, diag, accum, b_pad):
 
 
 def sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
-    """Plain level-ordered SpTRSV, one right-hand side.
+    """Plain level-ordered SpTRSV, one or m right-hand sides.
 
-    Shapes: the plan's real lane-steps in level order (``kernels.levels``):
-    row_ids int32[P]; col_idx int32[P,W]; vals f[P,W]; diag f[P]; accum
-    bool[P]; vert_ptr int32[V+1]; level_ptr int32[L+1]; b_pad f[n+1].
-    Returns x f[n+1] (the last row is scratch and stays 0). Level by level;
-    within a level, vectorized over its vertices and, for the g-th
-    lane-step of every vertex that has one, chaining ``torch.addcmul`` over
-    w from the vertex's carried accumulator, as the bulk step does; a
-    finishing step writes x. Bitwise-equal to ``sptrsv_ref`` on the plan.
+    Shapes: the plan's real lane-steps in level order (``kernels.levels``,
+    the bulk order or the elastic one): row_ids int32[P]; col_idx
+    int32[P,W]; vals f[P,W]; diag f[P]; accum bool[P]; vert_ptr
+    int32[V+1]; level_ptr int32[L+1]; b_pad f[n+1] or f[n+1, m]. Returns x
+    shaped like ``b_pad`` (the last row is scratch and stays 0). Level by
+    level; within a level, vectorized over its vertices (and the m
+    columns) and, for the g-th lane-step of every vertex that has one,
+    chaining ``torch.addcmul`` over w from the vertex's carried
+    accumulator, as the bulk step does; a finishing step writes x.
+    Bitwise-equal to ``sptrsv_ref`` on the plan.
     """
+    cols = b_pad.shape[1:]
+    lift = (lambda t: t) if not cols else (lambda t: t[..., None])  # noqa: E731
     x = torch.zeros_like(b_pad)
     vert_ptr = vert_ptr.long()
     levels = level_ptr.tolist()
     for v0, v1 in zip(levels[:-1], levels[1:]):
         start = vert_ptr[v0:v1]
         length = vert_ptr[v0 + 1 : v1 + 1] - start
-        acc = b_pad.new_zeros(v1 - v0)
+        acc = b_pad.new_zeros((v1 - v0, *cols))
         for g in range(int(length.max())):
             live = torch.nonzero(length > g).squeeze(1)
             p = start[live] + g
             a = acc[live]
             for w in range(col_idx.shape[1]):
-                a = torch.addcmul(a, vals[p, w], x[col_idx[p, w]])
+                a = torch.addcmul(a, lift(vals[p, w]), x[col_idx[p, w]])
             acc[live] = a
             fin = ~accum[p]
             rows = row_ids[p][fin]
-            x[rows] = (b_pad[rows] - a[fin]) / diag[p][fin]
-    return x
-
-
-def sptrsv_elastic_ref(wave_id, n_waves, row_ids, col_idx, vals, diag, accum, b_pad):
-    """Plain elastic SpTRSV: tile by tile, readiness wave by wave.
-
-    Shapes as ``sptrsv_ref`` with T = M * S window-padded steps, plus
-    wave_id int32[T] (each step's wave inside its S-step tile) and n_waves
-    int32[M]. A wave's steps are mutually independent (the certificate of
-    ``core.elastic``), so they run together: each (step, lane) chain starts
-    from the *selected* accumulator — ``tot[t-1]`` iff step t-1 accumulates
-    in that lane (for the tile's first step that is the carry across the
-    tile boundary), else 0 — and chains ``torch.addcmul`` over w, left to
-    right, exactly as the bulk step does; only the wave's non-accum rows
-    are finished. Bitwise-equal to ``sptrsv_ref`` on the same plan.
-    """
-    T, k = row_ids.shape
-    M = n_waves.shape[0]
-    S = T // M
-    cols = b_pad.shape[1:]
-    lift = (lambda t: t) if not cols else (lambda t: t[..., None])  # noqa: E731
-    waves, counts = wave_id.tolist(), n_waves.tolist()
-    x = torch.zeros_like(b_pad)
-    tot = b_pad.new_zeros((T + 1, k, *cols))  # tot[t + 1] = step t's total
-    carry = torch.cat([accum.new_zeros((1, k)), accum])  # carry[t] = accum[t-1]
-    for i in range(M):
-        s0, end = i * S, (i + 1) * S
-        for r in range(counts[i]):
-            s1 = s0 + 1
-            while s1 < end and waves[s1] == r:
-                s1 += 1
-            acc = torch.where(lift(carry[s0:s1]), tot[s0:s1], 0.0)
-            for w in range(col_idx.shape[2]):
-                acc = torch.addcmul(acc, lift(vals[s0:s1, :, w]), x[col_idx[s0:s1, :, w]])
-            tot[s0 + 1 : s1 + 1] = acc
-            live = ~accum[s0:s1]
-            rows = row_ids[s0:s1][live]
-            x[rows] = (b_pad[rows] - acc[live]) / lift(diag[s0:s1][live])
-            s0 = s1
+            x[rows] = (b_pad[rows] - a[fin]) / lift(diag[p][fin])
     return x
 
 

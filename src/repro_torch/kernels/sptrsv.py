@@ -1,10 +1,13 @@
 """The SpTRSV kernels on the card: wrappers over ``csrc/sptrsv.cu`` (bulk)
-and ``csrc/sptrsv_elastic.cu`` (readiness waves, ``mode="elastic"``).
+and ``csrc/sptrsv_elastic.cu`` (``mode="elastic"``). The single-RHS bulk
+kernel and both elastic kernels are the level walk of ``csrc/level.cuh``
+over the plan in level order (``kernels.levels``).
 
-``sptrsv_level_cuda`` (one right-hand side, the plan in level order,
-``kernels.levels``) and ``sptrsv_cuda`` (m right-hand sides) replace the
-JAX package's ``sptrsv_pallas`` (the TPU kernels ``_sptrsv_kernel`` and
-``_sptrsv_mrhs_kernel``); ``sptrsv_elastic_cuda`` replaces
+``sptrsv_level_cuda`` (one right-hand side, the bulk level order) and
+``sptrsv_cuda`` (m right-hand sides) replace the JAX package's
+``sptrsv_pallas`` (the TPU kernels ``_sptrsv_kernel`` and
+``_sptrsv_mrhs_kernel``); ``sptrsv_elastic_cuda`` (one or m right-hand
+sides, the level order over runs of ``slack`` supersteps) replaces
 ``sptrsv_pallas_elastic`` (the TPU kernels ``_sptrsv_elastic_kernel`` and
 ``_sptrsv_elastic_mrhs_kernel``). Each takes the plan tensors and the
 right-hand side padded with the scratch row, and returns x shaped like
@@ -26,18 +29,19 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import sptrsv_elastic_ref, sptrsv_level_ref, sptrsv_ref
+from repro_torch.kernels.ref import sptrsv_level_ref, sptrsv_ref
 
 launches = {"single": 0, "mrhs": 0, "elastic_single": 0, "elastic_mrhs": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
 _ARGTYPES = {
-    "single": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
-    "mrhs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "elastic_single": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "elastic_mrhs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "single": [_P] * 7 + [_I, _I, _P, _P, _P],
+    "mrhs": [_P] * 6 + [_I, _I, _I, _I, _P, _P, _P],
+    "elastic_single": [_P] * 7 + [_I, _I, _P, _P, _P],
+    "elastic_mrhs": [_P] * 7 + [_I, _I, _I, _I64, _I64, _P, _P, _P],
 }
 
 
@@ -90,8 +94,7 @@ def _check_vectors(vectors):
 
 def _check(row_ids, col_idx, vals, diag, accum, b_pad, **vectors):
     """The plan tensors' device, layout, types and shapes; ``vectors`` are
-    the 1-D int32 index tensors of the entry point (step bounds, or wave
-    ids and wave counts)."""
+    the 1-D int32 index tensors of the entry point (the step bounds)."""
     tensors = dict(
         row_ids=row_ids, col_idx=col_idx, vals=vals, diag=diag,
         accum=accum, b_pad=b_pad, **vectors,
@@ -153,13 +156,10 @@ def sptrsv_cuda(row_ids, col_idx, vals, diag, accum, step_bounds, b_pad):
     return x
 
 
-def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
-    """Scheduled SpTRSV of one right-hand side over the plan's real
-    lane-steps in level order (``kernels.levels``): row_ids int32[P],
-    col_idx int32[P, W], vals f[P, W], diag f[P], accum bool[P], vert_ptr
-    int32[V+1], level_ptr int32[L+1], b_pad f[n+1]. Bitwise-equal to
-    ``sptrsv_cuda`` on the plan. Index contents are checked at bind time
-    by ``kernels.ops.level_plan_arrays``."""
+def _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
+    """The level tensors' device, layout, types and shapes (b_pad f[n+1]
+    or f[n+1, m]); index contents are checked at bind time by
+    ``kernels.ops.level_plan_arrays``."""
     tensors = dict(
         row_ids=row_ids, col_idx=col_idx, vals=vals, diag=diag, accum=accum,
         vert_ptr=vert_ptr, level_ptr=level_ptr, b_pad=b_pad,
@@ -167,7 +167,7 @@ def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, 
     _check_tensors(tensors, ("row_ids", "col_idx", "vert_ptr", "level_ptr"),
                    vals, accum, b_pad)
     _check_vectors(dict(row_ids=row_ids, diag=diag, accum=accum, vert_ptr=vert_ptr,
-                        level_ptr=level_ptr, b_pad=b_pad))
+                        level_ptr=level_ptr))
     P = row_ids.shape[0]
     if col_idx.dim() != 2 or col_idx.shape[0] != P or vals.shape != col_idx.shape:
         raise ValueError(
@@ -175,8 +175,21 @@ def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, 
         )
     if diag.shape != (P,) or accum.shape != (P,):
         raise ValueError(f"diag and accum must be [P={P}]")
-    if vert_ptr.shape[0] < 1 or level_ptr.shape[0] < 1 or b_pad.shape[0] < 1:
-        raise ValueError("vert_ptr, level_ptr and b_pad must not be empty")
+    if vert_ptr.shape[0] < 1 or level_ptr.shape[0] < 1:
+        raise ValueError("vert_ptr and level_ptr must not be empty")
+    if b_pad.dim() not in (1, 2) or b_pad.shape[0] < 1:
+        raise ValueError(f"b_pad must be [n+1] or [n+1, m]; got {tuple(b_pad.shape)}")
+
+
+def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
+    """Scheduled SpTRSV of one right-hand side over the plan's real
+    lane-steps in level order (``kernels.levels``): row_ids int32[P],
+    col_idx int32[P, W], vals f[P, W], diag f[P], accum bool[P], vert_ptr
+    int32[V+1], level_ptr int32[L+1], b_pad f[n+1]. Bitwise-equal to
+    ``sptrsv_cuda`` on the plan."""
+    _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad)
+    if b_pad.dim() != 1:
+        raise ValueError(f"b_pad must be 1-D, got {tuple(b_pad.shape)}")
     if b_pad.device.type == "cpu":
         return sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr,
                                 level_ptr, b_pad)
@@ -188,36 +201,32 @@ def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, 
     return x
 
 
-def sptrsv_elastic_cuda(wave_id, n_waves, row_ids, col_idx, vals, diag, accum, b_pad):
-    """Scheduled SpTRSV in readiness waves; see the module docstring. The
-    plan tensors are window-padded to T = M * S steps (S = slack), wave_id
-    int32[T] and n_waves int32[M] are the certificate's
-    (``core.elastic.elastic_transform``). Bitwise-equal to ``sptrsv_cuda``
-    on the same plan. Index contents and the certificate's shape are
-    checked at bind time by ``kernels.ops.elastic_kernel_arrays``."""
-    _check(row_ids, col_idx, vals, diag, accum, b_pad,
-           wave_id=wave_id, n_waves=n_waves)
-    T, k = row_ids.shape
-    M = n_waves.shape[0]
-    if wave_id.shape[0] != T or M < 1 or T % M:
-        raise ValueError(
-            f"wave_id must be [T={T}] and n_waves [M] with T a multiple of M; "
-            f"got {tuple(wave_id.shape)} and {tuple(n_waves.shape)}"
-        )
+def sptrsv_elastic_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
+    """Scheduled SpTRSV in ``mode="elastic"``: the level tensors of
+    ``sptrsv_level_cuda`` in the level order over runs of the certificate's
+    ``slack`` supersteps (``kernels.ops.elastic_kernel_arrays``), b_pad
+    f[n+1] (one block) or f[n+1, m] (a block per column, on a column-major
+    copy of b_pad; x is returned as the transposed view of its
+    column-major result). Bitwise-equal to ``sptrsv_cuda`` on the plan."""
+    _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad)
     if b_pad.device.type == "cpu":
-        return sptrsv_elastic_ref(
-            wave_id, n_waves, row_ids, col_idx, vals, diag, accum, b_pad
-        )
-    W = col_idx.shape[2]
-    x = torch.zeros_like(b_pad)
+        return sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                level_ptr, b_pad)
     if b_pad.numel() == 0:
+        return torch.zeros_like(b_pad)
+    ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                   level_ptr)]
+    shape = (level_ptr.shape[0] - 1, col_idx.shape[1])
+    if b_pad.dim() == 1:
+        x = torch.zeros_like(b_pad)
+        _launch("elastic_single", vals, b_pad, *ptrs, *shape, b_pad.data_ptr(),
+                x.data_ptr())
         return x
-    # tot[t, l] holds step t's running total where step t accumulates; it
-    # is read only behind that flag, so it needs no initialisation
-    tot = torch.empty((T, k, *b_pad.shape[1:]), dtype=b_pad.dtype, device=b_pad.device)
-    ptrs = [t.data_ptr() for t in (wave_id, n_waves, row_ids, col_idx, vals, diag, accum)]
-    kind = "elastic_single" if b_pad.dim() == 1 else "elastic_mrhs"
-    shape = (M, T // M, k, W) + (() if b_pad.dim() == 1 else (b_pad.shape[1],))
-    _launch(kind, vals, b_pad, *ptrs, *shape, b_pad.data_ptr(), x.data_ptr(),
-            tot.data_ptr())
-    return x
+    # a column's rows 1 apart, columns n+1 apart: each block reads and
+    # writes one contiguous column (faster than row-major x, copies
+    # included: kernels/level_sweep.py)
+    b_col = b_pad.T.contiguous()
+    x = torch.zeros_like(b_col)
+    _launch("elastic_mrhs", vals, b_pad, *ptrs, *shape, b_col.shape[0], 1, b_col.shape[1],
+            b_col.data_ptr(), x.data_ptr())
+    return x.T

@@ -7,8 +7,12 @@
   * elastic solves bitwise-equal to the JAX elastic and bulk scan solves
     and to the port's bulk solves, both port backends, lower and upper,
     single and multi-RHS;
-  * ``kernels.ref.sptrsv_elastic_ref`` bitwise-equal to ``sptrsv_ref``, and
-    within rtol=atol=1e-4 of ``sptrsv_pallas_elastic(interpret=True)`` (the
+  * the elastic kernels' layout (``elastic_kernel_arrays``: the level order
+    over runs of the certificate's slack) and their plain version
+    ``kernels.ref.sptrsv_level_ref``: bitwise-equal to ``sptrsv_ref``, to
+    the JAX ``solve_with_plan`` and to the JAX elastic scan in f32 and f64,
+    one and m right-hand sides, signed zeros included, and within
+    rtol=atol=1e-4 of ``sptrsv_pallas_elastic(interpret=True)`` (the
     Pallas body tree-sums over W);
   * ``update_values`` on an elastic bound bitwise-equal to a fresh bind;
     mode/slack validation as in JAX; plan-cache keys that differ by slack.
@@ -38,12 +42,13 @@ from repro_torch.backends import (
     unregister_backend,
 )
 from repro_torch.convert import csr_from_numpy, exec_plan_from_numpy
+from repro_torch.kernels.levels import level_order
 from repro_torch.kernels.ops import (
-    elastic_kernel_args,
     elastic_kernel_arrays,
+    level_plan_arrays,
     solve_with_elastic_kernel_arrays,
 )
-from repro_torch.kernels.ref import sptrsv_elastic_ref, sptrsv_ref
+from repro_torch.kernels.ref import sptrsv_level_ref, sptrsv_ref
 from repro_torch.kernels.sptrsv import sptrsv_elastic_cuda
 from repro_torch.solver.executor import (
     elastic_plan_arrays,
@@ -222,7 +227,7 @@ def test_elastic_numeric_update_bitwise_vs_jax(backend):
 # ----------------------------------------------------- bound / executor
 @pytest.mark.parametrize("backend", ["scan", "kernel"])
 def test_update_values_bitwise(backend):
-    # width 2 forces accumulate rows, so tot carries cross waves and tiles
+    # width 2 forces accumulate rows: vertices of several lane-steps
     jp = _jax_plan("er", width=2)
     rng = np.random.default_rng(7)
     L = _MATS["er"]()
@@ -248,6 +253,10 @@ def test_update_values_bitwise(backend):
     d = refreshed.describe()
     assert d["mode"] == "elastic" and d["slack"] == 3 and d["backend"] == backend
     assert d["certificate"] == jcore.elastic_transform(jp, 3).stats()
+    if backend == "kernel":  # the level tensors are a fresh bind's
+        for name in ("vals", "diag"):
+            _assert_bitwise(getattr(fresh._la, name), getattr(refreshed._la, name))
+        assert d["n_levels"] == level_order(_port_plan(jp_new), slack=3).n_levels
 
 
 # the shapes of tests/test_torch_executor.py::test_sptrsv_ref_matches_pallas_interpret
@@ -268,9 +277,9 @@ def test_sptrsv_elastic_ref_vs_bulk_and_pallas(n, density, k, width, slack, m):
         *jelastic_kernel_arrays(jp), b_pad_j, steps_per_tile=slack, interpret=True
     ))
     tp = dataclasses.replace(_port_plan(jp), elastic=tcore.elastic_transform(_port_plan(jp), slack))
-    ea, wave_id, n_waves = elastic_kernel_arrays(tp, device="cpu")
+    la = elastic_kernel_arrays(tp, device="cpu")
     b_pad = pad_rhs(torch.from_numpy(b))
-    x_el = sptrsv_elastic_ref(*elastic_kernel_args(ea, wave_id, n_waves), b_pad)
+    x_el = sptrsv_level_ref(*la[:7], b_pad)
     pa = plan_arrays(tp, device="cpu")
     _assert_bitwise(sptrsv_ref(*pa[:5], b_pad), x_el)
     np.testing.assert_allclose(x_el.numpy()[:n], x_pallas[:n], rtol=1e-4, atol=1e-4)
@@ -278,8 +287,9 @@ def test_sptrsv_elastic_ref_vs_bulk_and_pallas(n, density, k, width, slack, m):
     # the plain macro-step loop and the kernel wrapper (plain version on
     # CPU tensors) agree too
     x = torch.from_numpy(b)
+    ea = elastic_plan_arrays(tp, slack=slack, device="cpu")
     _assert_bitwise(solve_with_plan(pa, x), solve_with_elastic(ea, x))
-    _assert_bitwise(solve_with_plan(pa, x), solve_with_elastic_kernel_arrays(ea, wave_id, n_waves, x))
+    _assert_bitwise(solve_with_plan(pa, x), solve_with_elastic_kernel_arrays(la, x))
 
 
 def test_elastic_plan_arrays_layout():
@@ -301,19 +311,25 @@ def test_elastic_kernel_arrays_checks():
         elastic_kernel_arrays(tp, device="cpu")
     ep = tcore.elastic_transform(tp, 4)
     good = dataclasses.replace(tp, elastic=ep)
-    ea, wave_id, n_waves = elastic_kernel_arrays(good, device="cpu")
-    assert wave_id.dtype == torch.int32 and wave_id.shape == (ea.row_ids.shape[0] * 4,)
-    assert np.array_equal(n_waves.numpy(), ep.n_waves)
-    bad_wave = ep.wave_id.copy()
-    bad_wave[0, 1] = 2
-    with pytest.raises(ValueError, match="wave ids"):
-        elastic_kernel_arrays(
-            dataclasses.replace(tp, elastic=dataclasses.replace(ep, wave_id=bad_wave)),
-            device="cpu",
-        )
+    # the level tensors of the order over runs of the certificate's slack
+    la = elastic_kernel_arrays(good, device="cpu")
+    ref = level_plan_arrays(tp, device="cpu", order=level_order(tp, slack=4))
+    for a, b in zip(la[:8], ref[:8]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert la.level_ptr.numel() - 1 < level_order(tp).n_levels  # runs merge levels
+    # slack 1: the bulk kernel's tensors
+    one = elastic_kernel_arrays(
+        dataclasses.replace(tp, elastic=tcore.elastic_transform(tp, 1)), device="cpu"
+    )
+    for a, b in zip(one[:8], level_plan_arrays(tp, device="cpu")[:8]):
+        assert torch.equal(a, b)
     other = tcore.elastic_transform(_port_plan(_jax_plan("chain")), 4)
     with pytest.raises(ValueError, match="does not fit"):
         elastic_kernel_arrays(dataclasses.replace(tp, elastic=other), device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        elastic_kernel_arrays(
+            dataclasses.replace(tp, elastic=dataclasses.replace(ep, slack=0)), device="cpu"
+        )
     bad = dataclasses.replace(good, col_idx=tp.col_idx.copy())
     bad.col_idx[0, 0, 0] = tp.n + 1
     with pytest.raises(ValueError, match="col_idx"):
@@ -323,23 +339,78 @@ def test_elastic_kernel_arrays_checks():
 def test_sptrsv_elastic_cuda_input_checks():
     tp = _port_plan(_jax_plan("er", width=2))
     tp = dataclasses.replace(tp, elastic=tcore.elastic_transform(tp, 4))
-    wave_id, n_waves, *flat = elastic_kernel_args(*elastic_kernel_arrays(tp, device="cpu"))
-    b_pad = pad_rhs(torch.from_numpy(_rhs(tp.n, None).astype(np.float32)))
-    args = [wave_id, n_waves, *flat, b_pad]
+    la = elastic_kernel_arrays(tp, device="cpu")
+    flat = list(la[:7])
+    b1 = pad_rhs(torch.from_numpy(_rhs(tp.n, None).astype(np.float32)))
+    bm = pad_rhs(torch.from_numpy(_rhs(tp.n, 3).astype(np.float32)))
     for i, bad, err in [
-        (0, wave_id.long(), TypeError),  # int64 wave ids
-        (0, wave_id[:-1], ValueError),  # not one id per step
-        (1, n_waves[:-1], ValueError),  # T not a multiple of M
-        (2, flat[0].long(), TypeError),  # int64 rows
-        (6, flat[4].float(), TypeError),  # float mask
-        (7, b_pad.double(), TypeError),  # dtype mismatch with vals
-        (3, flat[1].transpose(1, 2), ValueError),  # not contiguous
+        (0, flat[0].long(), TypeError),  # int64 rows
+        (6, flat[6].long(), TypeError),  # int64 level bounds
+        (4, flat[4].float(), TypeError),  # float mask
+        (7, b1.double(), TypeError),  # dtype mismatch with vals
+        (1, flat[1].t(), ValueError),  # not contiguous
+        (3, flat[3][:-1], ValueError),  # wrong shape
+        (7, bm[:, :, None].contiguous(), ValueError),  # b_pad neither [n+1] nor [n+1, m]
     ]:
-        a = list(args)
+        a = [*flat, b1]
         a[i] = bad
         with pytest.raises(err):
             sptrsv_elastic_cuda(*a)
-    _assert_bitwise(sptrsv_ref(*flat, b_pad), sptrsv_elastic_cuda(*args))
+    pa = plan_arrays(tp, device="cpu")
+    for b_pad in (b1, bm):  # the plain version on CPU tensors: the bulk bits
+        _assert_bitwise(sptrsv_ref(*pa[:5], b_pad), sptrsv_elastic_cuda(*flat, b_pad))
+
+
+@functools.lru_cache(maxsize=None)
+def _signed_zero_case(name, dtype):
+    """A JAX plan (width 2) of a matrix with explicit +-0 entries, and its
+    entry data."""
+    L = {"er": lambda: jsparse.erdos_renyi_lower(700, 2e-3, seed=11),
+         "band": lambda: jsparse.narrow_band_lower(700, 0.14, 10, seed=12),
+         "ichol": lambda: jsparse.ichol0(jsparse.poisson2d_matrix(24))}[name]()
+    rng = np.random.default_rng(5)
+    off = np.flatnonzero(L.indices != L.row_of_entry())
+    data = np.array(L.data, dtype=np.float64)
+    zeros = rng.choice(off, off.size // 4, replace=False)
+    data[zeros] = np.where(rng.random(zeros.size) < 0.5, -0.0, 0.0)
+    L = dataclasses.replace(L, data=data)
+    s = jschedule(jsparse.dag_from_lower_csr(L), K, strategy="growlocal")
+    L2, s2, _, _ = jcore.apply_reordering(L, s)
+    return jcore.compile_plan(L2, s2, width=2, dtype=np.dtype(dtype))
+
+
+@pytest.mark.parametrize("m", [None, 3, 16])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name,slack", [("er", 2), ("band", 8), ("ichol", 3)])
+def test_elastic_level_walk_bitwise_vs_jax(name, slack, dtype, m):
+    import jax
+
+    jp = _signed_zero_case(name, dtype)
+    tp = _port_plan(jp)
+    tp = dataclasses.replace(tp, elastic=tcore.elastic_transform(tp, slack))
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    rng = np.random.default_rng(slack)
+    b = rng.standard_normal(jp.n if m is None else (jp.n, m)).astype(dtype)
+    zero = rng.random(b.shape) < 0.5  # half of b is +0 or -0
+    b[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    la = elastic_kernel_arrays(tp, dtype=tdt, device="cpu")
+    b_pad = pad_rhs(torch.from_numpy(b))
+    x = sptrsv_level_ref(*la[:7], b_pad)
+    assert x.dtype == tdt and x.shape == b_pad.shape
+    assert (x[jp.n] == 0).all() and not torch.signbit(x[jp.n]).any()  # the scratch slot
+    x = x[: jp.n]
+    assert (torch.signbit(x) & (x == 0)).any()  # -0 reached x
+    _assert_bitwise(sptrsv_ref(*plan_arrays(tp, dtype=tdt, device="cpu")[:5], b_pad)[: jp.n], x)
+    with jax.enable_x64(dtype == "float64"):
+        jb = jnp.asarray(b)
+        from repro.solver.executor import plan_arrays as jplan_arrays
+        from repro.solver.executor import solve_with_plan as jsolve_with_plan
+
+        x_bulk = np.asarray(jsolve_with_plan(jplan_arrays(jp, dtype=jnp.dtype(dtype)), jb))
+        x_elastic = np.asarray(jget_backend("scan").bind(
+            jp, dtype=np.dtype(dtype), slack=slack).solve(jb))
+    _assert_bitwise(x_bulk, x)
+    _assert_bitwise(x_elastic, x)
 
 
 # ------------------------------------------------------ options / cache

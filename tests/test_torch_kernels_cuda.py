@@ -1,5 +1,6 @@
 """The CUDA kernels (bulk SpTRSV, single RHS in level order and multi-RHS;
-elastic SpTRSV; SpMV) against their plain versions, on the card.
+elastic SpTRSV, the level walk over runs of supersteps for one and m RHS;
+SpMV) against their plain versions, on the card.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device (it
 adds no pass there). On the card run it with
@@ -132,10 +133,13 @@ def test_front_door_on_cuda(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [None, 5, 64])
-@pytest.mark.parametrize("k,width,slack", [(8, None, 8), (32, 2, 1), (8, 2, 3)])
+@pytest.mark.parametrize("m", [None, 1, 5, 33])
+@pytest.mark.parametrize("slack", [1, 3, 8])
+@pytest.mark.parametrize("k,width", [(8, None), (32, 2)])
 @pytest.mark.parametrize("gen", ["er", "nb"])
 def test_elastic_kernel_matches_plain_bitwise(cuda, gen, k, width, slack, m, dtype):
+    # the level walk over runs of slack supersteps: one block for b f[n+1]
+    # (None), a block per column for b f[n+1, m]
     L = (erdos_renyi_lower(2000, 1e-3, seed=0) if gen == "er"
          else narrow_band_lower(2000, 0.14, 10, seed=0))
     plan = repro_torch.TriangularSolver.plan(L, k=k, width=width, device="cpu").exec_plan
@@ -143,18 +147,20 @@ def test_elastic_kernel_matches_plain_bitwise(cuda, gen, k, width, slack, m, dty
     rng = np.random.default_rng(1)
     b = torch.as_tensor(rng.standard_normal(2000 if m is None else (2000, m)), dtype=dtype)
     x_cpu = solve_with_plan(plan_arrays(plan, dtype=dtype, device="cpu"), b)
-    x_plain = solve_with_elastic_kernel_arrays(
-        *elastic_kernel_arrays(plan, dtype=dtype, device="cpu"), b
-    )
+    la_cpu = elastic_kernel_arrays(plan, dtype=dtype, device="cpu")
+    x_plain = solve_with_elastic_kernel_arrays(la_cpu, b)
     before = dict(sptrsv.launches)
-    x_gpu = solve_with_elastic_kernel_arrays(
-        *elastic_kernel_arrays(plan, dtype=dtype, device=cuda), b.to(cuda)
-    )
+    la = elastic_kernel_arrays(plan, dtype=dtype, device=cuda)
+    x_gpu = solve_with_elastic_kernel_arrays(la, b.to(cuda))
     torch.cuda.synchronize()
     kind = "elastic_single" if m is None else "elastic_mrhs"
     assert sptrsv.launches[kind] == before[kind] + 1
+    assert sum(sptrsv.launches.values()) == sum(before.values()) + 1
     assert _bits_equal(x_plain, x_cpu)
     assert _bits_equal(x_gpu, x_cpu)
+    if slack == 1:  # the bulk level kernel's order: its bits, and its tensors
+        for a, c in zip(la[:7], level_plan_arrays(plan, dtype=dtype, device=cuda)[:7]):
+            assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

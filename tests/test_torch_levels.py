@@ -1,4 +1,4 @@
-"""The single-RHS kernel's layout and plain version, on the CPU:
+"""The level kernels' layout and plain version, on the CPU:
 
   * the level order of a plan (``kernels.levels.level_order``) on ER, NB and
     IC(0) plans at n ~ 2,000, k in {4, 8, 16}, width in {None, 2, 3} (widths
@@ -6,6 +6,13 @@
     once, each vertex's steps are contiguous and in plan order, supersteps
     come in order, and every in-neighbour of a vertex sits at a strictly
     lower level (at exactly one level below for the deepest one);
+  * the order over runs of ``slack`` supersteps (``mode="elastic"``) for
+    slack in {1, 2, 3, 8, at least the superstep count} on ER, NB, chain
+    and IC(0) plans: array-equal to an order built by its definition in
+    plain Python (``slack=1`` array-equal to the default order), every
+    vertex reads only rows of earlier runs or of lower levels of its run,
+    levels fall as runs merge, and one run has as many levels as the
+    vertex DAG's longest path;
   * ``sptrsv_level_ref`` == ``sptrsv_ref`` == the JAX package's
     ``solve_with_plan``, bitwise, in f32 and f64, and on inputs that hold
     signed zeros and explicit zero entries;
@@ -26,7 +33,7 @@ import repro.sparse as jsparse
 import repro_torch
 from repro.solver.executor import plan_arrays as jplan_arrays
 from repro.solver.executor import solve_with_plan as jsolve_with_plan
-from repro_torch.convert import exec_plan_from_numpy
+from repro_torch.convert import csr_from_numpy, exec_plan_from_numpy
 from repro_torch.kernels import sptrsv
 from repro_torch.kernels.levels import level_order
 from repro_torch.kernels.ops import level_plan_arrays
@@ -77,12 +84,14 @@ def test_level_order_properties(name, k, width):
     assert np.array_equal(plan.accum.reshape(-1)[perm], ~last)
     assert np.array_equal(np.sort(rows[last]), np.arange(n))  # each row finished once
 
-    # supersteps in order, one per level
+    # supersteps in order, one per level (the default order runs each
+    # superstep on its own)
     bounds = np.asarray(plan.step_bounds)
     superstep = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))[step]
     assert (np.diff(superstep) >= 0).all()
     level = np.repeat(np.arange(n_levels), np.diff(lp))  # level of each vertex
-    assert np.array_equal(order.level_superstep[level], superstep[vp[:-1]])
+    assert order.slack == 1
+    assert np.array_equal(order.level_run[level], superstep[vp[:-1]])
 
     # every in-neighbour sits at a strictly lower level; a vertex's deepest
     # in-neighbour of its own superstep one level below (levels are tight)
@@ -92,17 +101,159 @@ def test_level_order_properties(name, k, width):
     p, w = np.nonzero(cols != n)
     u, v = finisher[cols[p, w]], vertex[p]
     assert (level[u] < level[v]).all()
-    own = order.level_superstep[level[u]] == order.level_superstep[level[v]]
+    own = order.level_run[level[u]] == order.level_run[level[v]]
     deepest = np.full(V, -1)
     np.maximum.at(deepest, v[own], level[u[own]])
-    first_level = np.concatenate([[True], np.diff(order.level_superstep) != 0])
+    first_level = np.concatenate([[True], np.diff(order.level_run) != 0])
     assert np.array_equal(deepest >= 0, ~first_level[level])
     has = deepest >= 0
     assert (deepest[has] == level[has] - 1).all()
 
     stats = order.stats()
-    assert stats["levels"] == n_levels and sum(stats["levels_per_superstep"]) == n_levels
+    assert stats["levels"] == n_levels and sum(stats["levels_per_run"]) == n_levels
     assert stats["level_width_max"] == int(np.diff(lp).max())
+
+
+# ------------------------------------------------- runs of supersteps
+_RUN_PLANS = ("er", "nb", "chain", "ichol")
+_SLACKS = (1, 2, 3, 8, "all")  # "all": at least the superstep count
+
+
+@functools.lru_cache(maxsize=None)
+def _run_plan(name):
+    """A plan of several supersteps (width 2 forces accumulate rows)."""
+    if name == "chain":
+        from repro.autotune.corpus import chain_lower
+
+        c = chain_lower(600, seed=1)
+        L = csr_from_numpy(c.n_rows, c.n_cols, c.indptr, c.indices, c.data)
+        return repro_torch.TriangularSolver.plan(
+            L, k=4, width=2, device="cpu", backend="scan"
+        ).exec_plan
+    return _port_plan(name, 8, 2)
+
+
+def _slack(plan, slack):
+    return plan.n_supersteps + 1 if slack == "all" else slack
+
+
+def _vertex_graph(plan):
+    """Vertices by definition, one Python pass over the plan: for each
+    lane's accum run plus its finishing step, in (step, lane) order of the
+    finishing step, its superstep, lane, first step, flat lane-steps and
+    the vertices it reads."""
+    n, k = plan.n, plan.k
+    bounds = np.asarray(plan.step_bounds)
+    superstep = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))
+    finisher = {}  # row -> vertex
+    open_steps = [[] for _ in range(k)]
+    verts = []
+    for t in range(plan.n_steps):
+        for lane in range(k):
+            if plan.row_ids[t, lane] == n:
+                continue
+            open_steps[lane].append(t)
+            if plan.accum[t, lane]:
+                continue
+            steps, open_steps[lane] = open_steps[lane], []
+            reads = {finisher[c] for s in steps for c in plan.col_idx[s, lane] if c != n}
+            finisher[int(plan.row_ids[t, lane])] = len(verts)
+            verts.append(dict(ss=int(superstep[steps[0]]), lane=lane, step=steps[0],
+                              flat=[s * k + lane for s in steps], reads=reads))
+    return verts
+
+
+def _reference_order(plan, slack):
+    """The level order over runs of ``slack`` supersteps by its definition:
+    a vertex's level is 0, or 1 + the deepest vertex of its own run that it
+    reads; order by (run, level, lane, step)."""
+    verts = _vertex_graph(plan)
+    for v in verts:  # the readers come after what they read
+        run = v["ss"] // slack
+        own = [verts[u]["level"] for u in v["reads"] if verts[u]["ss"] // slack == run]
+        v["run"], v["level"] = run, 1 + max(own, default=-1)
+    order = sorted(verts, key=lambda v: (v["run"], v["level"], v["lane"], v["step"]))
+    keys = [(v["run"], v["level"]) for v in order]
+    level_first = [i for i in range(len(keys)) if i == 0 or keys[i] != keys[i - 1]]
+    return (
+        np.array([f for v in order for f in v["flat"]], np.int64),
+        np.cumsum([0] + [len(v["flat"]) for v in order]).astype(np.int32),
+        np.array(level_first + [len(order)], np.int32),
+        np.array([keys[i][0] for i in level_first], np.int32),
+    )
+
+
+def _longest_path(plan):
+    """Vertices on the longest path of the plan's vertex DAG."""
+    depth = []
+    for v in _vertex_graph(plan):
+        depth.append(1 + max((depth[u] for u in v["reads"]), default=0))
+    return max(depth, default=0)
+
+
+@pytest.mark.parametrize("slack", _SLACKS)
+@pytest.mark.parametrize("name", _RUN_PLANS)
+def test_level_order_over_runs(name, slack):
+    plan = _run_plan(name)
+    s = _slack(plan, slack)
+    order = level_order(plan, slack=s)
+    perm, vp, lp, lrun = _reference_order(plan, s)
+    assert np.array_equal(order.perm, perm)
+    assert order.vert_ptr.dtype == np.int32 and np.array_equal(order.vert_ptr, vp)
+    assert order.level_ptr.dtype == np.int32 and np.array_equal(order.level_ptr, lp)
+    assert np.array_equal(order.level_run, lrun) and order.slack == s
+    if s == 1:  # the default: the bulk kernel's order, array for array
+        default = level_order(plan)
+        for a, b in zip(default[:4], order[:4]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+    # every vertex reads rows of earlier runs or of lower levels of its run
+    n, k, V = plan.n, plan.k, len(vp) - 1
+    vertex = np.repeat(np.arange(V), np.diff(vp))
+    level = np.repeat(np.arange(order.n_levels), np.diff(lp))
+    rows = plan.row_ids.reshape(-1)[perm]
+    last = np.append(vertex[1:] != vertex[:-1], True)
+    finisher = np.empty(n, np.int64)
+    finisher[rows[last]] = vertex[last]
+    cols = plan.col_idx.reshape(-1, plan.W)[perm]
+    p, w = np.nonzero(cols != n)
+    u, v = finisher[cols[p, w]], vertex[p]
+    ru, rv = lrun[level[u]], lrun[level[v]]
+    assert ((ru < rv) | ((ru == rv) & (level[u] < level[v]))).all()
+    # a vertex is consecutive steps of one lane in one superstep
+    step, lane = np.divmod(perm, k)
+    bounds = np.asarray(plan.step_bounds)
+    superstep = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))[step]
+    same = ~last[:-1]
+    assert (lane[1:][same] == lane[:-1][same]).all()
+    assert (step[1:][same] == step[:-1][same] + 1).all()
+    assert (superstep[1:][same] == superstep[:-1][same]).all()
+    assert (superstep // s == lrun[level[vertex]]).all()
+    assert sum(order.stats()["levels_per_run"]) == order.n_levels
+    if slack == "all":  # the whole DAG's wavefronts
+        assert order.n_levels == _longest_path(plan)
+        assert len(set(lrun.tolist())) == 1
+
+
+@pytest.mark.parametrize("name", _RUN_PLANS)
+def test_levels_fall_as_runs_merge(name):
+    # a run of s' supersteps that is a union of runs of s takes at most
+    # the levels of those runs together (a path through it visits them in
+    # order), and no order has fewer levels than the longest path
+    plan = _run_plan(name)
+    S = plan.n_supersteps
+    levels = {s: level_order(plan, slack=_slack(plan, s)).n_levels for s in _SLACKS}
+    for s in _SLACKS:
+        for t in _SLACKS:
+            coarser = t == "all" or (s != "all" and t % s == 0)
+            if coarser:
+                assert levels[t] <= levels[s], (s, t, levels)
+    assert levels["all"] == _longest_path(plan)
+    # ER and NB span several supersteps; GrowLocal keeps the chain and
+    # IC(0) of a small grid on one core, in one superstep
+    assert S > 1 or name in ("chain", "ichol")
+    with pytest.raises(ValueError, match="slack"):
+        level_order(plan, slack=0)
 
 
 def _jax_matrix(name):
