@@ -9,14 +9,14 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   build      compile every csrc/*.cu with nvcc for sm_90a, from the sources,
              one nvcc per source, all at once
   kernels    on ER and NB matrices of n=2,000, each kernel against its plain
-             version run on the CPU, bitwise: the bulk SpTRSV kernels (k in
-             {8, 32}, width in {None, 2}, single RHS through the level-ordered
-             kernel and m in {5, 64, 300} through the multi-RHS kernel; the
-             largest ulp gap to the plain version run on the card is
-             reported), the elastic kernels (the level walk over runs of
-             slack supersteps; k in {8, 32}, slack in {1, 8}, single RHS and
-             m in {5, 64}; also bitwise-equal to the bulk plain version) and
-             the SpMV kernel (width in {None, 2})
+             version run on the CPU, bitwise: the bulk SpTRSV kernels, both
+             level walks of the bulk order (k in {8, 32}, width in {None,
+             2}, single RHS and m in {5, 64, 300}, the latter a block per
+             column; the largest ulp gap to the plain version run on the
+             card is reported), the elastic kernels (the level walk over
+             runs of slack supersteps; k in {8, 32}, slack in {1, 8},
+             single RHS and m in {5, 64}; also bitwise-equal to the bulk
+             plain version) and the SpMV kernel (width in {None, 2})
   main_path  the paper's synthetic sets at n=100,000 (§6.2.4 ER p=1e-4,
              §6.2.5 NB p=0.14 B=10, seed 0; NB with a dominant diagonal, as
              its own values overflow float32): TriangularSolver.plan(L) with
@@ -43,7 +43,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              bound and padding share are printed beside it). The single-RHS
              line also reports the level order: its host seconds, levels
              (= block barriers), widest level, the supersteps and the DAG's
-             longest path beside them; the elastic lines report the levels
+             longest path beside them; the m-RHS line adds its column
+             blocks and the time of the column-major copy of b that its
+             call makes; the elastic lines report the levels
              of the order over runs of slack supersteps and its slack
 
 then the ``kernels`` summary line, the nvidia-smi line, and last
@@ -68,7 +70,7 @@ FP32_FLOPS = 67e12  # H100 SXM data sheet, outside the tensor cores
 # launch counter, file that holds the kernel's body)
 KERNELS = {
     "sptrsv_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "single", "level.cuh"),
-    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "mrhs", "sptrsv.cu"),
+    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "mrhs", "level.cuh"),
     "sptrsv_elastic_single": (
         "src/repro/kernels/sptrsv.py:146", "sptrsv_elastic.cu", "elastic_single", "level.cuh"),
     "sptrsv_elastic_mrhs": (
@@ -108,11 +110,7 @@ def main() -> int:
     from repro_torch.core import elastic_transform
     from repro_torch.kernels import build, spmv, sptrsv
     from repro_torch.kernels.levels import level_order
-    from repro_torch.kernels.ops import (
-        elastic_kernel_arrays,
-        kernel_plan_arrays,
-        level_plan_arrays,
-    )
+    from repro_torch.kernels.ops import elastic_kernel_arrays, level_plan_arrays
     from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref, sptrsv_ref
     from repro_torch.solver.executor import pad_rhs, plan_arrays
     from repro_torch.sparse import (
@@ -189,7 +187,6 @@ def main() -> int:
                 plan = repro_torch.TriangularSolver.plan(
                     L, k=k, width=width, device="cpu").exec_plan
                 pa_cpu = plan_arrays(plan, device="cpu")
-                pa_gpu = kernel_plan_arrays(plan, device=dev)
                 la_gpu = level_plan_arrays(plan, device=dev)
                 rng = np.random.default_rng(k)
                 for m in (None, 5, 64, 300):
@@ -197,12 +194,9 @@ def main() -> int:
                         2000 if m is None else (2000, m)), dtype=torch.float32)
                     b_pad = pad_rhs(b)
                     x_cpu = sptrsv_ref(*pa_cpu[:5], b_pad)
-                    if m is None:  # the level-ordered kernel and its plain version
-                        x_gpu = sptrsv.sptrsv_level_cuda(*la_gpu[:7], b_pad.to(dev))
-                        x_plain_gpu = sptrsv_level_ref(*la_gpu[:7], b_pad.to(dev))
-                    else:
-                        x_gpu = sptrsv.sptrsv_cuda(*pa_gpu[:6], b_pad.to(dev))
-                        x_plain_gpu = sptrsv_ref(*pa_gpu[:5], b_pad.to(dev))
+                    # one block for b f[n+1], a block per column for f[n+1, m]
+                    x_gpu = sptrsv.sptrsv_level_cuda(*la_gpu[:7], b_pad.to(dev))
+                    x_plain_gpu = sptrsv_level_ref(*la_gpu[:7], b_pad.to(dev))
                     torch.cuda.synchronize()
                     same = bitwise_equal(x_gpu, x_cpu)
                     cells.append({"matrix": gen_name, "k": k, "W": plan.W,
@@ -382,8 +376,8 @@ def main() -> int:
         # supersteps; the certificate's waves are what the TPU kernel walks
         rows.append({"matrix": name, "plan_s": round(plan_s, 3), "slack": ep.slack,
                      "n_steps": ep.n_steps, "n_supersteps": ep.n_supersteps,
-                     "barriers_bulk": {"single": solvers[name].bound.describe()["n_levels"],
-                                       "mrhs": ep.n_supersteps},
+                     # both bulk kernels walk the bulk level order
+                     "barriers_bulk": solvers[name].bound.describe()["n_levels"],
                      "barriers_elastic": el.bound.describe()["n_levels"],
                      "waves_certificate": int(ep.n_waves.sum()),
                      "mean_waves_per_tile": float(ep.n_waves.mean())})
@@ -510,23 +504,21 @@ def main() -> int:
         t0 = time.perf_counter()
         order = level_order(plan)
         level_s = time.perf_counter() - t0
-        pa = kernel_plan_arrays(plan, device=dev)
         la = level_plan_arrays(plan, device=dev, order=order)
-        esize = pa.vals.element_size()
+        esize = la.vals.element_size()
         work = plan_work(plan, esize)
+        stats = order.stats()
         for kname, m in (("sptrsv_single", None), ("sptrsv_mrhs", MAIN_M)):
             b_pad = rhs_pad(gpu.n, m)
-            if m is None:  # the level-ordered kernel
-                kernel_in, kernel = la[:7], sptrsv.sptrsv_level_cuda
-                plain_fn, plain_in = sptrsv_level_ref, la[:7]
-            else:
-                kernel_in, kernel = pa[:6], sptrsv.sptrsv_cuda
-                plain_fn, plain_in = sptrsv_ref, pa[:5]
-            ms = statistics.median(cuda_times(lambda: kernel(*kernel_in, b_pad), 3, 20))
-            x = kernel(*kernel_in, b_pad)
-            # the plain version once: it launches tens of operations per level or step
+            # both walk the bulk level order: one block for b f[n+1], a
+            # block per column of a column-major copy (timed with it) for
+            # f[n+1, m]
+            ms = statistics.median(cuda_times(lambda: sptrsv.sptrsv_level_cuda(*la[:7], b_pad),
+                                              3, 20))
+            x = sptrsv.sptrsv_level_cuda(*la[:7], b_pad)
+            # the plain version once: it launches tens of operations per level
             x_plain = []
-            plain = cuda_times(lambda: x_plain.append(plain_fn(*plain_in, b_pad)), 0, 1)
+            plain = cuda_times(lambda: x_plain.append(sptrsv_level_ref(*la[:7], b_pad)), 0, 1)
             require(bitwise_equal(x, x_plain[0]), f"{name} {kname}: timed kernel != plain")
             # the library solves L itself (caller row order), so it is
             # checked against the front door's answer, not the plan's
@@ -535,29 +527,33 @@ def main() -> int:
                 mats[name], gpu.source_values, rhs, gpu.solve(rhs))
             cols = 1 if m is None else m
             # the bound is the solve's data alone, the same for every layout:
-            # the plan's real work and step bounds, b read and x written
+            # the plan's real work, b read and x written
             rhs_bytes = 2 * gpu.n * cols * esize
             # the kernel's arrays as it reads them, padding slots included
-            plan_total = (sum(t.numel() * t.element_size() for t in kernel_in)
+            plan_total = (sum(t.numel() * t.element_size() for t in la[:7])
                           + 2 * b_pad.numel() * b_pad.element_size())
             rec = {"matrix": name, "kernel": kname, "m": cols, "ms": ms,
                    "launches_per_solve": 1,
-                   **bound(work["bytes"] + pa.step_bounds.numel() * 4 + rhs_bytes,
+                   **bound(work["bytes"] + rhs_bytes,
                            2 * (work["entries"] + work["finishes"]) * cols),
                    "entries": work["entries"], "padding_share": work["padding_share"],
                    "bound_padded_plan_us": plan_total / HBM_BYTES_PER_S * 1e6,
                    "padded_plan_bytes": plan_total,
-                   "barriers": plan.n_supersteps,
+                   # one block barrier per level (per column block for m RHS)
+                   "barriers": order.n_levels, "levels": order.n_levels,
+                   "level_width_max": stats["level_width_max"],
+                   "supersteps": plan.n_supersteps, "level_order_s": level_s,
                    "plain_ms": statistics.median(plain),
                    "plain_reps": len(plain), "library_ms": lib,
                    "library": "torch.triangular_solve(B, L_csr, upper=False)",
                    "library_rel_gap_to_port": lib_gap,
                    "library_error": lib_err, **card}
-            if m is None:  # one block barrier per level
-                rec.update(order.stats(), barriers=order.n_levels,
-                           supersteps=plan.n_supersteps, level_order_s=level_s,
-                           dag_longest_path=longest_path_length(
-                               dag_from_lower_csr(mats[name])))
+            if m is None:
+                rec.update(stats, dag_longest_path=longest_path_length(
+                    dag_from_lower_csr(mats[name])))
+            else:  # the wrapper's column-major copy of b, part of ms
+                copy_in = cuda_times(lambda: b_pad.T.contiguous(), 3, 20)
+                rec.update(blocks=cols, copy_in_ms=statistics.median(copy_in))
             timing[(name, kname)] = rec
             emit({"phase": "timing", **rec})
 

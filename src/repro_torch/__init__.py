@@ -13,7 +13,7 @@ SpTRSV, padded-ELL SpMV — are hand-written CUDA C++ for ``sm_90a``
     solver = TriangularSolver.plan(L)      # growlocal, k=8, kernel, cuda
     x = solver.solve(b)                    # b: f[n] or f[n, m]
     solver.numeric_update(L_new_values)    # same pattern, new values
-    TriangularSolver.plan(L, mode="elastic")  # readiness waves, same bits
+    TriangularSolver.plan(L, mode="elastic")  # fewer barriers, same bits
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,7 +1,11 @@
 """Kernel backend — the hand-written CUDA SpTRSV kernels behind the
 ``Backend`` protocol (wrappers in ``repro_torch.kernels.sptrsv``). The
 port's counterpart of the JAX package's ``pallas`` backend, and the default
-of ``TriangularSolver.plan``. CPU tensors take the kernels' plain version."""
+of ``TriangularSolver.plan``. Every solve is one launch of a level walk
+(``kernels.levels``): over the bulk level order, a run per superstep, for
+one right-hand side and for m (a block per column), and in
+``mode="elastic"`` over runs of ``slack`` supersteps. CPU tensors take the
+kernels' plain version."""
 from __future__ import annotations
 
 from repro_torch.backends.registry import register_backend
@@ -22,8 +26,9 @@ from repro_torch.solver.executor import elastic_plan_arrays
 
 
 def kernel_arrays(exec_plan, *, dtype, device):
-    """``(PlanArrays, LevelArrays)``: the plan for the multi-RHS kernel and
-    its level order for the single-RHS kernel."""
+    """``(PlanArrays, LevelArrays)``: the padded plan (the value refresh's
+    source; no kernel reads it) and the plan in the bulk level order, which
+    the kernels read."""
     return (
         kernel_plan_arrays(exec_plan, dtype=dtype, device=device),
         level_plan_arrays(exec_plan, dtype=dtype, device=device),
@@ -46,10 +51,10 @@ def _describe_levels(out, la):
 
 class KernelBoundSolve(ScanBoundSolve):
     """The scan bound's plan tensors and value refresh, plus the plan in
-    level order; a single-RHS solve runs ``sptrsv_level_cuda``, a
-    multi-RHS solve ``sptrsv_cuda``. A value refresh gathers the level
-    tensors from the refreshed plan tensors by the level order's ``perm``,
-    on the device."""
+    the bulk level order; a solve, of one right-hand side or of m, runs
+    ``sptrsv_level_cuda`` over the latter (one block barrier per level).
+    A value refresh gathers the level tensors from the refreshed plan
+    tensors by the level order's ``perm``, on the device."""
 
     backend = "kernel"
 
@@ -58,7 +63,7 @@ class KernelBoundSolve(ScanBoundSolve):
         super().__init__(pa, val_src, diag_src, n_entries=n_entries)
 
     def solve(self, b):
-        return solve_with_kernel_arrays(self._pa, self._la, b)
+        return solve_with_kernel_arrays(self._la, b)
 
     def update_values(self, data) -> "KernelBoundSolve":
         vals, diag = self._refreshed(data)
@@ -103,16 +108,18 @@ class ElasticKernelBoundSolve(ElasticScanBoundSolve):
         )
 
     def describe(self) -> dict:
-        return _describe_levels(super().describe(), self._la)
+        # the level order's runs: slack counts supersteps here, plan steps
+        # in the scan bound's macro-steps
+        return _describe_levels({**super().describe(), "slack_unit": "supersteps"}, self._la)
 
 
 @register_backend
 class KernelBackend(ScanBackend):
     """Single- and multi-RHS CUDA kernels: one launch per solve; inside it
-    one block barrier per level (single RHS, bulk; elastic, over runs of
-    ``slack`` supersteps) or per superstep (multi RHS, bulk). Binding also
-    checks the plan's index contents and the elastic certificate, which
-    the kernels read unchecked."""
+    one block barrier per level, of the bulk level order or, elastic, of
+    the order over runs of ``slack`` supersteps. Binding also checks the
+    plan's index contents and the elastic certificate, which the kernels
+    read unchecked."""
 
     name = "kernel"
     bound_cls = KernelBoundSolve

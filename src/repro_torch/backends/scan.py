@@ -131,6 +131,7 @@ class ElasticScanBoundSolve(ScanBoundSolve):
             "n_steps": self._ea.n_steps,
             "n_macro_steps": M,
             "slack": S,
+            "slack_unit": "plan_steps",  # a macro-step's window
             "k": k,
             "W": W,
             "dtype": _dtype_name(self._ea.vals),

@@ -1,7 +1,8 @@
 // The level walk: scheduled sparse triangular solve over a plan in level
 // order (src/repro_torch/kernels/levels.py), shared by csrc/sptrsv.cu (the
 // bulk order, a run per superstep) and csrc/sptrsv_elastic.cu (runs of
-// `slack` supersteps, mode="elastic").
+// `slack` supersteps, mode="elastic"). Each launches one block for one
+// right-hand side and a block per column for m.
 //
 // A vertex is a lane's run of accum steps plus the step that finishes it;
 // the host orders the plan's real lane-steps by (run, level, lane, step)
@@ -89,22 +90,21 @@ __global__ void sptrsv_level_kernel(
        int64_t{1});
 }
 
-// m right-hand sides: block c walks the level order for column c, whose
-// entry of row r sits at r * row_stride + c * col_stride of b and x
-// (row-major f[n + 1, m]: m and 1; column-major: 1 and n + 1). Columns
-// never interact, so blocks need no barrier between them.
+// m right-hand sides, column-major f[m, rows = n + 1]: block c walks the
+// level order for column c, the single-RHS walk on b + c * rows and
+// x + c * rows. Columns never interact, so blocks need no barrier between
+// them.
 template <typename T>
 __global__ void sptrsv_level_cols_kernel(
     const int32_t* __restrict__ row_ids, const int32_t* __restrict__ col_idx,
     const T* __restrict__ vals, const T* __restrict__ diag,
     const uint8_t* __restrict__ accum, const int32_t* __restrict__ vert_ptr,
-    const int32_t* __restrict__ level_ptr, int n_levels, int W,
-    int64_t row_stride, int64_t col_stride,
-    const T* __restrict__ b,  // m columns of n + 1 rows
+    const int32_t* __restrict__ level_ptr, int n_levels, int W, int64_t rows,
+    const T* __restrict__ b,  // [m, rows]
     T* x) {                   // the same layout, zeroed by the caller
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * col_stride;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * rows;
   walk(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, n_levels, W, b + c,
-       x + c, row_stride);
+       x + c, int64_t{1});
 }
 
 template <typename T>
@@ -123,14 +123,14 @@ int launch(const void* row_ids, const void* col_idx, const void* vals, const voi
 template <typename T>
 int launch_cols(const void* row_ids, const void* col_idx, const void* vals,
                 const void* diag, const void* accum, const void* vert_ptr,
-                const void* level_ptr, int n_levels, int W, int m, int64_t row_stride,
-                int64_t col_stride, const void* b, void* x, void* stream) {
+                const void* level_ptr, int n_levels, int W, int m, int64_t rows,
+                const void* b, void* x, void* stream) {
   sptrsv_level_cols_kernel<T><<<m, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_idx),
       static_cast<const T*>(vals), static_cast<const T*>(diag),
       static_cast<const uint8_t*>(accum), static_cast<const int32_t*>(vert_ptr),
-      static_cast<const int32_t*>(level_ptr), n_levels, W, row_stride, col_stride,
-      static_cast<const T*>(b), static_cast<T*>(x));
+      static_cast<const int32_t*>(level_ptr), n_levels, W, rows, static_cast<const T*>(b),
+      static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
 }
 

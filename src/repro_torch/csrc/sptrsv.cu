@@ -14,107 +14,53 @@
 // follow the executor, so they match the plain PyTorch versions
 // (kernels/ref.py) bit for bit.
 //
-// Bound on this card. A solve reads each real plan entry and lane-step once
-// and the index arrays that order them, reads b and writes x (n+1 entries
-// per right-hand side). Those bytes over the H100's 3.35 TB/s are the least
-// time the card could take. The real limit is latency: a row reads x rows
-// that earlier rows wrote, so the solve is a chain of dependent gathers
-// (index load, then x load, then the FMA chain, then the store) as long as
-// the dependency structure the kernel keeps.
+// Bound on this card. A solve reads each real plan entry and lane-step once,
+// reads b and writes x (n+1 entries per right-hand side). Those bytes over
+// the H100's 3.35 TB/s are the least time the card could take. The real
+// limit is latency: a row reads x rows that earlier rows wrote, so the solve
+// is a chain of dependent gathers (index load, then x load, then the FMA
+// chain, then the store) as long as the dependency structure the kernel
+// keeps.
 //
-// Within one superstep a lane depends only on its own earlier steps (the BSP
-// validity of the schedule: a cross-core edge always crosses a superstep
-// boundary, see core/plan.py). x stays in device memory and L2: at the
-// paper's sizes it is larger than a block's shared memory, and it is written
-// inside the kernel, so it is read through a plain pointer (no __ldg, no
-// const __restrict__); the plan arrays are read through __ldg.
+// Both entries run the level walk of csrc/level.cuh over the plan in the
+// bulk level order (kernels/levels.py, a run per superstep), one
+// __syncthreads() per level: 80 on the paper's ER set at n = 100,000 and
+// 2,020 on its NB set, against T = 13,561 and 16,635 plan steps.
+// mode="elastic" launches the same code over runs of supersteps
+// (csrc/sptrsv_elastic.cu).
 //
-// Single right-hand side: the level walk of csrc/level.cuh over the plan in
-// the bulk level order (kernels/levels.py, a run per superstep): one block of
-// 1,024 threads, one __syncthreads() per level (80 on the paper's ER set at
-// n = 100,000, against T = 13,561 plan steps). mode="elastic" launches the
-// same code over runs of supersteps (csrc/sptrsv_elastic.cu).
+// Single right-hand side: one block of 1,024 threads.
 //
-// Multi right-hand side: columns never interact, so the grid runs over
-// chunks of 32 columns; thread (c, l) owns column c of lane l, walks the
-// lane's chain of each superstep, and the block synchronises once per
-// superstep. The 32 threads of a warp read neighbouring columns of one row
-// of x f[n+1, m] (row-major, right-hand side minor), so their loads
-// coalesce. Padding lanes target the scratch slot n and write the 0 that the
-// plain version writes there; accum lanes write nothing.
+// m right-hand sides (replaces src/repro/kernels/sptrsv.py:98,
+// _sptrsv_mrhs_kernel, which carries a [k, m] accumulator tile through the
+// plan's steps in VMEM): the column grid, block c walks the level order for
+// column c of a column-major copy of b (rows 1 apart, columns n + 1
+// apart). Columns never interact, so blocks never wait
+// for each other. Bound: the single-RHS bytes with b and x m columns wide,
+// 9.1 us at m = 32 on ER and 8.3 us on NB. The previous design (a thread per
+// column and lane walking the lane's chain of each superstep, one barrier
+// per superstep) was held back by that chain: T / S dependent plan steps per
+// thread, each a gather of rows the previous step may have written, about
+// 1.45 us each, on one block, so 17-20 ms at m = 32, over 2,000x the bound.
+// The level walk cuts the chain to one dependent load chain per level. What
+// still holds it back is what holds the single-RHS walk back: a dependent
+// load chain and a block barrier per level, and on ER's wide levels (up to
+// 7,548 vertices) rounds of 1,024 vertices per block. Column groups (a
+// thread solving one vertex for C columns of x packed f[G, n + 1, C], one
+// 16-byte load for C entries of a row) did not beat this grid by more than
+// 5% at m = 32 on the sum of both plans, and in float32 every C > 1 lost:
+// G = m / C blocks run on G of the card's 132 SMs and one block takes its C
+// columns in 1.1-1.4x the time of one column, so fewer, wider blocks lose.
+// kernels/level_sweep.py builds and times them (csrc/sweep/groups.cu);
+// PERF.md holds the numbers.
 //
 // Left for later: skipping padding slots (with an acc + 0 where padding
 // stood), staging the plan in shared memory, more than one block for a
-// level wider than one block, the level walk for the m right-hand sides
-// (csrc/level.cuh's column grid, as mode="elastic" runs it).
+// level wider than one block, column groups past the SM count (m > 132).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "level.cuh"
-#include "rn.cuh"
-
-namespace {
-
-template <typename T>
-__global__ void sptrsv_mrhs_kernel(
-    const int32_t* __restrict__ row_ids,
-    const int32_t* __restrict__ col_idx,
-    const T* __restrict__ vals,
-    const T* __restrict__ diag,
-    const uint8_t* __restrict__ accum,
-    const int32_t* __restrict__ step_bounds,
-    int n_supersteps, int k, int W, int m,
-    const T* __restrict__ b,                  // [n + 1, m]
-    T* x) {                                   // [n + 1, m], zeroed by the caller
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = c < m;  // idle threads still reach every barrier
-  for (int s = 0; s < n_supersteps; ++s) {
-    const int t0 = step_bounds[s];
-    const int t1 = step_bounds[s + 1];
-    if (live) {
-      for (int l = threadIdx.y; l < k; l += blockDim.y) {
-        T acc = T(0);
-        for (int t = t0; t < t1; ++t) {
-          const int64_t tl = static_cast<int64_t>(t) * k + l;
-          const int32_t* ci = col_idx + tl * W;
-          const T* v = vals + tl * W;
-          for (int w = 0; w < W; ++w) {
-            acc = rn::fma(v[w], x[static_cast<int64_t>(ci[w]) * m + c], acc);
-          }
-          if (!accum[tl]) {
-            const int64_t rc = static_cast<int64_t>(row_ids[tl]) * m + c;
-            x[rc] = rn::finish(b[rc], acc, diag[tl]);
-            acc = T(0);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-constexpr int kMaxThreads = 1024;
-constexpr int kColsPerBlock = 32;
-
-template <typename T>
-int launch_mrhs(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* step_bounds,
-                int n_supersteps, int k, int W, int m, const void* b, void* x,
-                void* stream) {
-  int lanes = k;  // thread rows; more lanes than that are looped over
-  if (lanes > kMaxThreads / kColsPerBlock) lanes = kMaxThreads / kColsPerBlock;
-  if (lanes < 1) lanes = 1;
-  const dim3 block(kColsPerBlock, lanes);
-  const dim3 grid((m + kColsPerBlock - 1) / kColsPerBlock);
-  sptrsv_mrhs_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_idx),
-      static_cast<const T*>(vals), static_cast<const T*>(diag),
-      static_cast<const uint8_t*>(accum), static_cast<const int32_t*>(step_bounds),
-      n_supersteps, k, W, m, static_cast<const T*>(b), static_cast<T*>(x));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 // Plain C entry points, bound with ctypes by kernels/sptrsv.py. Each launches
 // on the given stream, allocates nothing, does not synchronise, and returns
@@ -139,19 +85,19 @@ int sptrsv_single_f64(const void* row_ids, const void* col_idx, const void* vals
 }
 
 int sptrsv_mrhs_f32(const void* row_ids, const void* col_idx, const void* vals,
-                    const void* diag, const void* accum, const void* step_bounds,
-                    int n_supersteps, int k, int W, int m, const void* b, void* x,
-                    void* stream) {
-  return launch_mrhs<float>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                            n_supersteps, k, W, m, b, x, stream);
+                    const void* diag, const void* accum, const void* vert_ptr,
+                    const void* level_ptr, int n_levels, int W, int m,
+                    int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                   level_ptr, n_levels, W, m, rows, b, x, stream);
 }
 
 int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
-                    const void* diag, const void* accum, const void* step_bounds,
-                    int n_supersteps, int k, int W, int m, const void* b, void* x,
-                    void* stream) {
-  return launch_mrhs<double>(row_ids, col_idx, vals, diag, accum, step_bounds,
-                             n_supersteps, k, W, m, b, x, stream);
+                    const void* diag, const void* accum, const void* vert_ptr,
+                    const void* level_ptr, int n_levels, int W, int m,
+                    int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                    level_ptr, n_levels, W, m, rows, b, x, stream);
 }
 
 }  // extern "C"

@@ -31,12 +31,12 @@
 //   m right-hand sides: the grid runs over columns, block c walks the level
 //   order for column c. Columns never interact and a level's barrier is
 //   needed only within one column, so blocks never wait for each other.
-//   The strides of b and x are arguments. The wrapper passes a column-major
-//   copy (rows 1 apart, columns n + 1 apart), so a block's gathers and
-//   stores stay in its own column: at m = 32 that took 24% less time than
-//   row-major x on the paper's ER set and 3% less on NB, the copies included
-//   (kernels/level_sweep.py, H100 80GB HBM3 at 700 W), where row-major x
-//   spreads every row over 32 blocks' cache lines.
+//   b and x are a column-major copy (rows 1 apart, columns n + 1 apart), so
+//   a block's gathers and stores stay in its own column: at m = 32 that
+//   took 24% less time than row-major x on the paper's ER set and 3% less
+//   on NB, the copies included (kernels/level_sweep.py, H100 80GB HBM3 at
+//   700 W), where row-major x spreads every row over 32 blocks' cache
+//   lines.
 //
 // Left for later: skipping padding slots (with an acc + 0 where padding
 // stood), staging the plan in shared memory, more than one block for a
@@ -73,21 +73,19 @@ int sptrsv_elastic_single_f64(const void* row_ids, const void* col_idx,
 int sptrsv_elastic_mrhs_f32(const void* row_ids, const void* col_idx,
                             const void* vals, const void* diag, const void* accum,
                             const void* vert_ptr, const void* level_ptr, int n_levels,
-                            int W, int m, int64_t row_stride, int64_t col_stride,
-                            const void* b, void* x, void* stream) {
+                            int W, int m, int64_t rows, const void* b, void* x,
+                            void* stream) {
   return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                   level_ptr, n_levels, W, m, row_stride, col_stride, b,
-                                   x, stream);
+                                   level_ptr, n_levels, W, m, rows, b, x, stream);
 }
 
 int sptrsv_elastic_mrhs_f64(const void* row_ids, const void* col_idx,
                             const void* vals, const void* diag, const void* accum,
                             const void* vert_ptr, const void* level_ptr, int n_levels,
-                            int W, int m, int64_t row_stride, int64_t col_stride,
-                            const void* b, void* x, void* stream) {
+                            int W, int m, int64_t rows, const void* b, void* x,
+                            void* stream) {
   return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                    level_ptr, n_levels, W, m, row_stride, col_stride, b,
-                                    x, stream);
+                                    level_ptr, n_levels, W, m, rows, b, x, stream);
 }
 
 }  // extern "C"

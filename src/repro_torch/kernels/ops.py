@@ -2,12 +2,14 @@
 
 ``sptrsv_kernel_solve(plan, b)`` is the counterpart of
 ``solver.executor.solve_with_plan`` backed by the CUDA kernels (the plain
-version for CPU tensors). The multi-RHS kernel walks the plan in place, so
-unlike the TPU tiling no step padding is needed; the single-RHS kernel reads
-the plan's real lane-steps in level order (``level_plan_arrays``, layout in
-``kernels.levels``); the elastic kernels (``elastic_kernel_arrays`` /
-``solve_with_elastic_kernel_arrays``) read the plan padded to whole slack
-windows, as the certificate's tiles are.
+version for CPU tensors). Every kernel reads the plan's real lane-steps in
+level order (layout in ``kernels.levels``), not the padded plan: the bulk
+kernels (one right-hand side, and m a block per column) take the bulk order,
+a run per superstep (``level_plan_arrays``, ``solve_with_kernel_arrays``);
+the elastic kernels take the order over runs of the certificate's
+``slack`` supersteps (``elastic_kernel_arrays``,
+``solve_with_elastic_kernel_arrays``). Each solve is one launch with one
+block barrier per level.
 
 This module is the device half of the ``kernel`` entry in
 ``repro_torch.backends`` — bind through the registry
@@ -23,7 +25,7 @@ import torch
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.levels import LevelOrder, level_order
-from repro_torch.kernels.sptrsv import sptrsv_cuda, sptrsv_elastic_cuda, sptrsv_level_cuda
+from repro_torch.kernels.sptrsv import sptrsv_elastic_cuda, sptrsv_level_cuda
 from repro_torch.solver.executor import PlanArrays, pad_rhs, plan_arrays
 
 
@@ -44,8 +46,9 @@ def check_plan_indices(plan: ExecPlan) -> None:
 def kernel_plan_arrays(
     plan: ExecPlan, *, dtype=torch.float32, device=None
 ) -> PlanArrays:
-    """The plan tensors on ``device`` (``None``: the card, raising without
-    CUDA), index contents checked."""
+    """The padded plan tensors on ``device`` (``None``: the card, raising
+    without CUDA), index contents checked: no kernel reads them; the
+    ``kernel`` backend keeps them as the source of its value refresh."""
     check_plan_indices(plan)
     return plan_arrays(plan, dtype=dtype, device=device)
 
@@ -94,17 +97,13 @@ def level_plan_arrays(
     )
 
 
-def solve_with_kernel_arrays(pa: PlanArrays, la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
+def solve_with_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
     """The kernel-calling convention in one place: cast ``b``, append the
-    scratch row, run ``sptrsv_level_cuda`` over ``la`` (b f[n]) or
-    ``sptrsv_cuda`` over ``pa`` (b f[n, m]), drop the scratch row. Shared
-    by ``bind_kernel_solver`` and the ``kernel`` backend."""
-    b_pad = pad_rhs(b.to(pa.vals.dtype))
-    if b_pad.dim() == 1:
-        x = sptrsv_level_cuda(*la[:7], b_pad)
-    else:
-        x = sptrsv_cuda(*pa[:6], b_pad)
-    return x[: pa.n]
+    scratch row, run ``sptrsv_level_cuda`` over ``la`` in the bulk level
+    order (b f[n] or f[n, m]), drop the scratch row. Shared by
+    ``bind_kernel_solver`` and the ``kernel`` backend."""
+    b_pad = pad_rhs(b.to(la.vals.dtype))
+    return sptrsv_level_cuda(*la[:7], b_pad)[: la.n]
 
 
 def check_elastic_certificate(plan: ExecPlan) -> None:
@@ -144,17 +143,14 @@ def solve_with_elastic_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.
 
 
 def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device=None):
-    """Bind the plan tensors once on ``device`` (``None``: the card);
-    returns ``solve(b) -> x`` where ``b`` is f[n] or f[n, m] (batched
-    multi-RHS)."""
+    """Bind the plan's level tensors once on ``device`` (``None``: the
+    card); returns ``solve(b) -> x`` where ``b`` is f[n] or f[n, m]
+    (batched multi-RHS)."""
     device = resolve_device(device)
-    pa = kernel_plan_arrays(plan, dtype=dtype, device=device)
     la = level_plan_arrays(plan, dtype=dtype, device=device)
 
     def solve(b):
-        return solve_with_kernel_arrays(
-            pa, la, torch.as_tensor(b, dtype=dtype, device=device)
-        )
+        return solve_with_kernel_arrays(la, torch.as_tensor(b, dtype=dtype, device=device))
 
     return solve
 

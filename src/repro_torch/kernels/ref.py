@@ -1,13 +1,13 @@
 """Plain PyTorch versions of the kernels in this package.
 
-``sptrsv_ref`` is the plain version of the bulk multi-RHS CUDA SpTRSV
-kernel: the same function, run as a loop of eager PyTorch operations over
-the executor's step bodies (it is not a second implementation).
-``sptrsv_level_ref`` is the plain version of the level-ordered kernels
-(the bulk single-RHS kernel and both elastic kernels) and ``spmv_ell_ref``
-that of the SpMV kernel. The CPU tests use them, the
-``scan`` backend runs ``sptrsv_ref``, the kernel wrappers run them for CPU
-tensors, and ``chip_smoke.py`` holds the kernels against them.
+``sptrsv_ref`` is the plain scheduled solve in the plan's own step order:
+the scan executor's step bodies run as a loop of eager PyTorch operations
+(it is not a second implementation), and the function every SpTRSV kernel
+computes bit for bit. ``sptrsv_level_ref`` is the plain version of the
+level-ordered kernels (the bulk and the elastic ones, one and m right-hand
+sides) and ``spmv_ell_ref`` that of the SpMV kernel. The CPU tests use
+them, the ``scan`` backend runs ``sptrsv_ref``, the kernel wrappers run
+them for CPU tensors, and ``chip_smoke.py`` holds the kernels against them.
 """
 from __future__ import annotations
 

@@ -14,8 +14,10 @@ The solver runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises when CUDA is not available;
 it never drops silently to the CPU. The default backend ``"kernel"`` runs
 the CUDA kernels; ``"scan"`` runs the plain PyTorch executor.
-``mode="elastic"`` runs the plan in readiness waves inside ``slack``-step
-windows (``core.elastic``), bitwise-identical to the default ``"bsp"``.
+``mode="elastic"`` runs the plan under a staleness bound of ``slack``
+(``core.elastic``), bitwise-identical to the default ``"bsp"``: the
+``"scan"`` backend in macro-steps of ``slack`` plan steps, the ``"kernel"``
+backend level by level over runs of ``slack`` supersteps.
 
 ``lower=False`` solves an *upper*-triangular system via the
 reverse-permutation trick (an upper-triangular matrix reversed
@@ -229,18 +231,22 @@ class TriangularSolver:
         return self.exec_plan.n_supersteps
 
     def info(self) -> dict:
+        binding = self._bound.describe()
         return {
             "strategy": self.strategy,
             "backend": self.backend,
             "mode": "elastic" if self._slack else "bsp",
             "slack": self._slack,
+            # what one unit of slack is to the backend: "plan_steps" (scan)
+            # or "supersteps" (kernel); None in mode="bsp"
+            "slack_unit": binding.get("slack_unit"),
             "device": str(self.device),
             "lower": self.lower,
             "n_supersteps": self.n_supersteps,
             "inspector_seconds": self.inspector_seconds,
             "steps_per_tile": self._steps_per_tile,
             "plan": self.exec_plan.stats(),
-            "binding": self._bound.describe(),
+            "binding": binding,
         }
 
     # ---------------------------------------------------------- planning
@@ -274,12 +280,14 @@ class TriangularSolver:
         not tile, so it changes neither the binding nor the cache key.
 
         ``mode`` selects the execution mode: ``"bsp"`` (bulk-synchronous,
-        the default) or ``"elastic"`` — the plan runs in readiness waves
-        inside ``slack``-step windows (``core.elastic``), with bitwise the
-        same result. ``mode="elastic"`` takes the window from ``slack=...``
-        (a ``ScheduleOptions`` knob) or ``core.DEFAULT_SLACK``; ``slack >
-        0`` alone also selects elastic. The backend must advertise the
-        ``"elastic"`` capability."""
+        the default) or ``"elastic"`` — the plan runs under a staleness
+        bound of ``slack`` (``core.elastic``), with bitwise the same result:
+        the ``"scan"`` backend in macro-steps of ``slack`` plan steps, the
+        ``"kernel"`` backend level by level over runs of ``slack``
+        supersteps (``info()["slack_unit"]`` says which). ``mode="elastic"``
+        takes ``slack`` from ``slack=...`` (a ``ScheduleOptions`` knob) or
+        ``core.DEFAULT_SLACK``; ``slack > 0`` alone also selects elastic.
+        The backend must advertise the ``"elastic"`` capability."""
         strategy = strategy.lower()
         # fail fast on an unknown backend, with the registry naming options
         backend_caps = get_backend(backend).capabilities()

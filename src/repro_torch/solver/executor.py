@@ -39,7 +39,7 @@ class PlanArrays(NamedTuple):
     vals: torch.Tensor  # f[T, k, W]
     diag: torch.Tensor  # f[T, k]
     accum: torch.Tensor  # bool[T, k]
-    step_bounds: torch.Tensor  # int32[S+1]; the CUDA kernels' barriers
+    step_bounds: torch.Tensor  # int32[S+1]: superstep s is steps [sb[s], sb[s+1])
     n: int
 
 
@@ -119,8 +119,10 @@ class ElasticArrays(NamedTuple):
     """Plan tensors in macro-step layout: the T plan steps, padded up to
     ``M * slack`` with scratch steps, reshaped to a leading [M, slack]
     grid. The plain executor loops over the M macro-steps and replays each
-    window's steps in order; the elastic kernel reads the same tensors
-    flattened to [M * slack, ...] (a view)."""
+    window's steps in order. The elastic kernels do not read them: they
+    read the plan in level order (``kernels.ops.elastic_kernel_arrays``),
+    and the kernel backend keeps these tensors as its value refresh's
+    source."""
 
     row_ids: torch.Tensor  # int32[M, S, k]
     col_idx: torch.Tensor  # int32[M, S, k, W]

@@ -15,7 +15,8 @@
     rtol=atol=1e-4 of ``sptrsv_pallas_elastic(interpret=True)`` (the
     Pallas body tree-sums over W);
   * ``update_values`` on an elastic bound bitwise-equal to a fresh bind;
-    mode/slack validation as in JAX; plan-cache keys that differ by slack.
+    mode/slack validation as in JAX; plan-cache keys that differ by slack;
+    the unit of ``slack`` that each elastic bound states (``slack_unit``).
 """
 import dataclasses
 import functools
@@ -480,3 +481,18 @@ def test_info_and_stats_match_jax():
     assert ti["plan"]["n_steps"] == ji["plan"]["n_steps"]
     b = ti["binding"]
     assert b["mode"] == "elastic" and b["n_macro_steps"] == ji["binding"]["n_macro_steps"]
+
+
+@pytest.mark.parametrize("backend,unit", [("scan", "plan_steps"), ("kernel", "supersteps")])
+def test_elastic_bound_states_slack_unit(backend, unit):
+    L = _port_csr(_MATS["band"]())
+    el = TriangularSolver.plan(L, device="cpu", backend=backend, slack=3)
+    d = el.bound.describe()
+    assert (d["mode"], d["slack"], d["slack_unit"]) == ("elastic", 3, unit)
+    info = el.info()
+    assert (info["slack"], info["slack_unit"]) == (3, unit)
+    assert info["binding"]["slack_unit"] == unit
+    bulk = TriangularSolver.plan(L, device="cpu", backend=backend)
+    assert bulk.info()["slack_unit"] is None and "slack_unit" not in bulk.bound.describe()
+    B = np.random.default_rng(4).standard_normal((L.n_rows, 2))
+    assert torch.equal(el.solve(B), bulk.solve(B))  # the unit changes no bits

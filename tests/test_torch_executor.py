@@ -3,13 +3,15 @@ plan carried across with ``convert.exec_plan_from_numpy``:
 
   * plain solve == JAX ``solve_with_plan``, bitwise (f32), single RHS and
     m in {1, 5, 16};
-  * ``kernels.ref.sptrsv_ref`` == JAX ``sptrsv_pallas(interpret=True)``
-    within rtol=atol=1e-4 (the reference's own kernel tolerance,
+  * ``kernels.ref.sptrsv_ref`` (one right-hand side) and the plain
+    version of ``kernels.level_sweep``'s column-group walk (three, packed C
+    to a group) == JAX ``sptrsv_pallas(interpret=True)`` within
+    rtol=atol=1e-4 (the reference's own kernel tolerance,
     tests/test_kernels.py: the Pallas body tree-sums over W);
   * ``update_values`` == a fresh bind, and == the JAX scan bound's
     ``update_values``, bitwise (for the kernel backend also its level-order
     tensors, and on data holding explicit and signed zeros);
-  * the kernel wrapper's input checks.
+  * the kernel wrapper's input checks (m right-hand sides).
 """
 import dataclasses
 import functools
@@ -28,9 +30,10 @@ from repro.solver.executor import plan_arrays as jplan_arrays
 from repro.solver.executor import solve_with_plan as jsolve_with_plan
 from repro_torch.backends import get_backend
 from repro_torch.convert import exec_plan_from_numpy
-from repro_torch.kernels.ops import check_plan_indices
+from repro_torch.kernels import level_sweep
+from repro_torch.kernels.ops import check_plan_indices, level_plan_arrays
 from repro_torch.kernels.ref import sptrsv_ref
-from repro_torch.kernels.sptrsv import sptrsv_cuda
+from repro_torch.kernels.sptrsv import sptrsv_level_cuda
 from repro_torch.solver.executor import pad_rhs, plan_arrays, solve_with_plan
 
 
@@ -85,26 +88,40 @@ def test_plain_solve_bitwise_vs_jax(name, k, width, m):
     _assert_bitwise(x_jax, x_port)
 
 
-# the shapes of tests/test_kernels.py::test_kernel_matches_oracle_sweep
+_PALLAS_CASES = [(64, 0.05, 2, None), (200, 0.02, 4, 3), (450, 0.01, 8, 16), (300, 0.08, 16, 2)]
+
+
+# the shapes of tests/test_kernels.py::test_kernel_matches_oracle_sweep; cols:
+# None is the step walk on one right-hand side, C the plain version of
+# kernels.level_sweep's column-group walk on three, packed C to a group
 @pytest.mark.parametrize(
-    "n,density,k,width",
-    [(64, 0.05, 2, None), (200, 0.02, 4, 3), (450, 0.01, 8, 16), (300, 0.08, 16, 2)],
+    "n,density,k,width,cols",
+    [pytest.param(*case, None, id="-".join(map(str, case))) for case in _PALLAS_CASES]
+    + [pytest.param(*case, cols, id="-".join(map(str, case)) + f"-groups{cols}")
+       for case, cols in zip(_PALLAS_CASES, (1, 2, 4, 8))],
 )
-def test_sptrsv_ref_matches_pallas_interpret(n, density, k, width):
+def test_sptrsv_ref_matches_pallas_interpret(n, density, k, width, cols):
     L = jsparse.erdos_renyi_lower(n, density, seed=n + k)
     s = jcore.grow_local(jsparse.dag_from_lower_csr(L), k)
     L2, s2, _, _ = jcore.apply_reordering(L, s)
     jp = jcore.compile_plan(L2, s2, width=width)
-    b = _rhs(n, None)
+    b = _rhs(n, None) if cols is None else np.random.default_rng(n).standard_normal(
+        (n, 3)).astype(np.float32)
     arrays = jkernel_plan_arrays(jp, steps_per_tile=4)
-    b_pad = jnp.concatenate([jnp.asarray(b), jnp.zeros(1, jnp.float32)])
+    b_pad = jnp.concatenate([jnp.asarray(b), jnp.zeros((1, *b.shape[1:]), jnp.float32)])
     x_pallas = np.asarray(sptrsv_pallas(*arrays, b_pad, steps_per_tile=4, interpret=True))
-    pa = plan_arrays(_port_plan(jp), device="cpu")
-    x_ref = sptrsv_ref(
-        pa.row_ids, pa.col_idx, pa.vals, pa.diag, pa.accum, pad_rhs(torch.from_numpy(b))
-    ).numpy()
+    if cols is None:
+        pa = plan_arrays(_port_plan(jp), device="cpu")
+        x_ref = sptrsv_ref(
+            pa.row_ids, pa.col_idx, pa.vals, pa.diag, pa.accum, pad_rhs(torch.from_numpy(b))
+        ).numpy()
+    else:
+        la = level_plan_arrays(_port_plan(jp), device="cpu")
+        packed = level_sweep.pack_groups(pad_rhs(torch.from_numpy(b)), cols)
+        x_ref = level_sweep.unpack_groups(level_sweep.sptrsv_groups_ref(*la[:7], packed),
+                                          3).numpy()
     np.testing.assert_allclose(x_ref[:n], x_pallas[:n], rtol=1e-4, atol=1e-4)
-    assert x_ref[n] == 0.0  # the scratch slot stays zero
+    assert (x_ref[n] == 0.0).all()  # the scratch slot stays zero
 
 
 def _values(L, seed):
@@ -189,23 +206,26 @@ def test_check_plan_indices_rejects_bad_plans():
 
 
 def test_sptrsv_cuda_input_checks():
+    # the bulk wrapper with m right-hand sides, over the bulk level order
     _, _, jp = _jax_plan("er", 8, None)
-    pa = plan_arrays(_port_plan(jp), device="cpu")
-    b_pad = pad_rhs(torch.from_numpy(_rhs(jp.n, None)))
-    args = [pa.row_ids, pa.col_idx, pa.vals, pa.diag, pa.accum, pa.step_bounds, b_pad]
+    plan = _port_plan(jp)
+    la = level_plan_arrays(plan, device="cpu")
+    b_pad = pad_rhs(torch.from_numpy(_rhs(jp.n, 5)))
+    args = [*la[:7], b_pad]
     for i, bad, err in [
-        (0, pa.row_ids.long(), TypeError),  # int64 indices
-        (4, pa.accum.float(), TypeError),  # float mask
-        (6, b_pad.double(), TypeError),  # dtype mismatch with vals
-        (1, pa.col_idx.transpose(1, 2), ValueError),  # not contiguous
-        (3, pa.diag[:-1], ValueError),  # wrong shape
+        (0, la.row_ids.long(), TypeError),  # int64 indices
+        (4, la.accum.float(), TypeError),  # float mask
+        (7, b_pad.double(), TypeError),  # dtype mismatch with vals
+        (1, la.col_idx.t(), ValueError),  # not contiguous
+        (3, la.diag[:-1], ValueError),  # wrong shape
     ]:
         a = list(args)
         a[i] = bad
         with pytest.raises(err):
-            sptrsv_cuda(*a)
-    x = sptrsv_cuda(*args)
-    _assert_bitwise(x.numpy(), sptrsv_ref(*args[:5], b_pad).numpy())
+            sptrsv_level_cuda(*a)
+    x = sptrsv_level_cuda(*args)
+    pa = plan_arrays(plan, device="cpu")
+    _assert_bitwise(x.numpy(), sptrsv_ref(*pa[:5], b_pad).numpy())
 
 
 def test_one_shot_solvers_agree_on_cpu():

@@ -1,6 +1,7 @@
-"""The CUDA kernels (bulk SpTRSV, single RHS in level order and multi-RHS;
-elastic SpTRSV, the level walk over runs of supersteps for one and m RHS;
-SpMV) against their plain versions, on the card.
+"""The CUDA kernels (bulk SpTRSV, the level walk of the bulk order for one
+RHS and, a block per column, for m RHS; elastic SpTRSV, the level walk over
+runs of supersteps for one and m RHS; SpMV) against their plain versions,
+on the card.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device (it
 adds no pass there). On the card run it with
@@ -23,12 +24,11 @@ from repro_torch.core import elastic_transform
 from repro_torch.kernels import spmv, sptrsv
 from repro_torch.kernels.ops import (
     elastic_kernel_arrays,
-    kernel_plan_arrays,
     level_plan_arrays,
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
 )
-from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref
+from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref, sptrsv_ref
 from repro_torch.solver.executor import pad_rhs, plan_arrays, solve_with_plan
 from repro_torch.sparse import erdos_renyi_lower, narrow_band_lower
 
@@ -60,13 +60,10 @@ def test_kernel_matches_plain_bitwise(cuda, gen, k, width, m, dtype):
     b = torch.as_tensor(rng.standard_normal(2000 if m is None else (2000, m)), dtype=dtype)
     x_cpu = solve_with_plan(plan_arrays(plan, dtype=dtype, device="cpu"), b)
     before = dict(sptrsv.launches)
-    x_gpu = solve_with_kernel_arrays(
-        kernel_plan_arrays(plan, dtype=dtype, device=cuda),
-        level_plan_arrays(plan, dtype=dtype, device=cuda),
-        b.to(cuda),
-    )
+    x_gpu = solve_with_kernel_arrays(level_plan_arrays(plan, dtype=dtype, device=cuda),
+                                     b.to(cuda))
     torch.cuda.synchronize()
-    kind = "single" if m is None else "mrhs"  # single: the level kernel
+    kind = "single" if m is None else "mrhs"
     assert sptrsv.launches[kind] == before[kind] + 1
     assert _bits_equal(x_gpu, x_cpu)
 
@@ -81,9 +78,7 @@ def test_launch_leaves_current_device(cuda):
     for index in range(torch.cuda.device_count()):
         before = torch.cuda.current_device()
         dev = torch.device("cuda", index)
-        x = solve_with_kernel_arrays(
-            kernel_plan_arrays(plan, device=dev), level_plan_arrays(plan, device=dev), b.to(dev)
-        )
+        x = solve_with_kernel_arrays(level_plan_arrays(plan, device=dev), b.to(dev))
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == before
         assert _bits_equal(x, x_cpu)
@@ -105,16 +100,50 @@ def test_level_kernel_matches_level_ref_bitwise(cuda, gen, dtype):
     torch.cuda.synchronize()
     assert sptrsv.launches["single"] == before + 1
     assert _bits_equal(x, sptrsv_level_ref(*la_cpu[:7], b_pad))
-    assert _bits_equal(x, sptrsv.sptrsv_cuda(*plan_arrays(plan, dtype=dtype, device="cpu")[:6], b_pad))
+    assert _bits_equal(x, sptrsv_ref(*plan_arrays(plan, dtype=dtype, device="cpu")[:5], b_pad))
 
 
-def test_bulk_kernel_refuses_single_rhs_on_card(cuda):
+@pytest.mark.parametrize("m", [1, 5, 32, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gen", ["er", "nb"])
+def test_mrhs_kernel_matches_plain_bitwise(cuda, gen, dtype, m):
+    # the m-RHS kernel: a block per column of the column-major copy of b
+    # (m = 300: more column blocks than the card has SMs)
+    L = (erdos_renyi_lower(2000, 1e-3, seed=0) if gen == "er"
+         else narrow_band_lower(2000, 0.14, 10, seed=0))
+    plan = repro_torch.TriangularSolver.plan(L, k=8, width=2, device="cpu").exec_plan
+    b_pad = pad_rhs(torch.as_tensor(np.random.default_rng(m).standard_normal((2000, m)),
+                                     dtype=dtype))
+    la_cpu = level_plan_arrays(plan, dtype=dtype, device="cpu")
+    la = level_plan_arrays(plan, dtype=dtype, device=cuda)
+    before = dict(sptrsv.launches)
+    x = sptrsv.sptrsv_level_cuda(*la[:7], b_pad.to(cuda))
+    torch.cuda.synchronize()
+    assert sptrsv.launches["mrhs"] == before["mrhs"] + 1
+    assert sum(sptrsv.launches.values()) == sum(before.values()) + 1
+    assert x.shape == (2001, m)
+    assert bool((x[-1] == 0).all())  # the scratch row
+    assert _bits_equal(x, sptrsv_level_ref(*la_cpu[:7], b_pad))
+    assert _bits_equal(x, sptrsv_level_ref(*la[:7], b_pad.to(cuda)))
+
+
+def test_level_wrapper_takes_both_shapes_on_card(cuda):
+    # one right-hand side is the single-RHS kernel, m the column grid
     plan = repro_torch.TriangularSolver.plan(
         narrow_band_lower(500, 0.14, 10, seed=4), device="cpu"
     ).exec_plan
-    pa = kernel_plan_arrays(plan, device=cuda)
-    with pytest.raises(ValueError, match="sptrsv_level_cuda"):
-        sptrsv.sptrsv_cuda(*pa[:6], torch.zeros(501, device=cuda))
+    la = level_plan_arrays(plan, device=cuda)
+    b_pad = pad_rhs(torch.as_tensor(np.random.default_rng(0).standard_normal((500, 3)),
+                                    dtype=torch.float32))
+    before = dict(sptrsv.launches)
+    x1 = sptrsv.sptrsv_level_cuda(*la[:7], b_pad[:, 0].contiguous().to(cuda))
+    xm = sptrsv.sptrsv_level_cuda(*la[:7], b_pad.to(cuda))
+    torch.cuda.synchronize()
+    assert sptrsv.launches["single"] == before["single"] + 1
+    assert sptrsv.launches["mrhs"] == before["mrhs"] + 1
+    assert x1.shape == (501,) and xm.shape == (501, 3)
+    assert _bits_equal(xm[:, 0], x1)
+    assert _bits_equal(xm, sptrsv_ref(*plan_arrays(plan, device="cpu")[:5], b_pad))
 
 
 def test_front_door_on_cuda(cuda):

@@ -16,8 +16,17 @@
   * ``sptrsv_level_ref`` == ``sptrsv_ref`` == the JAX package's
     ``solve_with_plan``, bitwise, in f32 and f64, and on inputs that hold
     signed zeros and explicit zero entries;
-  * the wrappers' checks: ``sptrsv_level_cuda``'s input checks, and
-    ``sptrsv_cuda`` refusing one right-hand side off the CPU.
+  * the wrappers' checks: ``sptrsv_level_cuda``'s input checks, and its
+    refusal of tensors that lie neither on the CPU nor on a CUDA device;
+  * ``TriangularSolver(..., device="cpu").solve(B)`` through the level
+    wrapper with a 2-D b, bitwise equal to the JAX front door;
+  * the column-group layout that ``kernels.level_sweep`` times against
+    the shipped column grid: ``pack_groups`` / ``unpack_groups`` (b
+    f[n+1, m] <-> f[G, n+1, C] for m in {1, 3, 5, 32, 33} and C in {1, 2,
+    4, 8}, bitwise, the pad columns +0 and dropped again, the scratch row
+    +0, C = 1 the column-major copy), and its plain version
+    ``sptrsv_groups_ref`` == ``sptrsv_ref`` == the JAX scan executor,
+    bitwise, in f32 and f64, signed zeros included.
 """
 import dataclasses
 import functools
@@ -31,10 +40,11 @@ import torch
 import repro.core as jcore
 import repro.sparse as jsparse
 import repro_torch
+from repro.pipeline import TriangularSolver as JSolver
 from repro.solver.executor import plan_arrays as jplan_arrays
 from repro.solver.executor import solve_with_plan as jsolve_with_plan
 from repro_torch.convert import csr_from_numpy, exec_plan_from_numpy
-from repro_torch.kernels import sptrsv
+from repro_torch.kernels import level_sweep, ops, sptrsv
 from repro_torch.kernels.levels import level_order
 from repro_torch.kernels.ops import level_plan_arrays
 from repro_torch.kernels.ref import sptrsv_level_ref, sptrsv_ref
@@ -339,7 +349,7 @@ def test_sptrsv_level_cuda_input_checks():
         (7, b_pad.double(), TypeError),  # dtype mismatch with vals
         (1, la.col_idx.t(), ValueError),  # not contiguous
         (3, la.diag[:-1], ValueError),  # wrong shape
-        (7, b_pad[:, None].contiguous(), ValueError),  # one right-hand side only
+        (7, b_pad[:, None, None].contiguous(), ValueError),  # b f[n+1] or f[n+1, m] only
     ]:
         a = list(args)
         a[i] = bad
@@ -352,13 +362,94 @@ def test_sptrsv_level_cuda_input_checks():
 
 
 def test_single_rhs_off_the_cpu_is_the_level_kernels():
-    # tensors off the CPU never take a plain version: the bulk wrapper
-    # refuses one right-hand side and names the level kernel's entry point
+    # tensors off the CPU never take a plain version: the level wrapper
+    # launches a kernel for one right-hand side and for m, or raises
     plan = _port_plan("er", 8, None)
-    pa = plan_arrays(plan, device="meta")
-    b_pad = torch.zeros(plan.n + 1, device="meta")
-    with pytest.raises(ValueError, match="sptrsv_level_cuda"):
-        sptrsv.sptrsv_cuda(*pa[:6], b_pad)
     la = level_plan_arrays(plan, device="meta")
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        sptrsv.sptrsv_level_cuda(*la[:7], b_pad)
+    for shape in ((plan.n + 1,), (plan.n + 1, 5)):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            sptrsv.sptrsv_level_cuda(*la[:7], torch.zeros(shape, device="meta"))
+
+
+@pytest.mark.parametrize("name", ["er", "nb", "ichol"])
+def test_front_door_mrhs_through_level_wrapper_bitwise_vs_jax(monkeypatch, name):
+    L = _jax_matrix(name)
+    calls = []
+
+    def spy(*args):
+        calls.append(tuple(args[-1].shape))
+        return sptrsv.sptrsv_level_cuda(*args)
+
+    monkeypatch.setattr(ops, "sptrsv_level_cuda", spy)
+    ts = repro_torch.TriangularSolver.plan(
+        csr_from_numpy(L.n_rows, L.n_cols, L.indptr, L.indices, L.data), device="cpu")
+    assert ts.backend == "kernel"
+    B = np.random.default_rng(3).standard_normal((L.n_rows, 6))
+    x = ts.solve(B)
+    assert calls == [(L.n_rows + 1, 6)]  # one call, b f[n+1, m]
+    _assert_bitwise(JSolver.plan(L).solve(B), x.numpy())
+
+
+@pytest.mark.parametrize("cols", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [1, 3, 5, 32, 33])
+def test_pack_round_trip(m, cols):
+    rng = np.random.default_rng(m * 10 + cols)
+    b = rng.standard_normal((40, m)).astype(np.float32)
+    b[rng.random(b.shape) < 0.2] = -0.0  # signed zeros survive the trip
+    b_pad = pad_rhs(torch.from_numpy(b))
+    packed = level_sweep.pack_groups(b_pad, cols)
+    G = -(-m // cols)
+    assert packed.shape == (G, 41, cols) and packed.is_contiguous()
+    for g in range(G):  # group g holds columns g*C .. g*C + C - 1, then +0
+        live = min(cols, m - g * cols)
+        _assert_bitwise(packed[g, :, :live], b_pad[:, g * cols : g * cols + live])
+        _assert_bitwise(packed[g, :, live:], np.zeros((41, cols - live), np.float32))
+    _assert_bitwise(packed[:, 40], np.zeros((G, cols), np.float32))  # the scratch row, +0
+    back = level_sweep.unpack_groups(packed, m)
+    assert back.shape == (41, m)
+    _assert_bitwise(back, b_pad)
+    if cols == 1:  # the column grid's column-major copy
+        _assert_bitwise(packed[:, :, 0], b_pad.T.contiguous())
+
+
+@functools.lru_cache(maxsize=None)
+def _group_plan(name, signed_zeros, dtype):
+    """A JAX plan (k = 4, width 2), its matrix with a quarter of the
+    off-diagonal entries explicit +0 or -0 where ``signed_zeros``."""
+    L = _jax_matrix(name)
+    if signed_zeros:
+        rng = np.random.default_rng(5)
+        off = np.flatnonzero(L.indices != L.row_of_entry())
+        data = np.array(L.data, dtype=np.float64)
+        zeros = rng.choice(off, off.size // 4, replace=False)  # explicit zero entries
+        data[zeros] = np.where(rng.random(zeros.size) < 0.5, -0.0, 0.0)
+        L = dataclasses.replace(L, data=data)
+    return _jax_plan(L, 4, 2, np.dtype(dtype))
+
+
+@pytest.mark.parametrize("cols", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name,signed_zeros", [("er", False), ("nb", False), ("ichol", False),
+                                               ("er", True)])
+def test_group_ref_bitwise_vs_step_walk_and_jax(name, signed_zeros, dtype, cols):
+    jp = _group_plan(name, signed_zeros, dtype)
+    rng = np.random.default_rng(cols)
+    m = 5  # a part-filled last group for every C > 1
+    b = rng.standard_normal((jp.n, m)).astype(dtype)
+    if signed_zeros:  # a third of b is +0 or -0
+        zero_b = rng.random(b.shape) < 0.3
+        b[zero_b] = np.where(rng.random(int(zero_b.sum())) < 0.5, -0.0, 0.0)
+    plan = exec_plan_from_numpy({f.name: getattr(jp, f.name) for f in dataclasses.fields(jp)})
+    tdt = _TORCH[dtype]
+    b_pad = pad_rhs(torch.from_numpy(b))
+    la = level_plan_arrays(plan, dtype=tdt, device="cpu")
+    x_groups = level_sweep.sptrsv_groups_ref(*la[:7], level_sweep.pack_groups(b_pad, cols))
+    assert (x_groups[:, plan.n] == 0).all() and not x_groups[:, plan.n].signbit().any()
+    x = level_sweep.unpack_groups(x_groups, m)
+    _assert_bitwise(x, sptrsv_ref(*plan_arrays(plan, dtype=tdt, device="cpu")[:5], b_pad))
+    with jax.enable_x64(dtype == "float64"):
+        x_jax = np.asarray(jsolve_with_plan(jplan_arrays(jp, dtype=jnp.dtype(dtype)),
+                                            jnp.asarray(b)))
+    _assert_bitwise(x[: plan.n], x_jax)
+    if signed_zeros:
+        assert (x.signbit() & (x == 0)).any()  # -0 reached x
