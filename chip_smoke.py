@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each; any failure ends the run with a non-zero exit:
 
@@ -30,6 +30,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              (supersteps, the elastic level order's levels, and the
              certificate's readiness waves the TPU kernel walks)
   main_path_spmv      spmv(L, x) on the same matrices, against scipy in f64
+  pcg        pcg_ichol(A, b, k=8, tol=1e-6, maxiter=2000) on the 512x512
+             Poisson grid (n=262,144; IC(0) factor of 785,408 entries),
+             float32, kernel backend, b from --seed: recurrence relres
+             < 1e-6, true residual (float64, host) < 1e-4, fewer iterations
+             than plain CG on the card, launch counts exact (2(iters+1)
+             single-RHS solves, iters SpMVs), a second request through the
+             same PlanCache plans nothing; bwd(fwd(r)) and the matvec
+             bitwise their CPU plain versions; at 64x64 the card's PCG
+             against the CPU plain PCG (float64 iterations equal, float32
+             within one, x within 1e-3). Reports the host seconds of IC(0)
+             and of each plan, wall seconds, ms per iteration (CUDA events)
+             beside its byte bound, fwd, bwd and SpMV ms per launch (fwd and
+             bwd also with L2 emptied before each launch), and
+             a torch.profiler window of 20 iterations (device time by
+             kernel, the device's idle share)
              Each main-path phase sets the launch counters to 0 just before
              it and reads them just after; its kernels must have launched.
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
@@ -48,8 +63,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              call makes; the elastic lines report the levels
              of the order over runs of slack supersteps and its slack
 
-then the ``kernels`` summary line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
+then the ``kernels`` summary line (the path launches include the pcg
+phase's), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 without CUDA or outside a checkout of the repository.
 """
 import dataclasses
@@ -79,6 +94,11 @@ KERNELS = {
 }
 KERNEL_REPLACES = {name: k[0] for name, k in KERNELS.items()}
 MAIN_M = 32
+# the pcg phase: poisson2d_matrix(512), (n, nnz(A), nnz(IC(0) factor))
+PCG_GRID = 512
+PCG_SIZES = (262_144, 1_308_672, 785_408)
+PCG_TOL = 1e-6
+PCG_MAXITER = 2000
 T_START = time.perf_counter()
 
 
@@ -97,8 +117,241 @@ def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
 
 
-def main() -> int:
+def profile_iterations(run, n_iter=20) -> dict:
+    """``run(n_iter)`` (that many CG iterations) under ``torch.profiler``:
+    the device time of each kernel, summed by name, against the elapsed
+    time of CUDA events around the run, whence the device's idle share.
+    The profiler slows the host, so the profiled iteration is slower than
+    an unprofiled one; a profiler that records no device time gives
+    ``device_busy_ms`` 0 (then read only ``ms_per_iter``)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run(2)  # warm-up outside the window
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        run(n_iter)
+        e1.record()
+        e1.synchronize()
+    elapsed = e0.elapsed_time(e1)
+    kernels = []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        kernels.append({"name": evt.key[:80], "count": evt.count, "ms": us / 1e3})
+    kernels.sort(key=lambda k: -k["ms"])
+    busy = sum(k["ms"] for k in kernels)
+    return {"iters": n_iter, "elapsed_ms": elapsed, "ms_per_iter": elapsed / n_iter,
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / elapsed,
+            "kernels": len(kernels), "launches": sum(k["count"] for k in kernels),
+            "top": kernels[:10]}
+
+
+def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> dict:
+    """IC(0)-preconditioned CG at full width on the card (see the module
+    docstring); returns the phase's record, which it has emitted."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.kernels import spmv, sptrsv
+    from repro_torch.kernels.ops import level_plan_arrays
+    from repro_torch.solver import cg_solve, pcg_ichol
+    from repro_torch.solver.cg import _csr_matvec_fn
+    from repro_torch.solver.executor import pad_rhs
+    from repro_torch.sparse import ichol0, poisson2d_matrix
+
+    def sync():
+        torch.cuda.synchronize()
+
+    A = poisson2d_matrix(PCG_GRID)
+    n = A.n_rows
+    t0 = time.perf_counter()
+    lf = ichol0(A)
+    ichol_s = time.perf_counter() - t0
+    require((n, A.nnz, lf.nnz) == PCG_SIZES, f"pcg system: {(n, A.nnz, lf.nnz)}")
+    rng = np.random.default_rng(args.seed)
+    b1, b2, r = (rng.standard_normal(n) for _ in range(3))
+    kw = dict(k=8, tol=PCG_TOL, maxiter=PCG_MAXITER)  # float32, kernel backend, the card
+    cache = repro_torch.PlanCache()
+
+    def request(b):
+        """One pcg_ichol request, traced, its launch counters set to 0 just
+        before it and read just after; checks the counts are exact."""
+        buf = obs.TraceBuffer("pcg")
+        sptrsv.reset_launches()
+        spmv.reset_launches()
+        t0 = time.perf_counter()
+        with obs.tracing(buf):
+            x, iters, relres, info = pcg_ichol(A, b, cache=cache, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {**sptrsv.launches, **spmv.launches}
+        # z0 = M(b), then one M(r) per iteration: two solves each; one
+        # matvec per iteration
+        want = {"single": 2 * (iters + 1), "mrhs": 0, "elastic_single": 0,
+                "elastic_mrhs": 0, "spmv": iters}
+        require(launches == want, f"pcg launches {launches}, want {want}")
+        require(x.device.type == dev.type and x.dtype == torch.float32 and x.shape == (n,)
+                and bool(torch.isfinite(x).all()), "pcg output")
+        require(relres < PCG_TOL, f"pcg relres {relres} after {iters} iterations")
+        true = float(np.linalg.norm(b - A.to_scipy() @ x.double().cpu().numpy())
+                     / np.linalg.norm(b))
+        require(true < 1e-4, f"pcg true residual {true} (float64, host)")
+        return x, iters, relres, info, buf, wall, launches, true
+
+    x1, iters1, relres1, info1, buf1, wall1, launches, true1 = request(b1)
+    require(info1["cache"]["misses"] == 2 and info1["cache"]["hits"] == 0, f"{info1['cache']}")
+    plan_s = [(sp.t1_ns - sp.t0_ns) / 1e9 for sp in buf1.spans() if sp.name == "cache.build"]
+    require(len(plan_s) == 2, "the first request plans fwd and bwd")
+    # a second request with a new b: the cache hits twice and plans nothing
+    _, iters2, relres2, info2, buf2, wall2, _, true2 = request(b2)
+    require(info2["cache"]["misses"] == 2 and info2["cache"]["hits"] == 2, f"{info2['cache']}")
+    require(not [sp.name for sp in buf2.spans()
+                 if sp.name == "cache.build" or sp.name.startswith("inspector.")],
+            "the second request planned")
+
+    # plain CG on the card takes more iterations
+    t0 = time.perf_counter()
+    _, cg_iters, cg_relres = cg_solve(A, b1, tol=PCG_TOL, maxiter=5000)
+    sync()
+    cg_wall = time.perf_counter() - t0
+    require(iters1 < cg_iters, f"pcg {iters1} iterations, plain cg {cg_iters}")
+
+    # one preconditioner application, bitwise the CPU plain version's
+    fwd, bwd = repro_torch.factor_pair(lf, k=8, cache=cache)  # the requests' pair
+    t0 = time.perf_counter()
+    fwd_c, bwd_c = repro_torch.factor_pair(lf, k=8, backend="scan", device="cpu")
+    cpu_plan_s = time.perf_counter() - t0
+    z = bwd(fwd(r))
+    sync()
+    z_c = bwd_c(fwd_c(r))
+    require(bitwise_equal(z, z_c), "bwd(fwd(r)) != CPU plain version")
+    main_err["sptrsv_single"] = max(main_err["sptrsv_single"], max_abs(z, z_c))
+    # CG's matvec at this shape, against its plain version on the CPU
+    op = _csr_matvec_fn(A, torch.float32, dev)
+    xs = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+    y = op(xs.to(dev))
+    sync()
+    y_c = _csr_matvec_fn(A, torch.float32, "cpu")(xs)
+    require(bitwise_equal(y, y_c), "matvec != CPU plain version")
+    main_err["spmv"] = max(main_err["spmv"], max_abs(y, y_c))
+
+    # CG alone, CUDA events around it: ms per iteration
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    _, iters3, _ = cg_solve(A, b1, precond=lambda res: bwd(fwd(res)), tol=PCG_TOL,
+                            maxiter=PCG_MAXITER)
+    e1.record()
+    e1.synchronize()
+    cg_pass_wall = time.perf_counter() - t0
+    ms_per_iter = e0.elapsed_time(e1) / iters3
+    profiled = profile_iterations(lambda n_iter: cg_solve(
+        A, b1, precond=lambda res: bwd(fwd(res)), tol=0.0, maxiter=n_iter))
+    # the pieces of an iteration, timed alone at these shapes
+    la_f = level_plan_arrays(fwd.exec_plan, device=dev)
+    la_b = level_plan_arrays(bwd.exec_plan, device=dev)
+    r_pad = pad_rhs(torch.as_tensor(r, dtype=torch.float32)).to(dev)
+    x_pad = pad_rhs(xs).to(dev)
+    xs = xs.to(dev)
+    rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
+
+    def med(fn):
+        return statistics.median(cuda_times(fn, 3, 20))
+
+    fwd_ms = med(lambda: sptrsv.sptrsv_level_cuda(*la_f[:7], r_pad))
+    bwd_ms = med(lambda: sptrsv.sptrsv_level_cuda(*la_b[:7], r_pad))
+    # the same launches with L2 emptied before each (a write of twice its
+    # 50 MB), as a solve inside CG may find it after the other factor,
+    # A and the vectors have passed through
+    flush = torch.empty(100 * 2**20 // 4, dtype=torch.float32, device=dev)
+
+    def cold(fn, reps=20):
+        out = []
+        for _ in range(reps):
+            flush.fill_(1.0)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            out.append(e0.elapsed_time(e1))
+        return statistics.median(out)
+
+    fwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_f[:7], r_pad))
+    bwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_b[:7], r_pad))
+    del flush
+    spmv_ms = med(lambda: spmv.spmv_cuda(op.col_idx, op.vals, x_pad))
+    matvec_ms = med(lambda: op(xs))  # the kernel, the pad and the piece sums
+    precond_ms = med(lambda: bwd(fwd(rt)))  # the front door: gathers included
+    # per-iteration bound: L read twice (fwd, bwd), A once (value, column,
+    # row pointers, 4 bytes each), and the CG vectors of a fused
+    # iteration: p read, Ap written (matvec); x, p, r, Ap read, x, r
+    # written (updates); r read, y written, y read, z written (the
+    # solves); z, p read, p written: 15 vectors of n floats
+    l_bytes = lf.nnz * 8 + (n + 1) * 4
+    a_bytes = A.nnz * 8 + (n + 1) * 4
+    vec_bytes = 15 * n * 4
+    bound_us = (2 * l_bytes + a_bytes + vec_bytes) / HBM_BYTES_PER_S * 1e6
+
+    # a small grid: the card's PCG against the CPU plain PCG
+    small = []
+    A_s = poisson2d_matrix(64)
+    b_s = rng.standard_normal(A_s.n_rows)
+    for dtype in (torch.float64, torch.float32):
+        xg, ig, rg, _ = pcg_ichol(A_s, b_s, dtype=dtype, **kw)
+        # the CPU plain PCG: the kernels' plain versions (bitwise the scan's)
+        xc, ic, rc, _ = pcg_ichol(A_s, b_s, dtype=dtype, device="cpu", **kw)
+        xg, xc = xg.cpu().double().numpy(), xc.double().numpy()
+        # the dots reduce in another order on the card: float64 counts
+        # equal, float32 within one
+        same_iters = abs(ig - ic) <= (0 if dtype == torch.float64 else 1)
+        close = bool(np.allclose(xg, xc, rtol=1e-3, atol=1e-3 * np.abs(xc).max()))
+        small.append({"dtype": str(dtype).replace("torch.", ""), "iters": ig, "iters_cpu": ic,
+                      "relres": rg, "relres_cpu": rc,
+                      "max_rel_gap": float(np.abs(xg - xc).max() / np.abs(xc).max())})
+        require(same_iters and close, f"pcg card vs CPU plain at 64x64: {small[-1]}")
+
+    rec = {"phase": "pcg", "grid": PCG_GRID, "n": n, "nnz_A": A.nnz, "nnz_L": lf.nnz,
+           "seed": args.seed, "dtype": "float32", "backend": "kernel", "k": 8,
+           "tol": PCG_TOL, "ichol_s": ichol_s, "plan_s": {"fwd": plan_s[0], "bwd": plan_s[1]},
+           "inspector_s": {"fwd": fwd.inspector_seconds, "bwd": bwd.inspector_seconds},
+           "cpu_plain_pair_plan_s": cpu_plan_s,
+           "iters": iters1, "relres": relres1, "true_relres_f64": true1,
+           "pcg_wall_s": wall1, "second_request": {
+               "iters": iters2, "relres": relres2, "true_relres_f64": true2,
+               "pcg_wall_s": wall2, "cache": info2["cache"]},
+           "cg_iters": cg_iters, "cg_relres": cg_relres, "cg_wall_s": cg_wall,
+           "cg_pass": {"iters": iters3, "wall_s": cg_pass_wall},
+           "ms_per_iter": ms_per_iter, "profile": profiled,
+           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "spmv_ms": spmv_ms,
+           "l2_flushed": {"fwd_ms": fwd_cold_ms, "bwd_ms": bwd_cold_ms},
+           "matvec_ms": matvec_ms, "precond_ms": precond_ms,
+           "rest_ms": ms_per_iter - fwd_ms - bwd_ms - spmv_ms,
+           "levels": {"fwd": fwd.bound.describe()["n_levels"],
+                      "bwd": bwd.bound.describe()["n_levels"]},
+           "supersteps": {"fwd": fwd.n_supersteps, "bwd": bwd.n_supersteps},
+           "bound_us_per_iter": bound_us, "bound_by": "bytes",
+           "bound_bytes": {"L_twice": 2 * l_bytes, "A": a_bytes, "vectors": vec_bytes},
+           "launches": launches, "bitwise_precond_vs_cpu_plain": True,
+           "bitwise_matvec_vs_cpu_plain": True, "small_grid_vs_cpu_plain": small, **card}
+    emit(rec)
+    return rec
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the pcg phase's right-hand sides")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -175,6 +428,20 @@ def main() -> int:
     def max_abs(a, b) -> float:
         d = (a.detach().cpu().double() - b.detach().cpu().double()).abs()
         return float(d.max()) if d.numel() else 0.0
+
+    def cuda_times(fn, warmup, reps):
+        for _ in range(warmup):
+            fn()
+        out = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            out.append(e0.elapsed_time(e1))
+        return out
 
     # -------------------------------------------------------- kernels
     small = {"er": erdos_renyi_lower(2000, 5e-3, seed=0),
@@ -421,21 +688,13 @@ def main() -> int:
     path_launches = {**main_launches, **{k: elastic_launches[k] for k in (
         "elastic_single", "elastic_mrhs")}, **spmv_launches}
 
-    # --------------------------------------------------------- timing
-    def cuda_times(fn, warmup, reps):
-        for _ in range(warmup):
-            fn()
-        out = []
-        for _ in range(reps):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            out.append(e0.elapsed_time(e1))
-        return out
+    # ------------------------------------------------------------ pcg
+    pcg = pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card)
+    # the kernels' path launches add this path's
+    path_launches["single"] += pcg["launches"]["single"]
+    path_launches["spmv"] += pcg["launches"]["spmv"]
 
+    # --------------------------------------------------------- timing
     def graph_ms(fn, reps):
         """Median ms of replaying a CUDA graph that holds ``fn``'s launches:
         the device's time without the host's launch path (wrapper checks,

@@ -8,6 +8,8 @@
   * ``BoundSolve`` — an immutable bound solver:
       - ``solve(b)`` for ``b`` f[n] or f[n, m] (multi-RHS), a tensor on
         the bound's device, in plan row order;
+      - ``solve_timed(b) -> (x, steps)`` — the same bits, with per-step
+        timings at the finest granularity the backend can observe;
       - ``update_values(data) -> BoundSolve`` refreshes the numeric values
         *on the device* — a ``torch.where`` gather of the new entry data
         through the plan's ``val_src``/``diag_src`` maps — and returns a NEW
@@ -29,6 +31,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import obs
+from repro_torch.device import timed_us
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -93,6 +98,17 @@ class BoundSolve(abc.ABC):
     @abc.abstractmethod
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Solve for ``b`` f[n] or f[n, m]; returns x shaped like b."""
+
+    def solve_timed(self, b: torch.Tensor):
+        """``solve`` plus per-step timings: returns ``(x, steps)``, where
+        ``steps`` is a list of JSON-ready dicts at the finest granularity
+        the backend can observe. This fallback times the whole solve as
+        ONE step (``device.timed_us``: CUDA events around it on the card,
+        the host clock on the CPU); the scan backend overrides it with
+        per-superstep (bulk) / per-macro-step (elastic) segments."""
+        with obs.span("executor.solve_timed", cat="executor", n=self.n):
+            x, us = timed_us(lambda: self.solve(b), b.device)
+        return x, [{"step": 0, "n_steps": None, "us": us}]
 
     @abc.abstractmethod
     def update_values(self, data: np.ndarray) -> "BoundSolve":

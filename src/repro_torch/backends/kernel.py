@@ -5,9 +5,11 @@ of ``TriangularSolver.plan``. Every solve is one launch of a level walk
 (``kernels.levels``): over the bulk level order, a run per superstep, for
 one right-hand side and for m (a block per column), and in
 ``mode="elastic"`` over runs of ``slack`` supersteps. CPU tensors take the
-kernels' plain version."""
+kernels' plain version. A timed solve is that one launch, timed as one
+step: the kernel, not the scan's segments."""
 from __future__ import annotations
 
+from repro_torch.backends.base import BoundSolve
 from repro_torch.backends.registry import register_backend
 from repro_torch.backends.scan import (
     ElasticScanBoundSolve,
@@ -43,13 +45,38 @@ def _refreshed_levels(la, vals, diag):
                        diag=diag.reshape(-1)[la.perm])
 
 
-def _describe_levels(out, la):
-    out["n_levels"] = la.level_ptr.numel() - 1
-    out["device_bytes"] += _device_bytes(la[:8])
-    return out
+class _KernelTimed:
+    """Timed solves of the kernel bounds. They subclass the scan bounds for
+    the plan tensors and the value refresh, but must not inherit the scan's
+    segmented ``solve_timed``, which would time the plain version: a solve
+    is one launch, so it is timed as one step (``BoundSolve.solve_timed``),
+    as the JAX package's Pallas backend does. The runtime block counts the
+    timed solves and the levels they walked (every launch walks all of its
+    level order's levels), in the kernel's own unit, not macro-steps."""
+
+    def _start_runtime(self):
+        self._kernel_runtime = {"timed_solves": 0, "levels_walked": 0}
+
+    def _n_levels(self) -> int:
+        return self._la.level_ptr.numel() - 1
+
+    def solve_timed(self, b):
+        x, steps = BoundSolve.solve_timed(self, b)
+        self._kernel_runtime["timed_solves"] += 1
+        self._kernel_runtime["levels_walked"] += self._n_levels()
+        return x, steps
+
+    def _describe_levels(self, out):
+        rt = dict(self._kernel_runtime)
+        if rt["timed_solves"]:
+            rt["levels_per_solve"] = round(rt["levels_walked"] / rt["timed_solves"], 2)
+        out["n_levels"] = self._n_levels()
+        out["device_bytes"] += _device_bytes(self._la[:8])
+        out["runtime"] = {**rt, "predicted_levels": out["n_levels"]}
+        return out
 
 
-class KernelBoundSolve(ScanBoundSolve):
+class KernelBoundSolve(_KernelTimed, ScanBoundSolve):
     """The scan bound's plan tensors and value refresh, plus the plan in
     the bulk level order; a solve, of one right-hand side or of m, runs
     ``sptrsv_level_cuda`` over the latter (one block barrier per level).
@@ -61,6 +88,7 @@ class KernelBoundSolve(ScanBoundSolve):
     def __init__(self, arrays, val_src, diag_src, *, n_entries):
         pa, self._la = arrays
         super().__init__(pa, val_src, diag_src, n_entries=n_entries)
+        self._start_runtime()
 
     def solve(self, b):
         return solve_with_kernel_arrays(self._la, b)
@@ -75,10 +103,10 @@ class KernelBoundSolve(ScanBoundSolve):
         )
 
     def describe(self) -> dict:
-        return _describe_levels(super().describe(), self._la)
+        return self._describe_levels(super().describe())
 
 
-class ElasticKernelBoundSolve(ElasticScanBoundSolve):
+class ElasticKernelBoundSolve(_KernelTimed, ElasticScanBoundSolve):
     """The ``mode="elastic"`` kernel bound: the elastic scan bound's
     macro-step tensors and value refresh, plus the plan in the level order
     over runs of ``slack`` supersteps; the solve runs
@@ -93,6 +121,7 @@ class ElasticKernelBoundSolve(ElasticScanBoundSolve):
     def __init__(self, arrays, elastic, val_src, diag_src, *, n_entries):
         ea, self._la = arrays
         super().__init__(ea, elastic, val_src, diag_src, n_entries=n_entries)
+        self._start_runtime()
 
     def solve(self, b):
         return solve_with_elastic_kernel_arrays(self._la, b)
@@ -110,7 +139,7 @@ class ElasticKernelBoundSolve(ElasticScanBoundSolve):
     def describe(self) -> dict:
         # the level order's runs: slack counts supersteps here, plan steps
         # in the scan bound's macro-steps
-        return _describe_levels({**super().describe(), "slack_unit": "supersteps"}, self._la)
+        return self._describe_levels({**super().describe(), "slack_unit": "supersteps"})
 
 
 @register_backend

@@ -1,6 +1,8 @@
 """Scan backend — the plain PyTorch executor behind the ``Backend``
 protocol (step bodies in ``repro_torch.solver.executor``). ``bind(slack=s)``
-binds the elastic macro-step loop (``"elastic"`` capability)."""
+binds the elastic macro-step loop (``"elastic"`` capability). Timed
+solves run in segments: one per superstep (bulk), one per macro-step
+(elastic)."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,7 +27,9 @@ from repro_torch.solver.executor import (
     elastic_plan_arrays,
     plan_arrays,
     solve_with_elastic,
+    solve_with_elastic_timed,
     solve_with_plan,
+    solve_with_plan_timed,
 )
 
 
@@ -49,6 +53,11 @@ class ScanBoundSolve(BoundSolve):
 
     def solve(self, b):
         return solve_with_plan(self._pa, b)
+
+    def solve_timed(self, b):
+        """Per-superstep timed solve: one segment per non-empty superstep
+        of the plan (``solver.executor.solve_with_plan_timed``)."""
+        return solve_with_plan_timed(self._pa, b)
 
     def _refreshed(self, data):
         """(vals, diag) gathered from ``data`` on the bound's device."""
@@ -105,9 +114,21 @@ class ElasticScanBoundSolve(ScanBoundSolve):
         self._diag_src = diag_src  # int32[M, S, k] on the device (-1 padded)
         self.n = ea.n
         self.n_entries = n_entries
+        # runtime side of the elastic certificate: what timed solves
+        # executed, reported by describe() next to the certificate's
+        # prediction (fresh per bound: update_values starts a new history)
+        self._runtime = {"timed_solves": 0, "macro_steps_executed": 0}
 
     def solve(self, b):
         return solve_with_elastic(self._ea, b)
+
+    def solve_timed(self, b):
+        """Per-macro-step timed solve; adds the macro-steps it executed to
+        the bound's runtime telemetry (``describe()["runtime"]``)."""
+        x, steps = solve_with_elastic_timed(self._ea, b)
+        self._runtime["timed_solves"] += 1
+        self._runtime["macro_steps_executed"] += len(steps)
+        return x, steps
 
     def _arrays(self):
         return self._ea
@@ -124,6 +145,12 @@ class ElasticScanBoundSolve(ScanBoundSolve):
 
     def describe(self) -> dict:
         M, S, k, W = self._ea.col_idx.shape
+        cert = self._elastic.stats()
+        rt = dict(self._runtime)
+        if rt["timed_solves"]:
+            rt["macro_steps_per_solve"] = round(
+                rt["macro_steps_executed"] / rt["timed_solves"], 2
+            )
         return {
             "backend": self.backend,
             "mode": "elastic",
@@ -140,7 +167,14 @@ class ElasticScanBoundSolve(ScanBoundSolve):
                 (*self._ea[:5], self._val_src, self._diag_src)
             ),
             # the certificate's barrier and step accounting
-            "certificate": self._elastic.stats(),
+            "certificate": cert,
+            # certificate (predicted) vs timed solves (executed)
+            "runtime": {
+                **rt,
+                "predicted_macro_steps": M,
+                "predicted_barrier_fusion": cert.get("barrier_fusion"),
+                "predicted_step_fusion": cert.get("step_fusion"),
+            },
         }
 
 

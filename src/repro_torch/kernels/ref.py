@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.solver.executor import _step_mrhs, _step_single
+from repro_torch.solver.executor import _solve_segment, _zero_carry
 
 
 def sptrsv_ref(row_ids, col_idx, vals, diag, accum, b_pad):
@@ -24,14 +24,8 @@ def sptrsv_ref(row_ids, col_idx, vals, diag, accum, b_pad):
     shaped like ``b_pad`` (the last row is scratch). Sequential over T,
     vectorized over the k lanes (and the m columns).
     """
-    step = _step_single if b_pad.dim() == 1 else _step_mrhs
-    x = torch.zeros_like(b_pad)
-    acc = b_pad.new_zeros((row_ids.shape[1], *b_pad.shape[1:]))
-    for t in range(row_ids.shape[0]):
-        x, acc = step(
-            x, acc, row_ids[t], col_idx[t], vals[t], diag[t], accum[t], b_pad
-        )
-    return x
+    x, acc = _zero_carry(b_pad, row_ids.shape[1])
+    return _solve_segment(row_ids, col_idx, vals, diag, accum, b_pad, x, acc)[0]
 
 
 def sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):

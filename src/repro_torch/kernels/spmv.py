@@ -14,8 +14,12 @@ diagonal block's right-hand side). The counterpart of the JAX package's
     kernel ``_spmv_kernel``): tensors on the CPU take the plain version
     (``kernels.ref.spmv_ell_ref``), and only because they lie on the CPU;
     tensors on a CUDA device launch the kernel or raise;
-  * ``spmv(m, x)`` — the entry point: ELL conversion, the kernel, and the
-    sum of split rows.
+  * ``EllOperator(m)`` — the matrix bound once on a device: the ELL
+    conversion on the host, the ELL tensors and the indices of the sum of
+    split rows put on the device once; ``op(x)`` launches the kernel and
+    sums the pieces with no host work and no host-to-device copy (CG's
+    matvec, ``solver.cg``);
+  * ``spmv(m, x)`` — the entry point: bind, then call.
 
 SpMV is outside the solver's bitwise contract (the reference tree-sums
 over W): the JAX package is held to it within a tolerance. The kernel's
@@ -124,40 +128,67 @@ def spmv_cuda(col_idx, vals, x_pad):
     return y
 
 
-def segment_sum_pieces(y_ell: torch.Tensor, row_map: np.ndarray, n_rows: int):
-    """Sum the ELL rows of each target row, deterministically: ``row_map``
-    is sorted, so piece p of every row is added in turn, p = 0, 1, ... —
-    one gather-add per piece with unique targets (no ``index_add_``, whose
-    order on CUDA changes from run to run)."""
+def _piece_indices(row_map: np.ndarray):
+    """``(first, rest)`` for the sum of split rows: ``first`` int64[n_rows]
+    is the first ELL row of each row (``row_map`` is sorted and every row
+    has one), and ``rest`` lists, for piece p = 1, 2, ..., the ELL rows
+    that are some row's piece p and the rows they belong to."""
     row_map = np.asarray(row_map, dtype=np.int64)
     run_start = np.ones(len(row_map), dtype=bool)
     run_start[1:] = row_map[1:] != row_map[:-1]
     first = np.flatnonzero(run_start)
     piece = np.arange(len(row_map)) - np.repeat(first, np.diff(np.append(first, len(row_map))))
-    y = y_ell.new_zeros(n_rows)
-    for p in range(int(piece.max()) + 1 if len(piece) else 0):
+    rest = []
+    for p in range(1, int(piece.max()) + 1 if len(piece) else 0):
         sel = np.flatnonzero(piece == p)
-        src = torch.as_tensor(sel).to(y_ell.device)
-        dst = torch.as_tensor(row_map[sel]).to(y_ell.device)
-        y[dst] = y[dst] + y_ell[src]
-    return y
+        rest.append((sel, row_map[sel]))
+    return first, rest
+
+
+class EllOperator:
+    """``m`` bound once as padded ELL on ``device`` (``None``: the card,
+    raising without CUDA): ``op(x)`` is y = m @ x through the kernel.
+
+    Binding converts to ELL on the host (``ell_from_csr``), puts
+    ``col_idx`` and ``vals`` on the device and precomputes the
+    gather and scatter indices of the sum of split rows as device tensors.
+    A call pads x with the scratch slot, launches ``spmv_cuda`` and sums
+    the pieces deterministically: piece p of every row is added in turn,
+    p = 0, 1, ..., one gather-add per piece with unique targets (no
+    ``index_add_``, whose order on CUDA changes from run to run)."""
+
+    def __init__(self, m: CSRMatrix, *, dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        if m.nnz and (int(m.indices.min()) < 0 or int(m.indices.max()) >= m.n_cols):
+            raise ValueError(f"matrix column indices must lie in [0, {m.n_cols})")
+        col_idx, vals, row_map = ell_from_csr(m, dtype=numpy_dtype(dtype))
+        first, rest = _piece_indices(row_map)
+
+        def put(a):
+            return torch.as_tensor(a).to(device)
+
+        self.n_rows, self.n_cols = m.n_rows, m.n_cols
+        self.dtype, self.device = dtype, device
+        self.col_idx, self.vals = put(col_idx), put(vals)
+        self._first = put(first)
+        self._rest = [(put(src), put(dst)) for src, dst in rest]
+
+    def __call__(self, x) -> torch.Tensor:
+        """y f[n_rows] = m @ x for ``x`` f[n_cols] (numpy or torch; a tensor
+        of the bound dtype on the bound device is used as it is)."""
+        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        if x.shape != (self.n_cols,):
+            raise ValueError(f"x must be [{self.n_cols}]; got {tuple(x.shape)}")
+        y_ell = spmv_cuda(self.col_idx, self.vals, torch.cat([x, x.new_zeros(1)]))
+        y = y_ell.new_zeros(self.n_rows) + y_ell[self._first]
+        for src, dst in self._rest:
+            y[dst] = y[dst] + y_ell[src]
+        return y
 
 
 def spmv(m: CSRMatrix, x, *, dtype=torch.float32, device=None) -> torch.Tensor:
     """y = m @ x through the kernel on ``device`` (``None``: the card,
-    raising without CUDA): ELL conversion on the host, the kernel, and the
-    deterministic sum of split rows. ``x`` f[n_cols], numpy or torch;
-    returns y f[n_rows] on ``device``. The CUDA kernel does not tile, so
-    the TPU's row-tile padding is gone."""
-    device = resolve_device(device)
-    if m.nnz and (int(m.indices.min()) < 0 or int(m.indices.max()) >= m.n_cols):
-        raise ValueError(f"matrix column indices must lie in [0, {m.n_cols})")
-    col_idx, vals, row_map = ell_from_csr(m, dtype=numpy_dtype(dtype))
-    x = torch.as_tensor(x).to(device=device, dtype=dtype)
-    if x.shape != (m.n_cols,):
-        raise ValueError(f"x must be [{m.n_cols}]; got {tuple(x.shape)}")
-    x_pad = torch.cat([x, x.new_zeros(1)])
-    y_ell = spmv_cuda(
-        torch.as_tensor(col_idx).to(device), torch.as_tensor(vals).to(device), x_pad
-    )
-    return segment_sum_pieces(y_ell, row_map, m.n_rows)
+    raising without CUDA): ``EllOperator(m)(x)``. ``x`` f[n_cols], numpy
+    or torch; returns y f[n_rows] on ``device``. The CUDA kernel does not
+    tile, so the TPU's row-tile padding is gone."""
+    return EllOperator(m, dtype=dtype, device=device)(x)

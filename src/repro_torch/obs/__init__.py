@@ -13,8 +13,20 @@ process-wide singleton). Usage::
     print(obs.summary(buf))     # per-span aggregate + counters
 
 Spans are host-clock regions: a span around an asynchronous CUDA launch
-measures the enqueue, not the device work.
+measures the enqueue, not the device work (the timed solves' step spans
+wait for the device). ``export_chrome_trace(path)`` writes a buffer as
+Chrome/Perfetto trace JSON and ``metrics_rows()`` flattens it into
+``repro-bench-rows/v1`` rows (``obs.export``).
 """
+from repro_torch.obs.export import (
+    TRACE_SCHEMA,
+    chrome_trace_events,
+    chrome_trace_payload,
+    export_chrome_trace,
+    load_chrome_trace,
+    metrics_rows,
+    validate_chrome_trace,
+)
 from repro_torch.obs.trace import (
     COUNTER_WRAP,
     DEFAULT_CAP,
@@ -47,14 +59,21 @@ __all__ = [
     "NULL_SPAN",
     "Span",
     "SpanRecord",
+    "TRACE_SCHEMA",
     "TraceBuffer",
     "active_buffer",
+    "chrome_trace_events",
+    "chrome_trace_payload",
     "counter_add",
     "disable",
     "enable",
+    "export_chrome_trace",
     "get_buffer",
     "is_enabled",
+    "load_chrome_trace",
+    "metrics_rows",
     "span",
     "summary",
     "tracing",
+    "validate_chrome_trace",
 ]

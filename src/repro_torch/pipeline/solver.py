@@ -29,6 +29,10 @@ symmetrically is lower triangular again), which together with
 Pass a ``PlanCache`` to amortize the inspector across solves that share a
 sparsity pattern — hits skip scheduling entirely and only refresh the
 numeric values (paper §7.7's regime).
+
+``timed=True`` routes every solve through ``solve_timed``: the same bits,
+with per-step timings (``BoundSolve.solve_timed``) kept on
+``last_step_timings`` and, when tracing is on, spans in the active buffer.
 """
 from __future__ import annotations
 
@@ -147,6 +151,10 @@ class TriangularSolver:
         self.inspector_seconds = inspector_seconds
         self._steps_per_tile = steps_per_tile
         self._slack = slack  # > 0: elastic execution mode
+        # per-step timed execution: an observability toggle, not part of
+        # the plan's identity (results are the same bits)
+        self.timed = False  # set by plan()
+        self.last_step_timings: Optional[list] = None
         self._source_data: Optional[np.ndarray] = None  # set by plan()
         self.plan_key = None  # plan-cache key, set by plan()
         total_inv = np.empty_like(total_perm)
@@ -177,11 +185,27 @@ class TriangularSolver:
     def solve(self, b) -> torch.Tensor:
         """Solve the planned system for ``b``: f[n] or f[n, m] (multi-RHS),
         numpy or torch. Input/output live in the caller's original row
-        ordering; the result is a tensor on the solver's device."""
+        ordering; the result is a tensor on the solver's device. With the
+        ``timed`` toggle on, routes through :meth:`solve_timed`."""
+        if self.timed:
+            return self.solve_timed(b)[0]
         b = self._check_b(b)
         with obs.span("executor.solve", cat="executor", n=self.n):
             x = self._bound.solve(b[self._perm])
             return x[self._inv]
+
+    def solve_timed(self, b):
+        """``solve`` with per-step timing: returns ``(x, steps)``, where
+        ``steps`` holds one JSON-ready dict per step the backend can
+        observe (``BoundSolve.solve_timed``: per superstep or macro-step on
+        ``scan``, one per launch on ``kernel``). The last list is kept on
+        ``last_step_timings``."""
+        b = self._check_b(b)
+        with obs.span("executor.solve", cat="executor", n=self.n, timed=True):
+            x, steps = self._bound.solve_timed(b[self._perm])
+            x = x[self._inv]
+        self.last_step_timings = steps
+        return x, steps
 
     __call__ = solve
 
@@ -241,6 +265,7 @@ class TriangularSolver:
             # or "supersteps" (kernel); None in mode="bsp"
             "slack_unit": binding.get("slack_unit"),
             "device": str(self.device),
+            "timed": self.timed,
             "lower": self.lower,
             "n_supersteps": self.n_supersteps,
             "inspector_seconds": self.inspector_seconds,
@@ -266,6 +291,7 @@ class TriangularSolver:
         steps_per_tile: int = 8,
         mode: Optional[str] = None,
         device=None,
+        timed: bool = False,
         **opts,
     ) -> "TriangularSolver":
         """Plan a solver for triangular ``a`` (lower, or upper with
@@ -287,7 +313,12 @@ class TriangularSolver:
         supersteps (``info()["slack_unit"]`` says which). ``mode="elastic"``
         takes ``slack`` from ``slack=...`` (a ``ScheduleOptions`` knob) or
         ``core.DEFAULT_SLACK``; ``slack > 0`` alone also selects elastic.
-        The backend must advertise the ``"elastic"`` capability."""
+        The backend must advertise the ``"elastic"`` capability.
+
+        ``timed=True`` turns on per-step timed execution: every ``solve``
+        routes through ``solve_timed``. It is NOT part of the plan identity
+        (the cache key): a cache hit returns the same solver with the
+        toggle set to THIS call's value."""
         strategy = strategy.lower()
         # fail fast on an unknown backend, with the registry naming options
         backend_caps = get_backend(backend).capabilities()
@@ -374,7 +405,9 @@ class TriangularSolver:
             return solver
 
         if cache is None:
-            return build()
+            solver = build()
+            solver.timed = timed
+            return solver
         solver, hit = cache.get_or_build(key, build)
         if hit and not np.array_equal(solver._source_data, a.data):
             # same pattern, new values: clone with refreshed numerics (the
@@ -383,6 +416,7 @@ class TriangularSolver:
             solver = solver._with_values(a.data)
             cache.replace(key, solver)
             cache.note_numeric_update()
+        solver.timed = timed
         return solver
 
 

@@ -1,5 +1,6 @@
-"""Executors over compiled plans (the plain PyTorch ones, bulk and
-elastic)."""
+"""Solvers: the plain PyTorch executors over compiled plans (bulk and
+elastic, untimed and timed), the serial reference solvers, and
+(preconditioned) conjugate gradient, the end-to-end consumer."""
 from repro_torch.solver.executor import (
     ElasticArrays,
     PlanArrays,
@@ -7,15 +8,35 @@ from repro_torch.solver.executor import (
     make_solver,
     plan_arrays,
     solve_with_elastic,
+    solve_with_elastic_timed,
     solve_with_plan,
+    solve_with_plan_timed,
 )
+from repro_torch.solver.reference import forward_substitution, solve_lower_scipy
+
+
+def __getattr__(name):
+    # ``cg`` imports the pipeline, whose backends import this package's
+    # executor: load it on first use, not with the package
+    if name in ("cg_solve", "pcg_ichol"):
+        from repro_torch.solver import cg
+
+        return getattr(cg, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ElasticArrays",
     "PlanArrays",
+    "cg_solve",
     "elastic_plan_arrays",
+    "forward_substitution",
     "make_solver",
+    "pcg_ichol",
     "plan_arrays",
+    "solve_lower_scipy",
     "solve_with_elastic",
+    "solve_with_elastic_timed",
     "solve_with_plan",
+    "solve_with_plan_timed",
 ]

@@ -16,19 +16,25 @@ PyTorch spelling of the JAX package's ``solver/executor.py`` step bodies:
 of the CUDA kernels and what the ``scan`` backend runs. The CUDA kernels
 (``kernels/sptrsv.py``) reproduce the same bits.
 
+``solve_with_plan_timed`` / ``solve_with_elastic_timed`` are the opt-in
+timed solves (``TriangularSolver.plan(..., timed=True)``): the same steps
+in the same order, cut into one timed segment per superstep (bulk) or per
+macro-step (elastic), so the same bits.
+
 Padding protocol (see ``core.plan``): row id n = scratch row, gather index
 n = scratch slot, so padded lanes are harmless; the scratch slot stays 0.
 ``accum`` rows carry partial sums for rows wider than W.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.plan import ExecPlan
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, timed_us
 
 
 class PlanArrays(NamedTuple):
@@ -90,6 +96,23 @@ def _step_mrhs(x, acc, rows, cols, v, d, a, b_pad):
 def pad_rhs(b: torch.Tensor) -> torch.Tensor:
     """``b`` f[n] or f[n, m] with the zero scratch row n appended."""
     return torch.cat([b, b.new_zeros((1, *b.shape[1:]))])
+
+
+def _zero_carry(b_pad: torch.Tensor, k: int):
+    """The (x, acc) carry every loop over plan steps starts from: x shaped
+    like ``b_pad`` and acc f[k] (f[k, m]), both zero."""
+    return torch.zeros_like(b_pad), b_pad.new_zeros((k, *b_pad.shape[1:]))
+
+
+def _solve_segment(rows, cols, v, d, a, b_pad, x, acc):
+    """Run a contiguous run of plan steps, in order, on an (x, acc) carry
+    (rows int32[t, k]): the whole plan (``kernels.ref.sptrsv_ref``), an
+    elastic macro window, or a timed segment. Single- vs multi-RHS follows
+    the carry's rank. Returns the carry."""
+    step = _step_single if x.dim() == 1 else _step_mrhs
+    for j in range(rows.shape[0]):
+        x, acc = step(x, acc, rows[j], cols[j], v[j], d[j], a[j], b_pad)
+    return x, acc
 
 
 def solve_with_plan(pa: PlanArrays, b: torch.Tensor) -> torch.Tensor:
@@ -174,15 +197,11 @@ def elastic_plan_arrays(
 
 def _elastic_loop(row_ids, col_idx, vals, diag, accum, b_pad):
     """Elastic loop: ``ceil(T / slack)`` macro-steps, each replaying its
-    window's ``slack`` plan steps in order through ``_step_single`` (or
-    ``_step_mrhs`` for b_pad f[n+1, m]) — the same steps in the same order
-    as the bulk loop, so the same bits."""
-    step = _step_single if b_pad.dim() == 1 else _step_mrhs
-    x = torch.zeros_like(b_pad)
-    acc = b_pad.new_zeros((row_ids.shape[2], *b_pad.shape[1:]))
-    for rows, cols, v, d, a in zip(row_ids, col_idx, vals, diag, accum):
-        for j in range(rows.shape[0]):
-            x, acc = step(x, acc, rows[j], cols[j], v[j], d[j], a[j], b_pad)
+    window's ``slack`` plan steps in order (``_solve_segment``) — the same
+    steps in the same order as the bulk loop, so the same bits."""
+    x, acc = _zero_carry(b_pad, row_ids.shape[2])
+    for window in zip(row_ids, col_idx, vals, diag, accum):
+        x, acc = _solve_segment(*window, b_pad, x, acc)
     return x
 
 
@@ -192,3 +211,53 @@ def solve_with_elastic(ea: ElasticArrays, b: torch.Tensor) -> torch.Tensor:
     b_pad = pad_rhs(b.to(ea.vals.dtype))
     x = _elastic_loop(ea.row_ids, ea.col_idx, ea.vals, ea.diag, ea.accum, b_pad)
     return x[: ea.n]
+
+
+# ---------------------------------------------------------- timed solves
+# Opt-in per-step device timing (``TriangularSolver.plan(..., timed=True)``
+# / ``BoundSolve.solve_timed``): the plan traversal is cut at its natural
+# boundaries (superstep bounds for the bulk loop, macro-step windows for
+# elastic) and each segment is timed on its own (``device.timed_us``: CUDA
+# events on the card, the host clock on the CPU). The segments run
+# ``_solve_segment``, as the untimed loops do, in the same order on one
+# (x, acc) carry, so x is bitwise the untimed solve's; only the
+# granularity that can be observed changes.
+
+
+def solve_with_plan_timed(pa: PlanArrays, b: torch.Tensor) -> Tuple[torch.Tensor, List[dict]]:
+    """``solve_with_plan`` with per-superstep timing: one timed segment per
+    non-empty superstep. Returns ``(x, steps)`` where each entry is
+    ``{"superstep", "n_steps", "us"}``; an ``executor.superstep`` span
+    lands in the active trace buffer per segment when tracing is on."""
+    b_pad = pad_rhs(b.to(pa.vals.dtype))
+    x, acc = _zero_carry(b_pad, pa.row_ids.shape[1])
+    bounds = pa.step_bounds.tolist()
+    steps: List[dict] = []
+    for s in range(len(bounds) - 1):
+        lo, hi = bounds[s], bounds[s + 1]
+        if hi == lo:
+            continue
+        with obs.span("executor.superstep", cat="executor", superstep=s, steps=hi - lo):
+            (x, acc), us = timed_us(lambda: _solve_segment(
+                pa.row_ids[lo:hi], pa.col_idx[lo:hi], pa.vals[lo:hi], pa.diag[lo:hi],
+                pa.accum[lo:hi], b_pad, x, acc), b_pad.device)
+        steps.append({"superstep": s, "n_steps": hi - lo, "us": us})
+    return x[: pa.n], steps
+
+
+def solve_with_elastic_timed(ea: ElasticArrays, b: torch.Tensor) -> Tuple[torch.Tensor, List[dict]]:
+    """``solve_with_elastic`` with per-macro-step timing. Returns
+    ``(x, steps)`` with one ``{"macro_step", "n_steps", "us"}`` entry (and
+    one ``executor.macro_step`` span when tracing) per executed
+    macro-step: the runtime side of the elastic barrier-fusion
+    certificate."""
+    b_pad = pad_rhs(b.to(ea.vals.dtype))
+    x, acc = _zero_carry(b_pad, ea.row_ids.shape[2])
+    steps: List[dict] = []
+    for m in range(ea.row_ids.shape[0]):
+        with obs.span("executor.macro_step", cat="executor", macro=m, slack=ea.slack):
+            (x, acc), us = timed_us(lambda: _solve_segment(
+                ea.row_ids[m], ea.col_idx[m], ea.vals[m], ea.diag[m], ea.accum[m],
+                b_pad, x, acc), b_pad.device)
+        steps.append({"macro_step": m, "n_steps": ea.slack, "us": us})
+    return x[: ea.n], steps

@@ -1,13 +1,15 @@
 """Sparse-matrix substrate: CSR structures, generators, IC(0), DAG utilities.
 
 All of this is "inspector side": pure numpy, runs on the host, amortized over
-many solves (cf. paper §7.7). It is a copy of the JAX package's
+many solves (cf. paper §7.7); ``io`` reads and writes Matrix Market. It is a copy of the JAX package's
 ``repro.sparse``, so the port imports nothing of that package; the copies
 are held bitwise-equal to the originals by ``tests/test_torch_inspector.py``.
 """
 from repro_torch.sparse.csr import (
     CSRMatrix,
     csr_from_coo,
+    csr_from_dense,
+    csr_to_dense,
     lower_triangle_of,
     pattern_fingerprint,
     permute_symmetric,
@@ -25,12 +27,17 @@ from repro_torch.sparse.generators import (
     narrow_band_lower,
     poisson2d_matrix,
     poisson3d_matrix,
+    random_spd_band,
+    shifted_coupling_lower,
 )
 from repro_torch.sparse.ichol import ichol0
+from repro_torch.sparse.io import read_matrix_market, write_matrix_market
 
 __all__ = [
     "CSRMatrix",
     "csr_from_coo",
+    "csr_from_dense",
+    "csr_to_dense",
     "lower_triangle_of",
     "pattern_fingerprint",
     "permute_symmetric",
@@ -44,5 +51,9 @@ __all__ = [
     "narrow_band_lower",
     "poisson2d_matrix",
     "poisson3d_matrix",
+    "random_spd_band",
+    "shifted_coupling_lower",
     "ichol0",
+    "read_matrix_market",
+    "write_matrix_market",
 ]

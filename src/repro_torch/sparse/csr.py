@@ -125,6 +125,17 @@ def csr_from_coo(
     return CSRMatrix(n_rows, n_cols, indptr, cols, vals)
 
 
+def csr_from_dense(a: np.ndarray) -> CSRMatrix:
+    rows, cols = np.nonzero(a)
+    return csr_from_coo(a.shape[0], a.shape[1], rows, cols, a[rows, cols])
+
+
+def csr_to_dense(m: CSRMatrix) -> np.ndarray:
+    out = np.zeros((m.n_rows, m.n_cols), dtype=np.float64)
+    out[m.row_of_entry(), m.indices] = m.data
+    return out
+
+
 def lower_triangle_of(m: CSRMatrix, *, unit_diagonal_fill: bool = False) -> CSRMatrix:
     """Extract the lower triangle (incl. diagonal). Optionally force a unit
     diagonal where the diagonal entry is missing (keeps the solve well-posed)."""

@@ -127,3 +127,63 @@ def poisson3d_matrix(nx: int, ny: int | None = None, nz: int | None = None) -> C
     return csr_from_coo(
         n, n, np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
     )
+
+
+def shifted_coupling_lower(
+    n: int, shift: int, *, stride: int = 8, seed: int = 0
+) -> CSRMatrix:
+    """A family of structurally DISTINCT lower-triangular matrices that
+    compile to identically-shaped ``ExecPlan`` tensors — one *width
+    class* (``TriangularSolver.width_class``), the serve layer's
+    cross-pattern batching unit.
+
+    Full non-zero diagonal plus one off-diagonal entry per ``stride``-th
+    row ``i``, at column ``i - 1 - shift``. Varying ``shift`` in
+    ``[0, stride - 2]`` moves every coupling to a different column
+    (distinct sparsity fingerprints) while preserving the DAG's level
+    profile exactly: couplings never target another coupled row, so
+    every variant is "n - n/stride roots, n/stride depth-1 rows" with
+    the same row-nnz histogram — level schedulers (``wavefront``,
+    ``hdagg``) and the plan compiler see the same shapes for all shifts.
+    Values follow the paper's distributions (off ~ U[-2,2],
+    |diag| ~ LogU[1/2, 2])."""
+    if not 0 <= shift <= stride - 2:
+        raise ValueError(
+            f"shift must be in [0, {stride - 2}] so couplings stay "
+            "clear of the coupled rows (shift == stride - 1 would chain "
+            "them, changing the DAG depth and thus the width class)"
+        )
+    rng = np.random.default_rng(seed)
+    rr = np.arange(stride, n, stride, dtype=np.int64)
+    cc = rr - 1 - shift
+    off, diag = _paper_values(rng, len(rr), n)
+    all_rows = np.concatenate([rr, np.arange(n, dtype=np.int64)])
+    all_cols = np.concatenate([cc, np.arange(n, dtype=np.int64)])
+    all_vals = np.concatenate([off, diag])
+    return csr_from_coo(n, n, all_rows, all_cols, all_vals)
+
+
+def random_spd_band(n: int, bandwidth: int, density: float, *, seed: int = 0) -> CSRMatrix:
+    """Random symmetric positive-definite banded matrix (diagonally dominant),
+    used by the IC(0) data-set generator."""
+    rng = np.random.default_rng(seed)
+    rows_list, cols_list, vals_list = [], [], []
+    for off in range(1, bandwidth + 1):
+        i = np.arange(off, n, dtype=np.int64)
+        mask = rng.random(len(i)) < density
+        ii = i[mask]
+        v = rng.uniform(-1.0, 1.0, size=len(ii))
+        rows_list.extend([ii, ii - off])
+        cols_list.extend([ii - off, ii])
+        vals_list.extend([v, v])
+    rows = np.concatenate(rows_list) if rows_list else np.empty(0, dtype=np.int64)
+    cols = np.concatenate(cols_list) if cols_list else np.empty(0, dtype=np.int64)
+    vals = np.concatenate(vals_list) if vals_list else np.empty(0, dtype=np.float64)
+    # diagonal dominance => SPD
+    abssum = np.zeros(n)
+    np.add.at(abssum, rows, np.abs(vals))
+    diag = abssum + 1.0
+    rows = np.concatenate([rows, np.arange(n, dtype=np.int64)])
+    cols = np.concatenate([cols, np.arange(n, dtype=np.int64)])
+    vals = np.concatenate([vals, diag])
+    return csr_from_coo(n, n, rows, cols, vals)

@@ -169,3 +169,26 @@ def test_plans_bitwise_equal_detects_difference():
 def test_exec_plan_from_numpy_rejects_missing_fields():
     with pytest.raises(ValueError, match="missing"):
         exec_plan_from_numpy({"n": 1, "k": 1})
+
+
+@pytest.mark.parametrize("shift", [0, 3, 6])
+def test_shifted_coupling_lower_matches(shift):
+    _assert_same_csr(jsparse.shifted_coupling_lower(203, shift, seed=4),
+                     tsparse.shifted_coupling_lower(203, shift, seed=4))
+    with pytest.raises(ValueError, match="shift"):
+        tsparse.shifted_coupling_lower(64, 7)
+
+
+@pytest.mark.parametrize("n,bandwidth,density", [(150, 4, 0.5), (64, 1, 1.0), (9, 0, 0.3)])
+def test_random_spd_band_matches(n, bandwidth, density):
+    _assert_same_csr(jsparse.random_spd_band(n, bandwidth, density, seed=2),
+                     tsparse.random_spd_band(n, bandwidth, density, seed=2))
+
+
+@pytest.mark.parametrize("name", MATS)
+def test_dense_helpers_match(name):
+    jL, tL = _mats(name)
+    dense = tsparse.csr_to_dense(tL)
+    _assert_same_array(jsparse.csr_to_dense(jL), dense, "csr_to_dense")
+    _assert_same_csr(jsparse.csr_from_dense(dense), tsparse.csr_from_dense(dense))
+    _assert_same_csr(tsparse.csr_from_dense(dense), tL)  # a round trip

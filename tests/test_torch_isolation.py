@@ -30,7 +30,8 @@ from repro_torch.solver.executor import (
     pad_rhs,
     plan_arrays,
 )
-from repro_torch.sparse import erdos_renyi_lower
+from repro_torch.solver import cg_solve, pcg_ichol
+from repro_torch.sparse import erdos_renyi_lower, poisson2d_matrix
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
@@ -62,6 +63,15 @@ def test_chip_smoke_imports_no_jax_or_repro():
     mods = list(_imports(REPO / "chip_smoke.py"))
     assert "repro_torch" in {m.split(".")[0] for m in mods}
     assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
+def test_torch_examples_import_no_jax_or_repro():
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert examples
+    for path in examples:
+        mods = list(_imports(path))
+        assert "repro_torch" in {m.split(".")[0] for m in mods}, path.name
+        assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")], path.name
 
 
 _BLOCKED = r"""
@@ -147,11 +157,26 @@ def _spmv(plan):
     return spmv.spmv(erdos_renyi_lower(plan.n, 0.05, seed=0), np.ones(plan.n))
 
 
+def _ell_operator(plan):
+    return spmv.EllOperator(erdos_renyi_lower(plan.n, 0.05, seed=0))
+
+
+def _cg_solve(plan):
+    A = poisson2d_matrix(5)
+    return cg_solve(A, np.ones(A.n_rows))
+
+
+def _pcg_ichol(plan):
+    A = poisson2d_matrix(5)
+    return pcg_ichol(A, np.ones(A.n_rows))
+
+
 @pytest.mark.parametrize(
     "entry",
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
      _kernel_plan_arrays, _level_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
-     _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv],
+     _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv,
+     _ell_operator, _cg_solve, _pcg_ichol],
 )
 def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     # every entry point that places tensors defaults to the card
@@ -183,6 +208,18 @@ def test_sptrsv_cuda_on_cpu_takes_plain_path():
     pa = plan_arrays(solver.exec_plan, device="cpu")
     assert torch.equal(x1, sptrsv_ref(*pa[:5], b1)) and torch.equal(xm, sptrsv_ref(*pa[:5], bm))
     assert not build._LIBS  # nothing was built or loaded
+
+
+def test_torch_example_without_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "examples/torch_pcg_solve.py"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "OK" not in out.stdout
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -1,7 +1,8 @@
 """The CUDA kernels (bulk SpTRSV, the level walk of the bulk order for one
 RHS and, a block per column, for m RHS; elastic SpTRSV, the level walk over
-runs of supersteps for one and m RHS; SpMV) against their plain versions,
-on the card.
+runs of supersteps for one and m RHS; SpMV, and SpMV bound once as CG's
+matvec) against their plain versions, on the card; IC(0)-preconditioned CG
+on the card against the CPU plain PCG, and timed solves on the card.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device (it
 adds no pass there). On the card run it with
@@ -29,8 +30,14 @@ from repro_torch.kernels.ops import (
     solve_with_kernel_arrays,
 )
 from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref, sptrsv_ref
+from repro_torch.solver import pcg_ichol
 from repro_torch.solver.executor import pad_rhs, plan_arrays, solve_with_plan
-from repro_torch.sparse import erdos_renyi_lower, narrow_band_lower
+from repro_torch.sparse import (
+    csr_from_coo,
+    erdos_renyi_lower,
+    narrow_band_lower,
+    poisson2d_matrix,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +233,84 @@ def test_front_door_elastic_and_spmv_on_cuda(cuda):
     y = spmv.spmv(L, x, dtype=torch.float64)
     assert y.device.type == "cuda"
     np.testing.assert_allclose(y.cpu().numpy(), L.to_scipy() @ x, rtol=1e-12, atol=1e-12)
+
+
+def _arrow(n=3000):
+    """ER with three dense rows, which the default ELL width splits."""
+    m = erdos_renyi_lower(n, 2e-3, seed=5)
+    rows = [m.row_of_entry()] + [np.full(i, i) for i in (n // 3, n // 2, n - 1)]
+    cols = [m.indices] + [np.arange(i) for i in (n // 3, n // 2, n - 1)]
+    vals = np.random.default_rng(8).uniform(-1, 1, sum(len(c) for c in cols))
+    return csr_from_coo(n, n, np.concatenate(rows), np.concatenate(cols), vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gen", ["er", "nb", "poisson", "arrow"])
+def test_ell_operator_matches_plain_bitwise(cuda, gen, dtype):
+    # CG's matvec bound once on the card: one kernel launch per call, the
+    # bits of the operator's plain version on the CPU (spmv_ell_ref and the
+    # same piece sums; rows wider than W split, into many pieces on "arrow")
+    L = {"er": lambda: erdos_renyi_lower(3000, 2e-3, seed=5),
+         "nb": lambda: narrow_band_lower(3000, 0.14, 10, seed=5),
+         "poisson": lambda: poisson2d_matrix(50), "arrow": _arrow}[gen]()
+    op = spmv.EllOperator(L, dtype=dtype, device=cuda)
+    op_cpu = spmv.EllOperator(L, dtype=dtype, device="cpu")
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(L.n_cols), dtype=dtype)
+    before = spmv.launches["spmv"]
+    y = op(x.to(cuda))
+    y2 = op(x.to(cuda))
+    torch.cuda.synchronize()
+    assert spmv.launches["spmv"] == before + 2
+    assert y.device.type == "cuda" and _bits_equal(y, y2)
+    assert _bits_equal(y, op_cpu(x))
+    assert _bits_equal(y, spmv.spmv(L, x, dtype=dtype, device="cpu"))
+    assert bool(op._rest) == (gen != "poisson")  # the stencil's rows fit in W
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pcg_on_card_matches_cpu_plain(cuda, dtype):
+    # the CG dots reduce in another order on the card (cuBLAS): float64
+    # iteration counts equal, float32 within one, x within rtol 1e-3
+    # (atol 1e-3 of max|x|); the launch counts are exact
+    A = poisson2d_matrix(64)
+    b = np.random.default_rng(0).standard_normal(A.n_rows)
+    sptrsv.reset_launches()
+    spmv.reset_launches()
+    x, iters, relres, info = pcg_ichol(A, b, k=8, tol=1e-6, maxiter=2000, dtype=dtype)
+    torch.cuda.synchronize()
+    assert dict(sptrsv.launches) == {"single": 2 * (iters + 1), "mrhs": 0,
+                                     "elastic_single": 0, "elastic_mrhs": 0}
+    assert spmv.launches == {"spmv": iters}
+    # the CPU plain PCG: the kernels' plain versions (bitwise the scan's)
+    xc, ic, rc, info_c = pcg_ichol(A, b, k=8, tol=1e-6, maxiter=2000, dtype=dtype,
+                                   device="cpu")
+    assert x.device.type == "cuda" and x.dtype == dtype and relres < 1e-6 and rc < 1e-6
+    assert abs(iters - ic) <= (0 if dtype == torch.float64 else 1), (iters, ic)
+    xc = xc.double().numpy()
+    np.testing.assert_allclose(x.cpu().double().numpy(), xc, rtol=1e-3,
+                               atol=1e-3 * np.abs(xc).max())
+    assert info["fwd_supersteps"] == info_c["fwd_supersteps"]
+
+
+@pytest.mark.parametrize("m", [None, 3])
+@pytest.mark.parametrize("mode", ["bsp", "elastic"])
+@pytest.mark.parametrize("backend", ["kernel", "scan"])
+def test_solve_timed_on_card(cuda, backend, mode, m):
+    # the kernel backend times its one launch with CUDA events; the scan
+    # backend one segment per superstep or macro-step; both keep the bits
+    L = narrow_band_lower(1500, 0.14, 10, seed=6)
+    s = repro_torch.TriangularSolver.plan(L, backend=backend, mode=mode, timed=True)
+    b = np.random.default_rng(1).standard_normal(1500 if m is None else (1500, m))
+    before = dict(sptrsv.launches)
+    x, steps = s.solve_timed(b)
+    torch.cuda.synchronize()
+    launched = sum(sptrsv.launches.values()) - sum(before.values())
+    assert launched == (1 if backend == "kernel" else 0)
+    assert steps and all(st["us"] > 0 for st in steps)
+    if backend == "kernel":
+        assert len(steps) == 1 and steps[0]["n_steps"] is None
+        assert s.info()["binding"]["runtime"]["timed_solves"] == 1
+    s.timed = False
+    assert _bits_equal(x, s.solve(b))
+    cpu = repro_torch.TriangularSolver.plan(L, device="cpu", backend="scan")
+    assert _bits_equal(x, cpu.solve(b))

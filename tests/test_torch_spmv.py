@@ -6,7 +6,9 @@
     entry point ``spmv`` within 1e-5 of the JAX ``spmv`` and 2e-4 of
     scipy — the tolerances of tests/test_spmv_kernel.py: SpMV is outside
     the bitwise contract (the reference tree-sums over W);
-  * the sum of split rows, the wrapper's input checks and its plain path.
+  * the sum of split rows, the wrapper's input checks and its plain path;
+  * the bound operator ``EllOperator`` (CG's matvec): bitwise ``spmv()``
+    and the plain version's piece sums, with no host work in a call.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,13 +20,28 @@ from repro.kernels.ref import spmv_block_ref
 from repro.kernels.spmv import ell_from_csr as jell_from_csr
 from repro.kernels.spmv import spmv as jspmv
 from repro.kernels.spmv import spmv_pallas
+from repro_torch.backends.base import numpy_dtype
 from repro_torch.convert import csr_from_numpy
 from repro_torch.kernels import build
 from repro_torch.kernels import spmv as tspmv
 from repro_torch.kernels.ref import spmv_ell_ref
 
+def _arrow():
+    """ER with three dense rows: the default width (the 95th percentile of
+    the row lengths) splits those rows into many ELL rows."""
+    m = jsparse.erdos_renyi_lower(300, 0.02, seed=300)
+    long_rows = [np.full(i, i) for i in (100, 200, 299)]
+    long_cols = [np.arange(i) for i in (100, 200, 299)]
+    rng = np.random.default_rng(8)
+    return jsparse.csr_from_coo(
+        300, 300, np.concatenate([m.row_of_entry(), *long_rows]),
+        np.concatenate([m.indices, *long_cols]),
+        np.concatenate([m.data, rng.uniform(-1, 1, 599)]))
+
+
 _MATS = {
     "er": lambda: jsparse.erdos_renyi_lower(300, 0.02, seed=300),
+    "arrow": _arrow,
     "nb": lambda: jsparse.narrow_band_lower(257, 0.2, 6.0, seed=5),
     "ichol": lambda: jsparse.ichol0(jsparse.poisson2d_matrix(12)),
     "upper": lambda: jsparse.transpose_csr(jsparse.erdos_renyi_lower(200, 0.05, seed=2)),
@@ -89,20 +106,64 @@ def test_spmv_f64_and_torch_input(name):
 
 
 def test_split_rows_sum_in_piece_order():
-    # width 2 splits most rows into several ELL rows; piece p of every row
-    # is added in turn, so y equals the rows' left-to-right piece sums
-    m = _port(_MATS["er"]())
-    col_idx, vals, row_map = tspmv.ell_from_csr(m, width=2, dtype=np.float64)
+    # the dense rows split into many ELL rows; piece p of every row is
+    # added in turn, so y equals the rows' left-to-right piece sums
+    m = _port(_MATS["arrow"]())
+    col_idx, vals, row_map = tspmv.ell_from_csr(m, dtype=np.float64)
     assert np.bincount(row_map).max() > 2 and (np.diff(row_map) >= 0).all()
     x = np.random.default_rng(4).standard_normal(m.n_cols)
     x_pad = torch.from_numpy(np.append(x, 0.0))
     y_ell = spmv_ell_ref(torch.from_numpy(col_idx), torch.from_numpy(vals), x_pad)
-    y = tspmv.segment_sum_pieces(y_ell, row_map, m.n_rows).numpy()
+    op = tspmv.EllOperator(m, dtype=torch.float64, device="cpu")
+    y = op(torch.from_numpy(x)).numpy()
     expect = np.zeros(m.n_rows)
     for r, v in zip(row_map, y_ell.numpy()):
         expect[r] = expect[r] + v
     assert np.array_equal(y, expect)
     np.testing.assert_allclose(y, m.to_scipy() @ x, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["er", "arrow", "nb", "ichol", "upper"])
+def test_ell_operator_bitwise_vs_spmv_and_ell_ref(name, dtype):
+    # bound once: the same bits as spmv() (bind, then call) and as the
+    # kernel's plain version on the bound ELL arrays, call after call
+    m = _port(_MATS[name]())
+    op = tspmv.EllOperator(m, dtype=dtype, device="cpu")
+    col_idx, vals, row_map = tspmv.ell_from_csr(m, dtype=numpy_dtype(dtype))
+    assert np.array_equal(op.col_idx.numpy(), col_idx) and np.array_equal(op.vals.numpy(), vals)
+    rng = np.random.default_rng(7)
+    for _ in range(3):
+        x = torch.as_tensor(rng.standard_normal(m.n_cols), dtype=dtype)
+        y = op(x)
+        assert y.dtype == dtype and y.shape == (m.n_rows,)
+        assert torch.equal(y, tspmv.spmv(m, x, dtype=dtype, device="cpu"))
+        y_ell = spmv_ell_ref(op.col_idx, op.vals, torch.cat([x, x.new_zeros(1)]))
+        expect = torch.zeros(m.n_rows, dtype=dtype)
+        for r, v in zip(row_map, y_ell):
+            expect[r] = expect[r] + v
+        assert torch.equal(y, expect)
+
+
+def test_ell_operator_call_does_no_host_conversion(monkeypatch):
+    # after binding, a call neither converts to ELL nor builds piece
+    # indices: both live on the operator's device
+    m = _port(_MATS["arrow"]())
+    op = tspmv.EllOperator(m, device="cpu")
+    assert op._rest and all(s.device.type == d.device.type == "cpu" for s, d in op._rest)
+    x = np.random.default_rng(2).standard_normal(m.n_cols)
+    y0 = op(x)
+
+    def refuse(*a, **k):
+        raise AssertionError("host work inside a call")
+
+    monkeypatch.setattr(tspmv, "ell_from_csr", refuse)
+    monkeypatch.setattr(tspmv, "_piece_indices", refuse)
+    tspmv.reset_launches()
+    assert torch.equal(op(x), y0)
+    assert tspmv.launches == {"spmv": 0}  # the plain version, on the CPU
+    with pytest.raises(ValueError, match="x must be"):
+        op(np.ones(m.n_cols + 1))
 
 
 def test_spmv_cuda_input_checks_and_plain_path():
