@@ -16,7 +16,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              card is reported), the elastic kernels (the level walk over
              runs of slack supersteps; k in {8, 32}, slack in {1, 8},
              single RHS and m in {5, 64}; also bitwise-equal to the bulk
-             plain version) and the SpMV kernel (width in {None, 2})
+             plain version) and the SpMV kernel (ER, NB and a matrix with
+             dense rows, width in {None, 2}, float32 and float64; also
+             bitwise-equal to the padded-ELL product with the split rows
+             summed in order, the definition it keeps)
   main_path  the paper's synthetic sets at n=100,000 (§6.2.4 ER p=1e-4,
              §6.2.5 NB p=0.14 B=10, seed 0; NB with a dominant diagonal, as
              its own values overflow float32): TriangularSolver.plan(L) with
@@ -30,32 +33,41 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              (supersteps, the elastic level order's levels, and the
              certificate's readiness waves the TPU kernel walks)
   main_path_spmv      spmv(L, x) on the same matrices, against scipy in f64
+             and bitwise the CPU plain version; one launch a call
   pcg        pcg_ichol(A, b, k=8, tol=1e-6, maxiter=2000) on the 512x512
              Poisson grid (n=262,144; IC(0) factor of 785,408 entries),
              float32, kernel backend, b from --seed: recurrence relres
              < 1e-6, true residual (float64, host) < 1e-4, fewer iterations
              than plain CG on the card, launch counts exact (2(iters+1)
-             single-RHS solves, iters SpMVs), a second request through the
+             single-RHS solves, iters SpMVs: one launch a matvec), a second
+             request through the
              same PlanCache plans nothing; bwd(fwd(r)) and the matvec
              bitwise their CPU plain versions; at 64x64 the card's PCG
              against the CPU plain PCG (float64 iterations equal, float32
              within one, x within 1e-3). Reports the host seconds of IC(0)
              and of each plan, wall seconds, ms per iteration (CUDA events)
-             beside its byte bound, fwd, bwd and SpMV ms per launch (fwd and
-             bwd also with L2 emptied before each launch), and
+             beside its byte bound, fwd, bwd and matvec ms per launch (fwd
+             and bwd also with L2 emptied before each launch), and
              a torch.profiler window of 20 iterations (device time by
              kernel, the device's idle share)
              Each main-path phase sets the launch counters to 0 just before
              it and reads them just after; its kernels must have launched.
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
-             of 20; for SpMV also the replay of a CUDA graph of the call,
-             its device time without the host's launch path), plain version
-             on the card (SpTRSV once, SpMV median of 5), the
-             library yardstick (torch.triangular_solve on a sparse-CSR L for
-             SpTRSV, the sparse-CSR matvec for SpMV; never called by the
-             port), and the byte/operation bound of the H100 data sheet for
-             the real entries (padding left out; the padded plan's byte
-             bound and padding share are printed beside it). The single-RHS
+             of 20), plain version on the card (SpTRSV once, SpMV median of
+             5), the library yardstick (torch.triangular_solve on a
+             sparse-CSR L for SpTRSV, the sparse-CSR matvec for SpMV; never
+             called by the port), and the byte/operation bound of the H100
+             data sheet for the real entries (padding left out; the padded
+             plan's byte bound and padding share are printed beside it).
+             SpMV, on ER, NB and PCG's A: the whole product spmv() returns
+             (EllOperator(A)(x)) eager, as the replay of a CUDA graph of one
+             call and of 100 calls (per call), its device operations (the
+             nodes of a CUDA graph that captures one call, read through the
+             driver API), which must be one launch of the kernel, and its
+             device time from torch.profiler over 200 eager calls (after
+             200 traced and dropped), which must record no other operation;
+             the same for L_csr @ x; the bound share and the layout's
+             lane-idle share. The single-RHS
              line also reports the level order: its host seconds, levels
              (= block barriers), widest level, the supersteps and the DAG's
              longest path beside them; the m-RHS line adds its column
@@ -82,15 +94,16 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, outside the tensor cores
 # kernel name -> (TPU kernel it replaces, CUDA source of its entry point,
-# launch counter, file that holds the kernel's body)
+# launch counter, the kernel's body: file and function)
+_LEVEL_1, _LEVEL_M = "level.cuh::sptrsv_level_kernel", "level.cuh::sptrsv_level_cols_kernel"
 KERNELS = {
-    "sptrsv_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "single", "level.cuh"),
-    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "mrhs", "level.cuh"),
+    "sptrsv_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "single", _LEVEL_1),
+    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "mrhs", _LEVEL_M),
     "sptrsv_elastic_single": (
-        "src/repro/kernels/sptrsv.py:146", "sptrsv_elastic.cu", "elastic_single", "level.cuh"),
+        "src/repro/kernels/sptrsv.py:146", "sptrsv_elastic.cu", "elastic_single", _LEVEL_1),
     "sptrsv_elastic_mrhs": (
-        "src/repro/kernels/sptrsv.py:232", "sptrsv_elastic.cu", "elastic_mrhs", "level.cuh"),
-    "spmv": ("src/repro/kernels/spmv.py:32", "spmv.cu", "spmv", "spmv.cu"),
+        "src/repro/kernels/sptrsv.py:232", "sptrsv_elastic.cu", "elastic_mrhs", _LEVEL_M),
+    "spmv": ("src/repro/kernels/spmv.py:32", "spmv.cu", "spmv", "spmv.cu::spmv_sliced_kernel"),
 }
 KERNEL_REPLACES = {name: k[0] for name, k in KERNELS.items()}
 MAIN_M = 32
@@ -258,7 +271,6 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
     la_f = level_plan_arrays(fwd.exec_plan, device=dev)
     la_b = level_plan_arrays(bwd.exec_plan, device=dev)
     r_pad = pad_rhs(torch.as_tensor(r, dtype=torch.float32)).to(dev)
-    x_pad = pad_rhs(xs).to(dev)
     xs = xs.to(dev)
     rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
 
@@ -286,8 +298,7 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
     fwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_f[:7], r_pad))
     bwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_b[:7], r_pad))
     del flush
-    spmv_ms = med(lambda: spmv.spmv_cuda(op.col_idx, op.vals, x_pad))
-    matvec_ms = med(lambda: op(xs))  # the kernel, the pad and the piece sums
+    spmv_ms = med(lambda: op(xs))  # the matvec: one launch of the SpMV kernel
     precond_ms = med(lambda: bwd(fwd(rt)))  # the front door: gathers included
     # per-iteration bound: L read twice (fwd, bwd), A once (value, column,
     # row pointers, 4 bytes each), and the CG vectors of a fused
@@ -331,7 +342,7 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
            "ms_per_iter": ms_per_iter, "profile": profiled,
            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "spmv_ms": spmv_ms,
            "l2_flushed": {"fwd_ms": fwd_cold_ms, "bwd_ms": bwd_cold_ms},
-           "matvec_ms": matvec_ms, "precond_ms": precond_ms,
+           "precond_ms": precond_ms, "spmv_lane_idle_share": op.lane_idle_share,
            "rest_ms": ms_per_iter - fwd_ms - bwd_ms - spmv_ms,
            "levels": {"fwd": fwd.bound.describe()["n_levels"],
                       "bwd": bwd.bound.describe()["n_levels"]},
@@ -364,9 +375,15 @@ def main() -> int:
     from repro_torch.kernels import build, spmv, sptrsv
     from repro_torch.kernels.levels import level_order
     from repro_torch.kernels.ops import elastic_kernel_arrays, level_plan_arrays
-    from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref, sptrsv_ref
+    from repro_torch.kernels.ref import (
+        spmv_ell_rows_ref,
+        spmv_sliced_ref,
+        sptrsv_level_ref,
+        sptrsv_ref,
+    )
     from repro_torch.solver.executor import pad_rhs, plan_arrays
     from repro_torch.sparse import (
+        csr_from_coo,
         dag_from_lower_csr,
         erdos_renyi_lower,
         ichol0,
@@ -511,21 +528,38 @@ def main() -> int:
 
     spmv.reset_launches()
     cells = []
-    for gen_name, L in small.items():
+    er = small["er"]  # with three dense rows, which split into many pieces
+    dense = [np.full(i, i) for i in (500, 1000, 1999)]
+    arrow = csr_from_coo(
+        2000, 2000, np.concatenate([er.row_of_entry(), *dense]),
+        np.concatenate([er.indices, *[np.arange(i) for i in (500, 1000, 1999)]]),
+        np.random.default_rng(8).uniform(-1, 1, er.nnz + 3499))
+    for gen_name, L in {**small, "arrow": arrow}.items():
         for width in (None, 2):
-            col_idx, vals, _ = spmv.ell_from_csr(L, width=width)
-            c, v = torch.from_numpy(col_idx), torch.from_numpy(vals)
-            x_pad = pad_rhs(torch.as_tensor(
-                np.random.default_rng(3).standard_normal(L.n_cols), dtype=torch.float32))
-            y_cpu = spmv_ell_ref(c, v, x_pad)
-            y_gpu = spmv.spmv_cuda(c.to(dev), v.to(dev), x_pad.to(dev))
-            torch.cuda.synchronize()
-            same = bitwise_equal(y_gpu, y_cpu)
-            cells.append({"matrix": gen_name, "R": int(c.shape[0]), "W": int(c.shape[1]),
-                          "split_rows": int(c.shape[0] - L.n_rows), "bitwise": same})
-            require(same, f"spmv kernel != CPU plain version at {cells[-1]}")
+            for dtype in (torch.float32, torch.float64):
+                np_dtype = np.float32 if dtype == torch.float32 else np.float64
+                lay = spmv.sliced_from_csr(L, width=width, dtype=np_dtype)
+                host = [torch.from_numpy(a) for a in lay[:4]]
+                x = torch.as_tensor(np.random.default_rng(3).standard_normal(L.n_cols),
+                                    dtype=dtype)
+                y_gpu = spmv.spmv_sliced_cuda(*(t.to(dev) for t in host), lay.width, x.to(dev))
+                torch.cuda.synchronize()
+                y_cpu = spmv_sliced_ref(*host, lay.width, x)
+                col_idx, vals, row_map = spmv.ell_from_csr(L, width=width, dtype=np_dtype)
+                y_def = spmv_ell_rows_ref(torch.from_numpy(col_idx), torch.from_numpy(vals),
+                                          torch.from_numpy(row_map), x)
+                cells.append({"matrix": gen_name, "dtype": str(dtype).replace("torch.", ""),
+                              "W": lay.width, "pieces": int(col_idx.shape[0]),
+                              "split_rows": int((lay.row_len > lay.width).sum()),
+                              "lane_idle_share": lay.lane_idle_share(),
+                              "bitwise": bitwise_equal(y_gpu, y_cpu),
+                              "bitwise_vs_ell_definition": bitwise_equal(y_gpu, y_def)})
+                require(cells[-1]["bitwise"] and cells[-1]["bitwise_vs_ell_definition"],
+                        f"spmv kernel != CPU plain version at {cells[-1]}")
+    require(spmv.launches["spmv"] == len(cells), f"spmv launches {spmv.launches}")
     emit({"phase": "kernels", "names": ["spmv"], "launches": dict(spmv.launches),
-          "cells": len(cells), "all_bitwise_vs_cpu_plain": True, "detail": cells})
+          "cells": len(cells), "all_bitwise_vs_cpu_plain": True,
+          "all_bitwise_vs_ell_definition": True, "detail": cells})
 
     # ------------------------------------------------------ main_path
     import scipy.sparse.linalg as spla
@@ -682,7 +716,7 @@ def main() -> int:
                      "relerr_vs_scipy_f64": rel,
                      "max_abs_vs_scipy_f64": float(np.abs(yy - y64).max())})
     spmv_launches = dict(spmv.launches)
-    require(spmv_launches["spmv"] > 0, "spmv was not launched on its path")
+    require(spmv_launches["spmv"] == len(mats), f"spmv launches {spmv_launches}: one a call")
     emit({"phase": "main_path_spmv", "matrices": rows, "launches": spmv_launches,
           "bitwise_vs_cpu_plain": True, "max_abs_err": main_err["spmv"], **card})
     path_launches = {**main_launches, **{k: elastic_launches[k] for k in (
@@ -857,14 +891,109 @@ def main() -> int:
             timing[(name, kname)] = rec
             emit({"phase": "timing", **rec})
 
-    for name, L in mats.items():
-        col_idx, vals, _ = spmv.ell_from_csr(L)
-        c, v = torch.from_numpy(col_idx).to(dev), torch.from_numpy(vals).to(dev)
-        x = torch.as_tensor(spmv_x[name], dtype=torch.float32, device=dev)
-        x_pad = pad_rhs(x)
-        ms = statistics.median(cuda_times(lambda: spmv.spmv_cuda(c, v, x_pad), 3, 20))
-        kernel_graph_ms, kernel_graph_err = graph_ms(lambda: spmv.spmv_cuda(c, v, x_pad), 20)
-        plain = cuda_times(lambda: spmv_ell_ref(c, v, x_pad), 1, 5)
+    def graph_nodes(fn):
+        """The device operations of one call of ``fn``, exactly: the nodes
+        of a CUDA graph that captures the call, as (node type, kernel name)
+        read through the driver API (a kernel's name is mangled)."""
+        import ctypes
+
+        cu = ctypes.CDLL("libcuda.so.1")
+
+        def check(rc, what):
+            require(rc == 0, f"{what} returned CUDA driver error {rc}")
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            fn()
+        handle = ctypes.c_void_p(g.raw_cuda_graph())
+        count = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * count.value)()
+        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+        # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset, 3 host, ...
+        kinds = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host"}
+        out = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            name = None
+            if kind.value == 0:
+                # CUDA_KERNEL_NODE_PARAMS_v2 starts with the CUfunction
+                params = (ctypes.c_byte * 256)()
+                check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+                      "cuGraphKernelNodeGetParams_v2")
+                func = ctypes.c_void_p.from_buffer(params, 0)
+                cname = ctypes.c_char_p()
+                check(cu.cuFuncGetName(ctypes.byref(cname), func), "cuFuncGetName")
+                name = cname.value.decode()
+            out.append((kinds.get(kind.value, str(kind.value)), name))
+        del g
+        return out
+
+    def profiled_calls(fn, reps=200):
+        """``reps`` eager calls of ``fn`` under torch.profiler: the device
+        operations it records, by name, with their count and mean time, and
+        the device time of a call (the means summed); ``device_ms`` None
+        where it records no device time. The profiler may drop device
+        events (on the H100 it has recorded 197 and 198 of 200 launches
+        of one kernel), so a count here is a lower bound and only the means
+        are read; ``graph_nodes`` counts a call's operations exactly."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        # a warm-up step, traced and dropped, then the window
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ops = {}
+        for evt in prof.key_averages():
+            # the step's own range ("ProfilerStep#1") is an annotation the
+            # profiler mirrors on the device timeline, not an operation
+            if str(evt.device_type).endswith("CUDA") and not evt.key.startswith("ProfilerStep"):
+                us = getattr(evt, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(evt, "self_cuda_time_total", 0.0)
+                ops[evt.key[:80]] = {"count": evt.count, "ms": us / 1e3,
+                                     "mean_ms": us / 1e3 / evt.count}
+        return {"reps": reps, "ops": ops,
+                "events_recorded": sum(o["count"] for o in ops.values()),
+                "device_ms": sum(o["mean_ms"] for o in ops.values()) if ops else None}
+
+    def graph_calls_ms(fn, calls=100):
+        """Per call: a CUDA graph of ``calls`` calls replayed, the device's
+        time for back-to-back calls without the host's launch path."""
+        ms, err = graph_ms(lambda: [fn() for _ in range(calls)], 20)
+        return (ms / calls if ms is not None else None), err
+
+    spmv_mats = {**mats, "pcg_A": poisson2d_matrix(PCG_GRID)}
+    for name, L in spmv_mats.items():
+        op = spmv.EllOperator(L)  # float32 on the card: what spmv() binds
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal(L.n_cols),
+                            dtype=torch.float32, device=dev)
+        ms = statistics.median(cuda_times(lambda: op(x), 3, 20))
+        op_graph_ms, op_graph_err = graph_ms(lambda: op(x), 20)
+        op_graph100_ms, _ = graph_calls_ms(lambda: op(x))
+        # the whole product is one device operation a call: the kernel
+        nodes = graph_nodes(lambda: op(x))
+        require(len(nodes) == 1 and nodes[0][0] == "kernel"
+                and "spmv_sliced_kernel" in nodes[0][1],
+                f"{name}: a spmv call is not one launch of the kernel: {nodes}")
+        prof = profiled_calls(lambda: op(x))
+        # the profiler may miss events but never invents them: every device
+        # operation it saw is the kernel, at most one a call
+        require(not prof["ops"] or (prof["events_recorded"] <= prof["reps"] and all(
+            "spmv_sliced_kernel" in k for k in prof["ops"])),
+            f"{name}: the spmv calls ran other device operations: {prof['ops']}")
+        plain = cuda_times(lambda: spmv_sliced_ref(*op.layout[:5], x), 1, 5)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             Lc = torch.sparse_csr_tensor(
@@ -873,18 +1002,37 @@ def main() -> int:
             ).to(dev)
             lib = cuda_times(lambda: Lc @ x, 1, 5)
             lib_graph_ms, lib_graph_err = graph_ms(lambda: Lc @ x, 20)
+            lib_graph100_ms, _ = graph_calls_ms(lambda: Lc @ x)
+            lib_prof = profiled_calls(lambda: Lc @ x)
+            try:
+                lib_ops = len(graph_nodes(lambda: Lc @ x))
+            except RuntimeError:  # capture refused, as graph_ms records
+                lib_ops = None
             y_lib = (Lc @ x).double().cpu().numpy()
-        y64 = L.to_scipy() @ spmv_x[name]
-        R, W = col_idx.shape
-        # each real entry (column and value) and x read once, y written once
-        rec = {"matrix": name, "kernel": "spmv", "R": R, "W": W, "ms": ms,
-               "graph_ms": kernel_graph_ms, "graph_error": kernel_graph_err,
-               "launches_per_solve": 1,
-               **bound(L.nnz * 8 + (L.n_cols + 1) * 4 + R * 4, 2 * L.nnz),
-               "padding_share": 1.0 - L.nnz / (R * W),
+        y64 = L.to_scipy() @ x.double().cpu().numpy()
+        lay = op.layout
+        # the function's data: each real entry's column and value, row_len
+        # and slice_ptr read once, x read once, y written once (the stored
+        # padding is never read)
+        esize = 4
+        nbytes = (L.nnz * (4 + esize) + lay.row_len.numel() * 4 + lay.slice_ptr.numel() * 8
+                  + (L.n_cols + L.n_rows) * esize)
+        work = bound(nbytes, 2 * L.nnz)
+        device_ms = prof["device_ms"] if prof["device_ms"] is not None else op_graph100_ms
+        rec = {"matrix": name, "kernel": "spmv", "n": L.n_rows, "nnz": L.nnz, "W": lay.width,
+               "slots": int(lay.col.numel()), "lane_idle_share": op.lane_idle_share,
+               "split_rows": int((lay.row_len > lay.width).sum()),
+               "ms": ms, "graph_ms": op_graph_ms, "graph_error": op_graph_err,
+               "graph100_ms_per_call": op_graph100_ms, "device_ms": device_ms,
+               "device_ms_from": "profiler" if prof["device_ms"] is not None else "graph100",
+               "profile": prof, "launches_per_call": len(nodes), **work,
+               "bound_share": work["bound_us"] / 1e3 / device_ms if device_ms else None,
                "plain_ms": statistics.median(plain), "plain_reps": len(plain),
                "library_ms": statistics.median(lib), "library": "L_csr @ x",
                "library_graph_ms": lib_graph_ms, "library_graph_error": lib_graph_err,
+               "library_graph100_ms_per_call": lib_graph100_ms,
+               "library_device_ms": lib_prof["device_ms"],
+               "library_ops_per_call": lib_ops,
                "library_relerr_vs_scipy_f64": float(
                    np.linalg.norm(y_lib - y64) / np.linalg.norm(y64)), **card}
         timing[(name, "spmv")] = rec

@@ -4,7 +4,7 @@ NVIDIA H100.
 A port of the JAX package ``repro`` (which stays the reference): the
 numpy inspector (DAG, GrowLocal schedule, §5 reorder, plan compiler) is
 copied, the executors are PyTorch, and the kernels — bulk and elastic
-SpTRSV, padded-ELL SpMV — are hand-written CUDA C++ for ``sm_90a``
+SpTRSV, and SpMV on a sliced layout — are hand-written CUDA C++ for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use. It imports nothing of
 ``repro`` and nothing of JAX.
 

@@ -125,7 +125,7 @@ def sptrsv_groups_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, 
     return torch.stack([sptrsv_level_ref(*level, b) for b in b_groups])
 
 
-def _nvcc(item):
+def nvcc_job(item):
     name, source, out_dir = item
     so = out_dir / f"lib{name}.so"
     t0 = time.perf_counter()
@@ -138,7 +138,7 @@ def _nvcc(item):
     return name, proc.returncode, time.perf_counter() - t0, so, proc.stdout + proc.stderr
 
 
-def _registers(log):
+def ptxas_registers(log):
     """{kernel (mangled): "N registers, S bytes spill stores"} from
     ptxas's -v report."""
     out, fn = {}, None
@@ -164,13 +164,13 @@ def _dominant(L, data):
     return out
 
 
-def _bits_equal(a, b):
+def bits_equal(a, b):
     a, b = a.cpu().contiguous(), b.cpu().contiguous()
     iv = torch.int32 if a.dtype == torch.float32 else torch.int64
     return a.shape == b.shape and bool(torch.equal(a.view(iv), b.view(iv)))
 
 
-def _median_ms(fn, warmup=3, reps=20, setup=None):
+def median_ms(fn, warmup=3, reps=20, setup=None):
     """Median ms of ``fn`` between CUDA events; ``setup`` runs before each
     call, outside the events."""
     for _ in range(warmup):
@@ -285,10 +285,10 @@ def main(argv=None) -> int:
         jobs += [("parent_bulk", src / "sptrsv.cu", work),
                  ("parent_elastic", src / "sptrsv_elastic.cu", work)]
     with ThreadPoolExecutor(len(jobs)) as pool:
-        built = list(pool.map(_nvcc, jobs))
+        built = list(pool.map(nvcc_job, jobs))
     libs = {}
     for name, rc, sec, so, log in built:
-        emit({"build": name, "rc": rc, "s": round(sec, 2), "ptxas": _registers(log),
+        emit({"build": name, "rc": rc, "s": round(sec, 2), "ptxas": ptxas_registers(log),
               "errors": [ln for ln in log.splitlines() if "error" in ln][:8]})
         if rc != 0:
             print(log[-3000:], file=sys.stderr)
@@ -372,7 +372,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if x.dim() == 3:  # a kernel alone: x still in column groups
                 x = unpack_groups(x, m)
-            res[name] = _bits_equal(x, ref)
+            res[name] = bits_equal(x, ref)
         return res, b_pad, calls
 
     ok = True
@@ -418,13 +418,13 @@ def main(argv=None) -> int:
             ms = {}
             for rnd in (seq, seq[::-1]):
                 for v in rnd:
-                    ms.setdefault(v, []).append(_median_ms(calls[v], setup=setups.get(v)))
+                    ms.setdefault(v, []).append(median_ms(calls[v], setup=setups.get(v)))
             lib = None
             if dtype == torch.float32 and m != WIDE_M:
                 rhs = b_pad[:-1].reshape(L.n_rows, -1).contiguous()
                 with warnings.catch_warnings():
                     warnings.simplefilter("ignore", UserWarning)
-                    lib = _median_ms(lambda: torch.triangular_solve(rhs, Lc, upper=False), 1, 5)
+                    lib = median_ms(lambda: torch.triangular_solve(rhs, Lc, upper=False), 1, 5)
             for C in GROUP_COLS[dtype] if m == MAIN_M else ():
                 walk_ms.setdefault((str(dtype), C), {})[name] = statistics.median(
                     ms[f"walk_c{C}"])

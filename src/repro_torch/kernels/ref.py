@@ -5,7 +5,10 @@ the scan executor's step bodies run as a loop of eager PyTorch operations
 (it is not a second implementation), and the function every SpTRSV kernel
 computes bit for bit. ``sptrsv_level_ref`` is the plain version of the
 level-ordered kernels (the bulk and the elastic ones, one and m right-hand
-sides) and ``spmv_ell_ref`` that of the SpMV kernel. The CPU tests use
+sides) and ``spmv_sliced_ref`` that of the SpMV kernel, y = A x on the
+sliced layout. ``spmv_ell_ref`` is the plain version of the JAX package's
+per-ELL-row TPU kernel, and ``spmv_ell_rows_ref`` adds the split rows to
+it: the definition ``spmv_sliced_ref`` keeps bit for bit. The CPU tests use
 them, the ``scan`` backend runs ``sptrsv_ref``, the kernel wrappers run
 them for CPU tensors, and ``chip_smoke.py`` holds the kernels against them.
 """
@@ -14,6 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.solver.executor import _solve_segment, _zero_carry
+
+SLICE_ROWS = 32  # rows of a slice of the SpMV layout: one warp of the kernel
 
 
 def sptrsv_ref(row_ids, col_idx, vals, diag, accum, b_pad):
@@ -73,4 +78,48 @@ def spmv_ell_ref(col_idx, vals, x_pad):
     y = x_pad.new_zeros(col_idx.shape[0])
     for w in range(col_idx.shape[1]):
         y = torch.addcmul(y, vals[:, w], x_pad[col_idx[:, w]])
+    return y
+
+
+def spmv_ell_rows_ref(col_idx, vals, row_map, x):
+    """y = A x from A's padded ELL (``kernels.spmv.ell_from_csr``):
+    ``spmv_ell_ref`` on x padded with the scratch slot, then each row's
+    pieces added in piece order to 0, y[i] = ((0 + c0) + c1) + ... (the
+    JAX package's ``spmv`` sums them with ``segment_sum`` instead). Shapes:
+    col_idx int32[R, W]; vals f[R, W]; row_map int32[R], sorted, every row
+    present; x f[n_cols]. Returns y f[n_rows]."""
+    y_ell = spmv_ell_ref(col_idx, vals, torch.cat([x, x.new_zeros(1)]))
+    row_map = torch.as_tensor(row_map, device=x.device).long()
+    n_rows = int(row_map[-1]) + 1 if row_map.numel() else 0
+    piece = torch.arange(row_map.numel(), device=x.device) - torch.searchsorted(row_map, row_map)
+    y = x.new_zeros(n_rows)
+    for p in range(int(piece.max()) + 1 if piece.numel() else 0):
+        sel = piece == p
+        y[row_map[sel]] = y[row_map[sel]] + y_ell[sel]
+    return y
+
+
+def spmv_sliced_ref(col, val, slice_ptr, row_len, width, x):
+    """Plain SpMV on the sliced layout (``kernels.spmv.SlicedEll``): slot
+    k of row i at ``slice_ptr[i // 32] + 32 k + i % 32``, k < row_len[i].
+    Row i is a left-to-right ``torch.addcmul`` chain over its entries from
+    0, restarted every ``width`` entries, each finished chain added to the
+    row's sum from 0: the CUDA kernel's operations in its order.
+    Vectorized over the rows, slot by slot. Shapes: col int32[S]; val
+    f[S]; slice_ptr int64[ceil(n/32)+1]; row_len int32[n]; x f[n_cols].
+    Returns y f[n]: bitwise ``spmv_ell_rows_ref`` on the padded ELL of the
+    same matrix and W (see ``kernels.spmv``)."""
+    n = row_len.shape[0]
+    y = x.new_zeros(n)
+    acc = x.new_zeros(n)
+    length = row_len.long()
+    rows = torch.arange(n, device=x.device)
+    base = slice_ptr[rows // SLICE_ROWS] + rows % SLICE_ROWS
+    for k in range(int(length.max()) if n else 0):
+        live = torch.nonzero(length > k).squeeze(1)
+        idx = base[live] + SLICE_ROWS * k
+        a = torch.addcmul(acc[live], val[idx], x[col[idx]])
+        fold = (length[live] == k + 1) | ((k + 1) % width == 0)
+        acc[live] = torch.where(fold, 0.0, a)
+        y[live[fold]] = y[live[fold]] + a[fold]
     return y

@@ -6,9 +6,10 @@ triangular solves per iteration). A port of the JAX package's
 ``solver/cg.py``: ``pcg_ichol`` is a thin client of the
 ``repro_torch.pipeline`` front door — IC(0), then ``factor_pair`` plans the
 scheduled (L, L^T) solver pair, whose ``bwd(fwd(r))`` is the
-preconditioner. CG's matvec is the SpMV kernel, A bound once as padded ELL
-(``kernels.spmv.EllOperator``): deterministic, one fused multiply-add
-chain per ELL row, where an ``index_add_`` segment sum would change its
+preconditioner. CG's matvec is the SpMV kernel, A bound once in its sliced
+layout (``kernels.spmv.EllOperator``), one launch a matvec: deterministic,
+each row one fused multiply-add chain per W entries and a sum of the
+chains in order, where an ``index_add_`` segment sum would change its
 order, and with it the iteration count, from run to run on CUDA.
 
 Everything runs on ``device`` (``None``: the card, raising without CUDA).
@@ -27,8 +28,8 @@ from repro_torch.sparse.ichol import ichol0
 
 
 def _csr_matvec_fn(a: CSRMatrix, dtype=torch.float32, device=None) -> EllOperator:
-    """``a`` bound once on ``device``: ``matvec(p)`` launches the SpMV
-    kernel (its plain version on the CPU) with no host work."""
+    """``a`` bound once on ``device``: ``matvec(p)`` is one launch of the
+    SpMV kernel (its plain version on the CPU), with no host work."""
     return EllOperator(a, dtype=dtype, device=device)
 
 

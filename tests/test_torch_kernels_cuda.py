@@ -29,10 +29,16 @@ from repro_torch.kernels.ops import (
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
 )
-from repro_torch.kernels.ref import spmv_ell_ref, sptrsv_level_ref, sptrsv_ref
+from repro_torch.kernels.ref import (
+    spmv_ell_rows_ref,
+    spmv_sliced_ref,
+    sptrsv_level_ref,
+    sptrsv_ref,
+)
 from repro_torch.solver import pcg_ichol
 from repro_torch.solver.executor import pad_rhs, plan_arrays, solve_with_plan
 from repro_torch.sparse import (
+    CSRMatrix,
     csr_from_coo,
     erdos_renyi_lower,
     narrow_band_lower,
@@ -203,19 +209,24 @@ def test_elastic_kernel_matches_plain_bitwise(cuda, gen, k, width, slack, m, dty
 @pytest.mark.parametrize("width", [None, 2])
 @pytest.mark.parametrize("gen", ["er", "nb"])
 def test_spmv_kernel_matches_plain_bitwise(cuda, gen, width, dtype):
+    # the whole product in one launch: bitwise its plain version on the
+    # CPU and the padded-ELL definition (chains over every slot, the split
+    # rows summed in piece order)
     L = (erdos_renyi_lower(3000, 2e-3, seed=5) if gen == "er"
          else narrow_band_lower(3000, 0.14, 10, seed=5))
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    col_idx, vals, _ = spmv.ell_from_csr(L, width=width, dtype=np_dtype)
-    x_pad = torch.as_tensor(
-        np.append(np.random.default_rng(2).standard_normal(3000), 0.0), dtype=dtype
-    )
-    c, v = torch.from_numpy(col_idx), torch.from_numpy(vals)
+    lay = spmv.sliced_from_csr(L, width=width, dtype=np_dtype)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(3000), dtype=dtype)
+    host = [torch.from_numpy(a) for a in lay[:4]]
     before = spmv.launches["spmv"]
-    y = spmv.spmv_cuda(c.to(cuda), v.to(cuda), x_pad.to(cuda))
+    y = spmv.spmv_sliced_cuda(*(t.to(cuda) for t in host), lay.width, x.to(cuda))
     torch.cuda.synchronize()
     assert spmv.launches["spmv"] == before + 1
-    assert _bits_equal(y, spmv_ell_ref(c, v, x_pad))
+    assert y.device.type == "cuda" and y.shape == (3000,)
+    assert _bits_equal(y, spmv_sliced_ref(*host, lay.width, x))
+    col_idx, vals, row_map = spmv.ell_from_csr(L, width=width, dtype=np_dtype)
+    assert _bits_equal(y, spmv_ell_rows_ref(torch.from_numpy(col_idx), torch.from_numpy(vals),
+                                            torch.from_numpy(row_map), x))
 
 
 def test_front_door_elastic_and_spmv_on_cuda(cuda):
@@ -244,27 +255,61 @@ def _arrow(n=3000):
     return csr_from_coo(n, n, np.concatenate(rows), np.concatenate(cols), vals)
 
 
+def _signed_zeros(n=3000, seed=11):
+    """Rows whose chains reach -0 (-tiny times tiny underflows; a
+    negative value times x = +0 keeps it there) or cancel to an exact zero
+    (a value and its negation at columns 20 and 21, whose x the test sets
+    equal), beside ordinary rows. x: +0 at columns 0-9, tiny at 10-19
+    (1e-30: times these rows' -1e-300 the products underflow in float64,
+    times the -1e-30 of the test's float32 rows in float32)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 9, n)
+    kinds = rng.integers(0, 4, lens.sum())
+    cols = np.where(kinds == 0, rng.integers(0, 10, kinds.size),
+                    np.where(kinds == 1, rng.integers(10, 20, kinds.size),
+                             np.where(kinds == 2, 20 + (np.arange(kinds.size) % 2),
+                                      rng.integers(22, 30, kinds.size))))
+    vals = np.where(kinds == 0, -rng.uniform(0.5, 2, kinds.size),
+                    np.where(kinds == 1, -1e-300, np.where(cols == 20, 1.5, -1.5)))
+    vals = np.where(kinds == 3, rng.uniform(-2, 2, kinds.size), vals)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    return CSRMatrix(n, 30, indptr, cols.astype(np.int64), vals)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("gen", ["er", "nb", "poisson", "arrow"])
+@pytest.mark.parametrize("gen", ["er", "nb", "poisson", "arrow", "signed_zeros"])
 def test_ell_operator_matches_plain_bitwise(cuda, gen, dtype):
     # CG's matvec bound once on the card: one kernel launch per call, the
-    # bits of the operator's plain version on the CPU (spmv_ell_ref and the
-    # same piece sums; rows wider than W split, into many pieces on "arrow")
+    # bits of the operator's plain version on the CPU and of the padded-ELL
+    # definition (rows wider than W split, into many pieces on "arrow";
+    # chains at -0 and exact zeros on "signed_zeros")
     L = {"er": lambda: erdos_renyi_lower(3000, 2e-3, seed=5),
          "nb": lambda: narrow_band_lower(3000, 0.14, 10, seed=5),
-         "poisson": lambda: poisson2d_matrix(50), "arrow": _arrow}[gen]()
+         "poisson": lambda: poisson2d_matrix(50), "arrow": _arrow,
+         "signed_zeros": _signed_zeros}[gen]()
+    x = np.random.default_rng(2).standard_normal(L.n_cols)
+    if gen == "signed_zeros":
+        x[:10], x[10:20], x[21] = 0.0, 1e-30, x[20]
+        if dtype == torch.float32:  # -1e-30 * 1e-30 underflows in float32
+            L = CSRMatrix(L.n_rows, L.n_cols, L.indptr, L.indices,
+                          np.where(L.data == -1e-300, -1e-30, L.data))
+    x = torch.as_tensor(x, dtype=dtype)
     op = spmv.EllOperator(L, dtype=dtype, device=cuda)
     op_cpu = spmv.EllOperator(L, dtype=dtype, device="cpu")
-    x = torch.as_tensor(np.random.default_rng(2).standard_normal(L.n_cols), dtype=dtype)
     before = spmv.launches["spmv"]
-    y = op(x.to(cuda))
-    y2 = op(x.to(cuda))
+    xd = x.to(cuda)
+    y = op(xd)
+    y2 = op(xd)
     torch.cuda.synchronize()
     assert spmv.launches["spmv"] == before + 2
     assert y.device.type == "cuda" and _bits_equal(y, y2)
     assert _bits_equal(y, op_cpu(x))
     assert _bits_equal(y, spmv.spmv(L, x, dtype=dtype, device="cpu"))
-    assert bool(op._rest) == (gen != "poisson")  # the stencil's rows fit in W
+    col_idx, vals, row_map = spmv.ell_from_csr(L, dtype=spmv.numpy_dtype(dtype))
+    assert _bits_equal(y, spmv_ell_rows_ref(torch.from_numpy(col_idx), torch.from_numpy(vals),
+                                            torch.from_numpy(row_map), x))
+    split = bool((op.layout.row_len.cpu() > op.layout.width).any())
+    assert split == (gen in ("er", "nb", "arrow"))  # the stencil's rows fit in W
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

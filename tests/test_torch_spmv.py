@@ -1,4 +1,4 @@
-"""The port's padded-ELL SpMV against the JAX package (CPU).
+"""The port's SpMV against the JAX package (CPU).
 
   * ``ell_from_csr`` array-equal (value and dtype) to the JAX package's;
   * ``kernels.ref.spmv_ell_ref`` within rtol=atol=1e-5 of
@@ -6,9 +6,17 @@
     entry point ``spmv`` within 1e-5 of the JAX ``spmv`` and 2e-4 of
     scipy — the tolerances of tests/test_spmv_kernel.py: SpMV is outside
     the bitwise contract (the reference tree-sums over W);
-  * the sum of split rows, the wrapper's input checks and its plain path;
+  * the kernel's sliced layout (``sliced_from_csr``): every CSR entry once,
+    slot-major in slices of 32 rows, ``row_len`` the row lengths, and its
+    lane-idle share;
+  * the kernel's plain version ``spmv_sliced_ref`` bitwise the padded-ELL
+    product with the split rows summed in piece order
+    (``spmv_ell_rows_ref``, the definition it keeps), at widths None, 2
+    and 3, in float32 and float64, also on rows whose chains cancel to an
+    exact zero or reach -0;
+  * the wrapper's input checks and its plain path;
   * the bound operator ``EllOperator`` (CG's matvec): bitwise ``spmv()``
-    and the plain version's piece sums, with no host work in a call.
+    and the definition, with no host work in a call.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +32,12 @@ from repro_torch.backends.base import numpy_dtype
 from repro_torch.convert import csr_from_numpy
 from repro_torch.kernels import build
 from repro_torch.kernels import spmv as tspmv
-from repro_torch.kernels.ref import spmv_ell_ref
+from repro_torch.kernels.ref import (
+    SLICE_ROWS,
+    spmv_ell_ref,
+    spmv_ell_rows_ref,
+    spmv_sliced_ref,
+)
 
 def _arrow():
     """ER with three dense rows: the default width (the 95th percentile of
@@ -50,6 +63,57 @@ _MATS = {
 
 def _port(m):
     return csr_from_numpy(m.n_rows, m.n_cols, m.indptr, m.indices, m.data)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _tensors(layout):
+    """A numpy ``SlicedEll``'s four arrays as tensors, then its width."""
+    return (*(torch.from_numpy(a) for a in layout[:4]), layout.width)
+
+
+def _definition(m, x, width=None):
+    """y by the definition the sliced walk keeps: the padded ELL at
+    ``width``, chained over every slot, the split rows summed in order."""
+    dtype = numpy_dtype(x.dtype)
+    col_idx, vals, row_map = tspmv.ell_from_csr(m, width=width, dtype=dtype)
+    return spmv_ell_rows_ref(torch.from_numpy(col_idx), torch.from_numpy(vals),
+                             torch.from_numpy(row_map), x)
+
+
+def _signed_zeros(dtype, n=97, seed=11):
+    """(m, x): rows of 0 to 8 entries drawn from five kinds, so that chains
+    cancel to an exact zero or reach -0 mid-row and at a row's end:
+    a negative value times x = +0 (a -0 product, which fma adds to +0 as
+    +0); -tiny times tiny, which underflows to -0 and keeps a chain at -0
+    through the -0 products after it; +tiny times tiny (+0); a value and
+    its negation at two columns of equal x (an exact zero); and ordinary
+    entries. Some rows are empty."""
+    tiny = 1e-30 if dtype == np.float32 else 1e-200
+    x = np.random.default_rng(seed).uniform(-2, 2, 30)
+    x[:10], x[10:20], x[21] = 0.0, tiny, x[20]
+    rng = np.random.default_rng(seed + 1)
+    indptr, cols, vals = [0], [], []
+    for _ in range(n):
+        for kind in rng.integers(0, 5, rng.integers(0, 5)):
+            if kind == 0:
+                cols.append(int(rng.integers(0, 10)))
+                vals.append(-rng.uniform(0.5, 2))
+            elif kind in (1, 2):
+                cols.append(int(rng.integers(10, 20)))
+                vals.append(-tiny if kind == 1 else tiny)
+            elif kind == 3:
+                a = rng.uniform(0.5, 2)
+                cols += [20, 21]
+                vals += [a, -a]
+            else:
+                cols.append(int(rng.integers(22, 30)))
+                vals.append(rng.uniform(-2, 2))
+        indptr.append(len(cols))
+    m = csr_from_numpy(n, 30, np.array(indptr), np.array(cols), np.array(vals))
+    return m, x
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -120,69 +184,170 @@ def test_split_rows_sum_in_piece_order():
     for r, v in zip(row_map, y_ell.numpy()):
         expect[r] = expect[r] + v
     assert np.array_equal(y, expect)
+    assert np.array_equal(_definition(m, torch.from_numpy(x)).numpy(), expect)
     np.testing.assert_allclose(y, m.to_scipy() @ x, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("width", [None, 2, 3])
+@pytest.mark.parametrize("name", sorted(_MATS))
+def test_sliced_layout_holds_every_entry_once(name, width):
+    m = _port(_MATS[name]())
+    lay = tspmv.sliced_from_csr(m, width=width, dtype=np.float64)
+    n = m.n_rows
+    assert lay.width == (width or tspmv.ell_from_csr(m)[0].shape[1]) == tspmv.ell_width(m, width)
+    assert lay.n_cols == m.n_cols and lay.col.dtype == np.int32 and lay.val.dtype == np.float64
+    assert lay.slice_ptr.dtype == np.int64 and lay.row_len.dtype == np.int32
+    assert np.array_equal(lay.row_len, np.diff(m.indptr))
+    # slice s holds 32 slots for each slot of its longest row
+    lens = np.zeros(-(-n // SLICE_ROWS) * SLICE_ROWS, dtype=np.int64)
+    lens[:n] = lay.row_len
+    assert np.array_equal(np.diff(lay.slice_ptr),
+                          SLICE_ROWS * lens.reshape(-1, SLICE_ROWS).max(axis=1))
+    assert lay.slice_ptr[0] == 0 and lay.slice_ptr[-1] == len(lay.col) == len(lay.val)
+    # slot k of row i, slot-major: every CSR entry, in order, exactly once
+    seen = np.zeros(len(lay.col), dtype=bool)
+    for i in range(n):
+        k = np.arange(lay.row_len[i])
+        slots = lay.slice_ptr[i // SLICE_ROWS] + SLICE_ROWS * k + i % SLICE_ROWS
+        lo, hi = m.indptr[i], m.indptr[i + 1]
+        assert np.array_equal(lay.col[slots], m.indices[lo:hi])
+        assert np.array_equal(lay.val[slots], m.data[lo:hi])
+        assert not seen[slots].any()
+        seen[slots] = True
+    assert seen.sum() == m.nnz
+    # the rest is padding, (0, 0), stored and never read
+    assert not lay.col[~seen].any() and not lay.val[~seen].any()
+    assert lay.lane_idle_share() == pytest.approx(1 - m.nnz / len(lay.col))
+
+
+@pytest.mark.parametrize("width", [None, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(_MATS))
+def test_sliced_ref_bitwise_ell_definition(name, dtype, width):
+    # the plain version of the kernel is the padded-ELL chains (padding
+    # included) with the split rows summed in piece order, to the bit;
+    # every third x is 0, so padding-like +0 products occur in real rows
+    m = _port(_MATS[name]())
+    lay = tspmv.sliced_from_csr(m, width=width, dtype=numpy_dtype(dtype))
+    x = np.random.default_rng(5).standard_normal(m.n_cols)
+    x[::3] = 0.0
+    x = torch.as_tensor(x, dtype=dtype)
+    y = spmv_sliced_ref(*_tensors(lay), x)
+    assert y.dtype == dtype and y.shape == (m.n_rows,)
+    assert torch.equal(_bits(y), _bits(_definition(m, x, width)))
+
+
+@pytest.mark.parametrize("width", [None, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sliced_ref_signed_zeros_bitwise(dtype, width):
+    # chains that cancel to +0, or end at -0 where the padded ELL's
+    # padding slot would turn them to +0: the row sum's +0 start does
+    # the same, so the bits agree
+    m, x = _signed_zeros(dtype)
+    xt = torch.as_tensor(x, dtype=torch.float32 if dtype == np.float32 else torch.float64)
+    col_idx, vals, _ = tspmv.ell_from_csr(m, width=1, dtype=dtype)
+    y_piece = spmv_ell_ref(torch.from_numpy(col_idx), torch.from_numpy(vals),
+                           torch.cat([xt, xt.new_zeros(1)]))
+    assert bool(((y_piece == 0) & torch.signbit(y_piece)).any())  # -0 chains exist
+    lay = tspmv.sliced_from_csr(m, width=width, dtype=dtype)
+    y = spmv_sliced_ref(*_tensors(lay), xt)
+    expect = _definition(m, xt, width)
+    assert bool((expect == 0).sum() > m.n_rows // 4)
+    assert torch.equal(_bits(y), _bits(expect))
+    assert torch.equal(_bits(tspmv.EllOperator(m, dtype=xt.dtype, device="cpu")(xt)),
+                       _bits(_definition(m, xt)))
+
+
+@pytest.mark.parametrize("name", sorted(_MATS))
+def test_ell_operator_matches_jax_spmv(name):
+    # the whole product: within 1e-5 of the JAX spmv (Pallas interpret,
+    # tree sums, segment_sum) and 2e-4 of scipy, as tests/test_spmv_kernel.py
+    m = _MATS[name]()
+    x = np.random.default_rng(6).standard_normal(m.n_cols)
+    y = tspmv.EllOperator(_port(m), device="cpu")(x).numpy()
+    y_jax = np.asarray(jspmv(m, x, rows_per_tile=32, interpret=True))
+    np.testing.assert_allclose(y, y_jax, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y, m.to_scipy() @ x, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", ["er", "arrow", "nb", "ichol", "upper"])
 def test_ell_operator_bitwise_vs_spmv_and_ell_ref(name, dtype):
-    # bound once: the same bits as spmv() (bind, then call) and as the
-    # kernel's plain version on the bound ELL arrays, call after call
+    # bound once: the same bits as spmv() (bind, then call), as the plain
+    # version on the bound layout and as the padded-ELL definition, call
+    # after call
     m = _port(_MATS[name]())
     op = tspmv.EllOperator(m, dtype=dtype, device="cpu")
-    col_idx, vals, row_map = tspmv.ell_from_csr(m, dtype=numpy_dtype(dtype))
-    assert np.array_equal(op.col_idx.numpy(), col_idx) and np.array_equal(op.vals.numpy(), vals)
+    lay = tspmv.sliced_from_csr(m, dtype=numpy_dtype(dtype))
+    for a, b in zip(op.layout[:4], lay[:4]):
+        assert np.array_equal(a.numpy(), b) and a.numpy().dtype == b.dtype
+    assert op.layout[4:] == lay[4:]
+    assert op.lane_idle_share == lay.lane_idle_share()
     rng = np.random.default_rng(7)
     for _ in range(3):
         x = torch.as_tensor(rng.standard_normal(m.n_cols), dtype=dtype)
         y = op(x)
         assert y.dtype == dtype and y.shape == (m.n_rows,)
         assert torch.equal(y, tspmv.spmv(m, x, dtype=dtype, device="cpu"))
-        y_ell = spmv_ell_ref(op.col_idx, op.vals, torch.cat([x, x.new_zeros(1)]))
-        expect = torch.zeros(m.n_rows, dtype=dtype)
-        for r, v in zip(row_map, y_ell):
-            expect[r] = expect[r] + v
-        assert torch.equal(y, expect)
+        assert torch.equal(y, spmv_sliced_ref(*op.layout[:5], x))
+        assert torch.equal(_bits(y), _bits(_definition(m, x)))
 
 
 def test_ell_operator_call_does_no_host_conversion(monkeypatch):
-    # after binding, a call neither converts to ELL nor builds piece
-    # indices: both live on the operator's device
+    # after binding, a call builds no layout: the layout lives on the
+    # operator's device, and a call is the wrapper on it
     m = _port(_MATS["arrow"]())
     op = tspmv.EllOperator(m, device="cpu")
-    assert op._rest and all(s.device.type == d.device.type == "cpu" for s, d in op._rest)
+    assert all(t.device.type == "cpu" for t in op.layout[:4])
+    assert int(op.layout.row_len.max()) > op.layout.width  # split rows, summed in the call
     x = np.random.default_rng(2).standard_normal(m.n_cols)
     y0 = op(x)
 
     def refuse(*a, **k):
         raise AssertionError("host work inside a call")
 
-    monkeypatch.setattr(tspmv, "ell_from_csr", refuse)
-    monkeypatch.setattr(tspmv, "_piece_indices", refuse)
+    for name in ("ell_from_csr", "ell_width", "sliced_from_csr"):
+        monkeypatch.setattr(tspmv, name, refuse)
+    calls = []
+    plain = tspmv.spmv_sliced_ref
+    monkeypatch.setattr(tspmv, "spmv_sliced_ref", lambda *a: calls.append(a) or plain(*a))
     tspmv.reset_launches()
     assert torch.equal(op(x), y0)
+    assert len(calls) == 1 and all(a is b for a, b in zip(calls[0][:4], op.layout[:4]))
     assert tspmv.launches == {"spmv": 0}  # the plain version, on the CPU
     with pytest.raises(ValueError, match="x must be"):
         op(np.ones(m.n_cols + 1))
 
 
 def test_spmv_cuda_input_checks_and_plain_path():
+    # the wrapper spmv_sliced_cuda: types, shapes, layout and device
+    # checked before anything runs; CPU tensors take the plain version
     m = _port(_MATS["nb"]())
-    col_idx, vals, _ = tspmv.ell_from_csr(m)
-    c, v = torch.from_numpy(col_idx), torch.from_numpy(vals)
-    x_pad = torch.zeros(m.n_cols + 1)
+    c, v, sp, rl, w = _tensors(tspmv.sliced_from_csr(m))
+    x = torch.zeros(m.n_cols)
     for args, err in [
-        ((c.long(), v, x_pad), TypeError),
-        ((c, v.double(), x_pad), TypeError),
-        ((c, v[:, :1].contiguous(), x_pad), ValueError),
-        ((c.t(), v.t(), x_pad), ValueError),  # not contiguous
-        ((c, v, x_pad[None]), ValueError),
+        ((c.long(), v, sp, rl, w, x), TypeError),
+        ((c, v.double(), sp, rl, w, x), TypeError),
+        ((c, v, sp, rl, w, x.double()), TypeError),
+        ((c, v, sp.int(), rl, w, x), TypeError),
+        ((c, v, sp, rl.long(), w, x), TypeError),
+        ((c, v.numpy(), sp, rl, w, x), TypeError),
+        ((c, v[:-1], sp, rl, w, x), ValueError),
+        ((c, v, sp[:-1], rl, w, x), ValueError),
+        ((c, v, sp, rl[:-1], w, x), ValueError),
+        ((c[::2], v[::2], sp, rl, w, x), ValueError),  # not contiguous
+        ((c, v, sp, rl, w, x[None]), ValueError),
+        ((c, v, sp, rl, 0, x), ValueError),
+        ((c, v, sp, rl, float(w), x), ValueError),
+        ((c, v, sp, rl, w, x.to("meta")), TypeError),
+        ((c, v, sp, rl, w, x.numpy()), TypeError),
     ]:
         with pytest.raises(err):
-            tspmv.spmv_cuda(*args)
+            tspmv.spmv_sliced_cuda(*args)
     tspmv.reset_launches()
-    y = tspmv.spmv_cuda(c, v, x_pad)
-    assert torch.equal(y, spmv_ell_ref(c, v, x_pad))
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(m.n_cols), dtype=torch.float32)
+    y = tspmv.spmv_sliced_cuda(c, v, sp, rl, w, x)
+    assert torch.equal(y, spmv_sliced_ref(c, v, sp, rl, w, x))
     assert tspmv.launches == {"spmv": 0}
     assert "spmv" not in build._LIBS
     with pytest.raises(ValueError, match="x must be"):
@@ -190,3 +355,12 @@ def test_spmv_cuda_input_checks_and_plain_path():
     bad = csr_from_numpy(m.n_rows, m.n_cols, m.indptr, m.indices + 1, m.data)
     with pytest.raises(ValueError, match="column indices"):
         tspmv.spmv(bad, np.ones(m.n_cols), device="cpu")
+
+
+def test_spmv_rows_without_entries():
+    # rows without entries store no slot and give +0
+    m = csr_from_numpy(5, 4, np.zeros(6, np.int64), np.zeros(0, np.int64), np.zeros(0))
+    lay = tspmv.sliced_from_csr(m)
+    assert len(lay.col) == 0 and lay.lane_idle_share() == 0.0
+    y = tspmv.spmv(m, np.ones(4), device="cpu")
+    assert y.shape == (5,) and not bool(torch.signbit(y).any()) and not y.any()
