@@ -34,7 +34,25 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              certificate's readiness waves the TPU kernel walks)
   main_path_spmv      spmv(L, x) on the same matrices, against scipy in f64
              and bitwise the CPU plain version; one launch a call
-  pcg        pcg_ichol(A, b, k=8, tol=1e-6, maxiter=2000) on the 512x512
+  strategies the seven scheduling strategies on the same matrices:
+             TriangularSolver.plan(L, strategy=s) with every other default,
+             solve b and B f[n, 32], each answer bitwise the same plan bound
+             on the CPU scan backend and within 1e-5 of scipy in f64
+             (relative, in norm); the plan's host seconds, supersteps, T, W,
+             bsp_cost (from the plan's rows), levels (= block barriers) and
+             the widest level, kernel ms single and m = 32 (CUDA events, 3
+             warm-ups, median of 20)
+  main_path_auto      TriangularSolver.plan(L, strategy="auto") on the same
+             matrices: the Selection (regime, pick, slack, candidates' costs,
+             equal to the strategies phase's bsp_cost) equal to the CPU scan
+             plan's, answers bitwise that plan's (the elastic kernels launch
+             on NB); a second auto plan on the same PlanCache selects
+             nothing; then, on NB only (host time), tune=True on the card
+             (the trials' ms, the slack sweep, the clock's pick beside the
+             model's, the tuned answer bitwise a CPU scan plan of the tuned
+             pick)
+  pcg        pcg_ichol(A, b, k=8, strategy="growlocal", tol=1e-6,
+             maxiter=2000) on the 512x512
              Poisson grid (n=262,144; IC(0) factor of 785,408 entries),
              float32, kernel backend, b from --seed: recurrence relres
              < 1e-6, true residual (float64, host) < 1e-4, fewer iterations
@@ -75,8 +93,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              call makes; the elastic lines report the levels
              of the order over runs of slack supersteps and its slack
 
-then the ``kernels`` summary line (the path launches include the pcg
-phase's), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
+then the ``kernels`` summary line (the path launches include those of
+the strategies, main_path_auto and pcg phases), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 without CUDA or outside a checkout of the repository.
 """
 import dataclasses
@@ -107,6 +125,9 @@ KERNELS = {
 }
 KERNEL_REPLACES = {name: k[0] for name, k in KERNELS.items()}
 MAIN_M = 32
+# a float32 solve against scipy's in float64: ||x - x64|| / ||x64||
+RELERR_VS_SCIPY = 1e-5
+STRATEGIES = ("growlocal", "serial", "wavefront", "spmp", "hdagg", "funnel-gl", "block")
 # the pcg phase: poisson2d_matrix(512), (n, nnz(A), nnz(IC(0) factor))
 PCG_GRID = 512
 PCG_SIZES = (262_144, 1_308_672, 785_408)
@@ -190,7 +211,9 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
     require((n, A.nnz, lf.nnz) == PCG_SIZES, f"pcg system: {(n, A.nnz, lf.nnz)}")
     rng = np.random.default_rng(args.seed)
     b1, b2, r = (rng.standard_normal(n) for _ in range(3))
-    kw = dict(k=8, tol=PCG_TOL, maxiter=PCG_MAXITER)  # float32, kernel backend, the card
+    # float32, kernel backend, the card; GrowLocal, as in PRs 17-18 (pcg_ichol
+    # defaults to "auto", which would schedule three candidates per factor)
+    kw = dict(k=8, tol=PCG_TOL, maxiter=PCG_MAXITER, strategy="growlocal")
     cache = repro_torch.PlanCache()
 
     def request(b):
@@ -351,6 +374,262 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
            "bound_bytes": {"L_twice": 2 * l_bytes, "A": a_bytes, "vectors": vec_bytes},
            "launches": launches, "bitwise_precond_vs_cpu_plain": True,
            "bitwise_matvec_vs_cpu_plain": True, "small_grid_vs_cpu_plain": small, **card}
+    emit(rec)
+    return rec
+
+
+def kernel_ms(solver, m, cuda_times) -> float:
+    """Median ms of the solver's kernel alone on a right-hand side of m
+    columns (None: one), CUDA events, 3 warm-ups, median of 20: the level
+    arrays the bound solve reads, the bulk or the elastic wrapper."""
+    import torch
+
+    from repro_torch.kernels import sptrsv
+
+    la = solver.bound._la
+    fn = sptrsv.sptrsv_elastic_cuda if solver.info()["mode"] == "elastic" else \
+        sptrsv.sptrsv_level_cuda
+    n = solver.n
+    b_pad = torch.randn((n + 1,) if m is None else (n + 1, m),
+                        generator=torch.Generator().manual_seed(7)).to(solver.device)
+    return statistics.median(cuda_times(lambda: fn(*la[:7], b_pad), 3, 20))
+
+
+def level_shape(solver) -> dict:
+    """The level order a kernel solve walks: its levels (one block barrier
+    each) and its widest level."""
+    ptr = solver.bound._la.level_ptr.cpu()
+    return {"levels": int(ptr.numel() - 1), "level_width_max": int((ptr[1:] - ptr[:-1]).max())}
+
+
+def plan_bsp_cost(solver, L, barrier=500.0) -> float:
+    """The §2.2 BSP cost of the schedule behind ``solver``'s plan, read off
+    the plan: each row finishes once (its last piece), at its superstep and
+    lane, with its row's nnz as weight; the plan's row r is the caller's row
+    ``perm[r]``. Equal to ``bsp_cost`` of the schedule (integer weights sum
+    exactly), without scheduling again."""
+    import numpy as np
+
+    plan = solver.exec_plan
+    t, lane = np.nonzero((plan.row_ids < plan.n) & ~plan.accum)
+    step = np.searchsorted(plan.step_bounds, t, side="right") - 1
+    w = np.diff(L.indptr)[solver._perm.cpu().numpy()[plan.row_ids[t, lane]]]
+    loads = np.zeros((plan.n_supersteps, plan.k))
+    np.add.at(loads, (step, lane), w)
+    return float(loads.max(axis=1).sum() + barrier * plan.n_supersteps)
+
+
+def cpu_scan_twin(solver):
+    """``solver``'s own plan bound on the CPU scan backend, the plain
+    version of every kernel: the same rows, order and values, with no
+    second schedule."""
+    import torch
+
+    import repro_torch
+
+    return repro_torch.TriangularSolver(
+        exec_plan=solver.exec_plan, total_perm=solver._perm.cpu().numpy(), backend="scan",
+        dtype=solver.dtype, device=torch.device("cpu"), fingerprint=solver.fingerprint,
+        strategy=solver.strategy, lower=solver.lower, inspector_seconds=0.0)
+
+
+def scipy_refs(mats, inputs) -> dict:
+    """scipy's float64 solves of b and B, per matrix."""
+    import scipy.sparse.linalg as spla
+
+    out = {}
+    for name, L in mats.items():
+        b, B, _ = inputs[name]
+        A = L.to_scipy().tocsr()
+        out[name] = (spla.spsolve_triangular(A, b, lower=True),
+                     spla.spsolve_triangular(A, B, lower=True))
+    return out
+
+
+def relerr(x, x64) -> float:
+    import numpy as np
+
+    xx = x.double().cpu().numpy()
+    return float(np.linalg.norm(xx - x64) / np.linalg.norm(x64))
+
+
+def strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
+                     card) -> dict:
+    """Every registered strategy through the front door on the card (see
+    the module docstring); returns the phase's record, which it has
+    emitted, with the launches of its solves."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import sptrsv
+    from repro_torch.pipeline import available_strategies
+
+    require(sorted(STRATEGIES) == list(available_strategies()),
+            f"strategies {available_strategies()}")
+    rows, solvers = [], []
+    sptrsv.reset_launches()  # the phase's launches start here
+    for name, L in mats.items():
+        b, B, _ = inputs[name]
+        x64, X64 = refs[name]
+        for strategy in STRATEGIES:
+            t0 = time.perf_counter()
+            gpu = repro_torch.TriangularSolver.plan(L, strategy=strategy)  # cuda, k=8, kernel
+            plan_s = time.perf_counter() - t0
+            require(gpu.strategy == strategy and gpu.info()["mode"] == "bsp"
+                    and gpu.device.type == "cuda" and gpu.backend == "kernel",
+                    f"{name} {strategy}: defaults")
+            cpu = cpu_scan_twin(gpu)  # the plain version of the same plan
+            row = {"matrix": name, "strategy": strategy, "plan_s": plan_s,
+                   **{key: gpu.info()["plan"][key] for key in ("n_steps", "n_supersteps", "W", "k")},
+                   **level_shape(gpu), "bsp_cost": plan_bsp_cost(gpu, L), "cpu_plain_s": 0.0}
+            for kname, rhs, ref in (("sptrsv_single", b, x64), ("sptrsv_mrhs", B, X64)):
+                x = gpu.solve(rhs)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x_cpu = cpu.solve(rhs)
+                row["cpu_plain_s"] += time.perf_counter() - t0
+                require(bool(torch.isfinite(x).all()), f"{name} {strategy}: non-finite x")
+                require(bitwise_equal(x, x_cpu),
+                        f"{name} {strategy} {kname}: kernel != CPU plain version")
+                main_err[kname] = max(main_err[kname], max_abs(x, x_cpu))
+                err = relerr(x, ref)
+                require(err < RELERR_VS_SCIPY, f"{name} {strategy} {kname}: relerr {err}")
+                row["relerr_vs_scipy_f64" + ("" if kname == "sptrsv_single" else "_m32")] = err
+            rows.append(row)
+            solvers.append((row, gpu))
+    launches = dict(sptrsv.launches)
+    want = len(rows)
+    require(launches["single"] == want and launches["mrhs"] == want
+            and launches["elastic_single"] == launches["elastic_mrhs"] == 0,
+            f"strategies launches {launches}, want {want} bulk solves of each shape")
+    # the kernels alone, after the counters are read
+    for row, gpu in solvers:
+        row["ms"] = kernel_ms(gpu, None, cuda_times)
+        row["ms_m32"] = kernel_ms(gpu, MAIN_M, cuda_times)
+    rec = {"phase": "strategies", "m": MAIN_M, "rows": rows, "launches": launches,
+           "bitwise_vs_cpu_plain": True, "relerr_limit": RELERR_VS_SCIPY, **card}
+    emit(rec)
+    return rec
+
+
+def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err, card,
+               strategy_rows) -> dict:
+    """``strategy="auto"`` on the card, model-based and tuned (see the
+    module docstring); returns the phase's record, which it has emitted,
+    with the launches of its solves and trials."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import sptrsv
+
+    def pick(sel):
+        return {"strategy": sel.strategy, "slack": sel.options.slack}
+
+    rows = []
+    sptrsv.reset_launches()  # the model-based path's launches start here
+    for name, L in mats.items():
+        b, B, _ = inputs[name]
+        x64, X64 = refs[name]
+        cache, cache_cpu = repro_torch.PlanCache(), repro_torch.PlanCache()
+        t0 = time.perf_counter()
+        gpu = repro_torch.TriangularSolver.plan(L, strategy="auto", cache=cache)
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = repro_torch.TriangularSolver.plan(L, strategy="auto", cache=cache_cpu,
+                                                device="cpu", backend="scan")
+        cpu_plan_s = time.perf_counter() - t0
+        sel = gpu.selection
+        require(sel is not None and not sel.tuned and sel.as_dict() == cpu.selection.as_dict(),
+                f"{name}: the card's Selection differs from the CPU scan plan's")
+        require(gpu.strategy == sel.strategy and gpu.info()["slack"] == sel.options.slack,
+                f"{name}: the plan is not the Selection's")
+        # the shortlisted strategies at default options score what the
+        # strategies phase measured
+        for c in sel.candidates:
+            r = [r for r in strategy_rows if r["matrix"] == name and r["strategy"] == c.strategy]
+            if r and c.options.replace(slack=0) == repro_torch.ScheduleOptions():
+                require(r[0]["bsp_cost"] == c.cost, f"{name} {c.strategy}: cost {c.cost}")
+        row = {"matrix": name, "plan_s": plan_s, "cpu_plan_s": cpu_plan_s,
+               "selection": sel.as_dict(), "mode": gpu.info()["mode"],
+               "slack_unit": gpu.info()["slack_unit"], **level_shape(gpu),
+               "n_supersteps": gpu.n_supersteps}
+        for kname, rhs, ref in (("single", b, x64), ("m32", B, X64)):
+            x = gpu.solve(rhs)
+            torch.cuda.synchronize()
+            x_cpu = cpu.solve(rhs)
+            require(bitwise_equal(x, x_cpu), f"{name} auto {kname}: != CPU scan plan")
+            key = ("sptrsv_elastic_" if gpu.info()["mode"] == "elastic" else "sptrsv_") + (
+                "single" if kname == "single" else "mrhs")
+            main_err[key] = max(main_err.get(key, 0.0), max_abs(x, x_cpu))
+            err = relerr(x, ref)
+            require(err < RELERR_VS_SCIPY, f"{name} auto {kname}: relerr {err}")
+            row["relerr_vs_scipy_f64_" + kname] = err
+        # a second plan on the same PlanCache: no selection work, no plan
+        t0 = time.perf_counter()
+        again = repro_torch.TriangularSolver.plan(L, strategy="auto", cache=cache)
+        row["second_plan_s"] = time.perf_counter() - t0
+        st = cache.stats
+        require(again is gpu and st.selections == 1 and st.selection_hits == 1
+                and st.misses == 1 and st.hits == 1, f"{name}: second auto plan: {st}")
+        row["cache"] = st.as_dict()
+        rows.append((row, gpu, cpu_plan_s, cache_cpu))
+    model_launches = dict(sptrsv.launches)
+    nb_mode = [r for r, *_ in rows if r["matrix"] == "nb"][0]["mode"]
+    require(nb_mode == "elastic" and model_launches["elastic_single"] > 0
+            and model_launches["elastic_mrhs"] > 0,
+            f"auto on NB: mode {nb_mode}, launches {model_launches}")
+
+    sptrsv.reset_launches()  # the measured trials' launches start here
+    tuned_solvers = []
+    # measured trials on NB only: on ER they add half a minute of host time
+    # (PERF.md §6, PR 19)
+    tuned_rows = [r for r in rows if r[0]["matrix"] == "nb"]
+    for row, gpu, _, cache_cpu in tuned_rows:
+        name = row["matrix"]
+        L = mats[name]
+        b, B, _ = inputs[name]
+        cache_t = repro_torch.PlanCache()
+        t0 = time.perf_counter()
+        tuned = repro_torch.TriangularSolver.plan(L, strategy="auto", tune=True, cache=cache_t)
+        tune_s = time.perf_counter() - t0
+        ts = tuned.selection
+        require(ts.tuned and ts.timings and ts.slack_timings, f"{name}: tune=True {ts}")
+        require(tuned.device.type == "cuda" and tuned.backend == "kernel", f"{name}: tuned")
+        # the tuned answer, bitwise a CPU scan plan of the tuned pick
+        ref = repro_torch.TriangularSolver.plan(L, strategy=ts.strategy, options=ts.options,
+                                                device="cpu", backend="scan", cache=cache_cpu)
+        for rhs in (b, B):
+            x = tuned.solve(rhs)
+            torch.cuda.synchronize()
+            require(bitwise_equal(x, ref.solve(rhs)), f"{name}: tuned != CPU scan plan")
+        t0 = time.perf_counter()
+        again = repro_torch.TriangularSolver.plan(L, strategy="auto", tune=True, cache=cache_t)
+        second_s = time.perf_counter() - t0
+        require(again is tuned and cache_t.stats.selections == 1
+                and cache_t.stats.selection_hits == 1, f"{name}: second tuned plan")
+        model = pick(gpu.selection)
+        clock = pick(ts)
+        row["tuned"] = {
+            "tune_s": tune_s, "second_plan_s": second_s,
+            "timings_ms": [(s, sec * 1e3) for s, sec in ts.timings],
+            "slack_timings_ms": [(s, sec * 1e3) for s, sec in ts.slack_timings],
+            "model_pick": model, "clock_pick": clock, "clock_differs": model != clock,
+            "strategy_differs": model["strategy"] != clock["strategy"],
+            "bitwise_vs_cpu_scan": True}
+        tuned_solvers.append(tuned)
+    tuned_launches = dict(sptrsv.launches)
+    require(sum(tuned_launches.values()) > 0, "the trials launched no kernel")
+    # the kernels alone, after the counters are read
+    for row, gpu, *_ in rows:
+        row["ms"] = kernel_ms(gpu, None, cuda_times)
+        row["ms_m32"] = kernel_ms(gpu, MAIN_M, cuda_times)
+    for (row, *_), tuned in zip(tuned_rows, tuned_solvers):
+        row["tuned"]["ms"] = kernel_ms(tuned, None, cuda_times)
+        row["tuned"]["ms_m32"] = kernel_ms(tuned, MAIN_M, cuda_times)
+    rec = {"phase": "main_path_auto", "matrices": [r for r, *_ in rows],
+           "tune_matrices": [r["matrix"] for r, *_ in tuned_rows],
+           "launches": {"model": model_launches, "tune_and_checks": tuned_launches},
+           "bitwise_vs_cpu_scan": True, "relerr_limit": RELERR_VS_SCIPY, **card}
     emit(rec)
     return rec
 
@@ -721,6 +1000,18 @@ def main() -> int:
           "bitwise_vs_cpu_plain": True, "max_abs_err": main_err["spmv"], **card})
     path_launches = {**main_launches, **{k: elastic_launches[k] for k in (
         "elastic_single", "elastic_mrhs")}, **spmv_launches}
+
+    # --------------------------------------------- strategies, auto
+    refs = scipy_refs(mats, inputs)
+    strat = strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
+                             card)
+    auto = auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err, card,
+                      strat["rows"])
+    # the kernels' path launches add these paths' (the tuned plans' trials
+    # and solves too, but not the launches that time a kernel alone)
+    for counts in (strat["launches"], *auto["launches"].values()):
+        for key, v in counts.items():
+            path_launches[key] += v
 
     # ------------------------------------------------------------ pcg
     pcg = pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card)

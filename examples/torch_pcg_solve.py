@@ -54,7 +54,7 @@ def main() -> None:
     t_plain = time.time() - t0
     print(f"plain CG      : {it0:4d} iterations, relres {rr0:.1e}, {t_plain:.2f}s")
 
-    # the port's plan default; strategy="auto" waits for the autotuner
+    # pinned to GrowLocal (pcg_ichol's default is the autotuner, "auto")
     cache = PlanCache()
     t0 = time.time()
     x1, it1, rr1, info = pcg_ichol(A, rhs[0], k=8, strategy="growlocal", tol=1e-6,

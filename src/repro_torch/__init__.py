@@ -2,8 +2,8 @@
 NVIDIA H100.
 
 A port of the JAX package ``repro`` (which stays the reference): the
-numpy inspector (DAG, GrowLocal schedule, §5 reorder, plan compiler) is
-copied, the executors are PyTorch, and the kernels — bulk and elastic
+numpy inspector (DAG, the seven scheduling strategies and the autotuner,
+§5 reorder, plan compiler) is copied, the executors are PyTorch, and the kernels — bulk and elastic
 SpTRSV, and SpMV on a sliced layout — are hand-written CUDA C++ for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use. It imports nothing of
 ``repro`` and nothing of JAX.
@@ -14,6 +14,7 @@ SpTRSV, and SpMV on a sliced layout — are hand-written CUDA C++ for ``sm_90a``
     x = solver.solve(b)                    # b: f[n] or f[n, m]
     solver.numeric_update(L_new_values)    # same pattern, new values
     TriangularSolver.plan(L, mode="elastic")  # fewer barriers, same bits
+    TriangularSolver.plan(L, strategy="auto", tune=True)  # timed on the card
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

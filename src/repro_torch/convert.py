@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.plan import ExecPlan
+from repro_torch.core.schedule import Schedule
 from repro_torch.sparse.csr import CSRMatrix
 
 PLAN_FIELDS = (
@@ -45,4 +46,18 @@ def csr_from_numpy(n_rows: int, n_cols: int, indptr, indices, data) -> CSRMatrix
         np.array(indptr, dtype=np.int64),
         np.array(indices, dtype=np.int64),
         np.array(data, dtype=np.float64),
+    )
+
+
+def schedule_from_numpy(n, k, pi, sigma, rank, n_supersteps) -> Schedule:
+    """A ``Schedule`` from its fields, field by field, in the dtypes the
+    port's schedulers produce (int32 ``pi`` / ``sigma``, int64 ``rank``);
+    arrays are copied. ``TriangularSolver.plan(sched=...)`` takes it."""
+    return Schedule(
+        n=int(n),
+        k=int(k),
+        pi=np.array(pi, dtype=np.int32),
+        sigma=np.array(sigma, dtype=np.int32),
+        rank=np.array(rank, dtype=np.int64),
+        n_supersteps=int(n_supersteps),
     )

@@ -83,6 +83,64 @@ def bsp_cost(dag: SolveDAG, s: Schedule, L: float = DEFAULT_L) -> float:
     return float(loads.max(axis=1).sum() + L * s.n_supersteps)
 
 
+# Per-plan-step dispatch penalty for the *step-granular* cost model used
+# by the elastic mode decision. The BSP model above charges L per
+# superstep barrier; the single-chip executors additionally pay a small
+# fixed cost per scan/grid step (dispatch, carry shuffling), which
+# dominates on deep, narrow DAGs where steps are tiny. Like L it is
+# architecture-dependent; the ratio to L is what matters for the
+# elastic-vs-bulk decision, not the absolute value.
+DEFAULT_L_STEP = 50.0
+
+
+def schedule_step_count(s: Schedule) -> int:
+    """Row-level executor step count T of a schedule: sum over supersteps
+    of the longest per-core chain (the scan trip count before virtual-row
+    expansion widens rows past W)."""
+    if s.n == 0:
+        return 0
+    key = s.sigma.astype(np.int64) * s.k + s.pi
+    chain_len = np.bincount(key, minlength=s.n_supersteps * s.k)
+    return int(chain_len.reshape(s.n_supersteps, s.k).max(axis=1).sum())
+
+
+def step_cost(dag: SolveDAG, s: Schedule, *, l_step: float = DEFAULT_L_STEP) -> float:
+    """Step-granular cost of the bulk-synchronous scan executor:
+    critical-path work plus one dispatch per plan step."""
+    loads = s.superstep_loads(dag.weights)
+    return float(loads.max(axis=1).sum() + l_step * schedule_step_count(s))
+
+
+def elastic_cost(
+    dag: SolveDAG, s: Schedule, slack: int, *, l_step: float = DEFAULT_L_STEP
+) -> float:
+    """Step-granular cost of the elastic executor at staleness window
+    ``slack``: critical-path work plus one macro-step dispatch per slack
+    window (``ceil(T / slack)`` instead of ``T``). Compare against
+    ``step_cost`` to score ``mode="elastic"`` in the autotuner."""
+    loads = s.superstep_loads(dag.weights)
+    t = schedule_step_count(s)
+    macro = -(-t // slack) if t else 0
+    return float(loads.max(axis=1).sum() + l_step * macro)
+
+
+def schedule_stats(dag: SolveDAG, s: Schedule, L: float = DEFAULT_L) -> dict:
+    loads = s.superstep_loads(dag.weights)
+    maxima = loads.max(axis=1)
+    means = loads.sum(axis=1) / s.k
+    total = float(dag.weights.sum())
+    return {
+        "n_supersteps": s.n_supersteps,
+        "bsp_cost": float(maxima.sum() + L * s.n_supersteps),
+        "work": total,
+        "critical_work": float(maxima.sum()),
+        # perfect parallelization would give total/k; >= 1, lower is better
+        "imbalance": float(maxima.sum() / max(total / s.k, 1e-30)),
+        "mean_superstep_load": float(means.mean()) if len(means) else 0.0,
+        "speedup_model": total / float(maxima.sum() + L * s.n_supersteps),
+    }
+
+
 def serial_schedule(dag: SolveDAG) -> Schedule:
     """Everything on core 0 in one superstep, topological (ID) order."""
     return Schedule(

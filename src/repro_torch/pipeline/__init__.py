@@ -8,6 +8,11 @@
 
     fwd, bwd = factor_pair(Lf)    # L y = b, then L^T x = y (PCG's M^{-1})
 
+``strategy="auto"`` hands the choice to the autotuner
+(``repro_torch.autotune``: DAG features -> rule shortlist -> §2.2 cost
+model; ``tune=True`` adds measured trials); the outcome is memoized in the
+``PlanCache``.
+
 Module map:
 
   * ``registry``  — named scheduling strategies behind one signature

@@ -12,9 +12,13 @@ On a hit the whole DAG-build -> schedule -> reorder -> compile chain is
 skipped; only the numeric values are refreshed (``numeric_update`` via the
 plan's value-source maps), which is O(nnz) instead of O(|E| log |V|).
 
-A copy of the JAX package's ``pipeline/cache.py`` without the parts of
-later slices (the ``strategy="auto"`` selection memo and the serve layer's
-width-class index).
+The cache also memoizes ``strategy="auto"`` outcomes per fingerprint
+(``get_selection`` / ``store_selection``): a repeated pattern resolves to
+the previously selected concrete config with zero selection work, then
+hits the plan entry stored under that concrete key.
+
+A copy of the JAX package's ``pipeline/cache.py`` without the serve
+layer's width-class index, which comes with grouped solves.
 """
 from __future__ import annotations
 
@@ -32,6 +36,11 @@ class CacheStats:
     misses: int = 0
     numeric_updates: int = 0
     evictions: int = 0
+    # strategy="auto" bookkeeping: selections = feature-extraction +
+    # shortlist-scoring runs actually performed; selection_hits = plans
+    # that resolved to a concrete config without re-running selection
+    selections: int = 0
+    selection_hits: int = 0
 
     @property
     def entries_built(self) -> int:
@@ -50,11 +59,41 @@ class PlanCache:
         self.stats = CacheStats()
         self._lock = threading.Lock()
         self._entries: "OrderedDict[Hashable, object]" = OrderedDict()
+        # strategy="auto" selections live beside the plans. Selection
+        # objects are tiny, so they outlive plan eviction (a pattern whose
+        # plan was evicted still skips re-selection) — but not unboundedly:
+        # FIFO-capped so a stream of distinct patterns cannot grow this
+        # forever while the plan entries themselves are being evicted.
+        self._selections: "OrderedDict[Hashable, object]" = OrderedDict()
+        self._selections_max = max(4 * maxsize, 64) if maxsize else 4096
         # keys exempt from LRU eviction (live-serving plans — see pin())
         self._pinned: set = set()
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    # ------------------------------------------------- auto-strategy memo
+    def get_selection(self, key: Hashable):
+        """Memoized ``strategy="auto"`` outcome for ``key`` (see
+        ``autotune.selector.selection_key``), or None. A hit means
+        ``plan()`` resolves straight to a concrete plan key with zero
+        selection work."""
+        with self._lock:
+            sel = self._selections.get(key)
+            if sel is not None:
+                self.stats.selection_hits += 1
+            return sel
+
+    def store_selection(self, key: Hashable, selection: object) -> None:
+        with self._lock:
+            if key not in self._selections:
+                # racing first-plans may both compute a selection (same
+                # deterministic outcome, mirroring get_or_build's racing
+                # builders); count the distinct key once
+                self.stats.selections += 1
+            self._selections[key] = selection
+            while len(self._selections) > self._selections_max:
+                self._selections.popitem(last=False)
 
     def get_or_build(self, key: Hashable, builder: Callable[[], object]):
         """Return ``(entry, hit)``. ``builder`` runs outside the lock on a
@@ -136,4 +175,5 @@ class PlanCache:
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+            self._selections.clear()
             self._pinned.clear()

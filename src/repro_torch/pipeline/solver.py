@@ -30,6 +30,12 @@ Pass a ``PlanCache`` to amortize the inspector across solves that share a
 sparsity pattern — hits skip scheduling entirely and only refresh the
 numeric values (paper §7.7's regime).
 
+``strategy="auto"`` hands the choice to the autotuner
+(``repro_torch.autotune``: DAG features -> rule shortlist -> §2.2 cost
+model; ``tune=True`` adds measured trials on the solver's device); the
+outcome is memoized in the ``PlanCache`` and recorded on
+``Solver.selection``.
+
 ``timed=True`` routes every solve through ``solve_timed``: the same bits,
 with per-step timings (``BoundSolve.solve_timed``) kept on
 ``last_step_timings`` and, when tracing is on, spans in the active buffer.
@@ -157,6 +163,7 @@ class TriangularSolver:
         self.last_step_timings: Optional[list] = None
         self._source_data: Optional[np.ndarray] = None  # set by plan()
         self.plan_key = None  # plan-cache key, set by plan()
+        self._selection = None  # autotune Selection, set by plan(auto)
         total_inv = np.empty_like(total_perm)
         total_inv[total_perm] = np.arange(len(total_perm))
         self._perm = torch.as_tensor(total_perm, dtype=torch.int64).to(device)
@@ -256,7 +263,7 @@ class TriangularSolver:
 
     def info(self) -> dict:
         binding = self._bound.describe()
-        return {
+        out = {
             "strategy": self.strategy,
             "backend": self.backend,
             "mode": "elastic" if self._slack else "bsp",
@@ -273,6 +280,20 @@ class TriangularSolver:
             "plan": self.exec_plan.stats(),
             "binding": binding,
         }
+        if self._selection is not None:
+            out["selection"] = self._selection.as_dict()
+        return out
+
+    @property
+    def selection(self):
+        """The autotuner's ``Selection`` recorded when this solver object
+        was *built* by a ``strategy="auto"`` plan (None when it was built
+        with a fixed strategy). Cached solvers are never mutated after the
+        fact: an auto plan that cache-hits an entry originally built by a
+        fixed-strategy plan returns it with ``selection`` still None — the
+        resolved outcome remains available via the cache's selection memo.
+        """
+        return self._selection
 
     # ---------------------------------------------------------- planning
     @classmethod
@@ -292,6 +313,8 @@ class TriangularSolver:
         mode: Optional[str] = None,
         device=None,
         timed: bool = False,
+        sched=None,
+        tune: bool = False,
         **opts,
     ) -> "TriangularSolver":
         """Plan a solver for triangular ``a`` (lower, or upper with
@@ -304,6 +327,9 @@ class TriangularSolver:
         calls are never mutated). ``steps_per_tile`` (the TPU kernel's tile
         size) is accepted and reported by ``info()``; the CUDA kernels do
         not tile, so it changes neither the binding nor the cache key.
+        ``sched`` bypasses the registry with a pre-built ``Schedule``
+        (never cached — the cache cannot key on arbitrary schedules; the
+        solver's strategy reads ``"(prebuilt)"``).
 
         ``mode`` selects the execution mode: ``"bsp"`` (bulk-synchronous,
         the default) or ``"elastic"`` — the plan runs under a staleness
@@ -315,6 +341,17 @@ class TriangularSolver:
         ``core.DEFAULT_SLACK``; ``slack > 0`` alone also selects elastic.
         The backend must advertise the ``"elastic"`` capability.
 
+        ``strategy="auto"`` lets the autotuner choose: DAG features ->
+        rule-based shortlist -> §2.2 cost model (``repro_torch.autotune``);
+        with ``tune=True`` the shortlisted plans are additionally built and
+        *timed* on this call's backend and device. When the backend
+        supports elastic (and ``mode`` does not force ``"bsp"``), the
+        selector may also turn elastic mode on via its step-granular cost
+        rule. The resolved config is memoized per sparsity fingerprint
+        (inside ``cache`` when given), and the plan is cached under the
+        resolved *concrete* key — so repeated auto plans on one pattern
+        skip both selection and scheduling.
+
         ``timed=True`` turns on per-step timed execution: every ``solve``
         routes through ``solve_timed``. It is NOT part of the plan identity
         (the cache key): a cache hit returns the same solver with the
@@ -324,6 +361,12 @@ class TriangularSolver:
         backend_caps = get_backend(backend).capabilities()
         np_dtype = numpy_dtype(dtype)
         dev = resolve_device(device)
+        if tune and (strategy != "auto" or sched is not None):
+            raise ValueError(
+                "tune=True runs measured trials to refine an auto "
+                "selection; it requires strategy='auto' (and no pre-built "
+                "sched)"
+            )
         o = options or ScheduleOptions()
         if k is not None:
             o = o.replace(k=k)
@@ -346,8 +389,35 @@ class TriangularSolver:
                 f"backend {backend!r} does not support mode='elastic' "
                 f"(requested slack={o.slack}, no 'elastic' capability)"
             )
-        get_scheduler(strategy)  # fail fast on an unknown strategy
+        # the selector may only turn elastic ON when the binding can run
+        # it and the caller did not force bulk-synchronous
+        elastic_ok = mode != "bsp" and "elastic" in backend_caps
+
         fp = pattern_fingerprint(a)
+        selection = None
+        pre_sched = None  # winning Schedule the selector already computed
+        pre_solver = None  # winner's trial solver (tune=True measured run)
+        if strategy == "auto" and sched is None:
+            from repro_torch.autotune.selector import resolve_auto_full
+
+            selection, pre_sched, pre_solver = resolve_auto_full(
+                a,
+                options=o,
+                lower=lower,
+                tune=tune,
+                cache=cache,
+                fp=fp,
+                allow_elastic=elastic_ok,
+                plan_kwargs=dict(
+                    backend=backend, dtype=dtype, width=width, device=dev,
+                    steps_per_tile=steps_per_tile,
+                ),
+            )
+            strategy, o = selection.strategy, selection.options
+        elif sched is None:
+            get_scheduler(strategy)  # fail fast on an unknown strategy
+        # o (a frozen dataclass) covers every scheduling knob incl. k,
+        # reorder and the elastic slack; the binding keys too
         key = (fp, strategy, o, lower) + binding_fingerprint(
             backend=backend, dtype=dtype, width=width, device=dev, slack=o.slack
         )
@@ -356,12 +426,18 @@ class TriangularSolver:
             t0 = time.perf_counter()
             n = a.n_rows
             m0, outer = mirror_to_lower(a, lower)
-            with obs.span("inspector.dag", cat="inspector", n=n):
-                dag = dag_from_lower_csr(m0)
-            with obs.span(
-                f"inspector.schedule.{strategy}", cat="inspector", n=n, k=o.k
-            ):
-                s = get_scheduler(strategy)(dag, o)
+            if sched is not None:
+                s = sched
+            elif pre_sched is not None:
+                s = pre_sched  # already computed while scoring candidates
+            else:
+                with obs.span("inspector.dag", cat="inspector", n=n):
+                    dag = dag_from_lower_csr(m0)
+                with obs.span(
+                    f"inspector.schedule.{strategy}", cat="inspector",
+                    n=n, k=o.k,
+                ):
+                    s = get_scheduler(strategy)(dag, o)
             if o.reorder:
                 with obs.span("inspector.reorder", cat="inspector", n=n):
                     m2, s2, _, r = apply_reordering(m0, s)
@@ -394,21 +470,32 @@ class TriangularSolver:
                 dtype=dtype,
                 device=dev,
                 fingerprint=fp,
-                strategy=strategy,
+                strategy=strategy if sched is None else "(prebuilt)",
                 lower=lower,
                 inspector_seconds=time.perf_counter() - t0,
                 steps_per_tile=steps_per_tile,
                 slack=o.slack,
             )
             solver._source_data = np.array(a.data)
-            solver.plan_key = key
+            # selection is recorded at build time only — cached solvers are
+            # never mutated after being handed out (see the property doc)
+            solver._selection = selection
             return solver
 
-        if cache is None:
-            solver = build()
+        # the tuned winner was built and warmed during the measured trials
+        # (against a private cache) and carries its Selection — use it as
+        # the builder so the work is not redone; it enters the shared
+        # cache fully formed, so no published solver is ever mutated
+        builder = build if pre_solver is None else (lambda: pre_solver)
+        if cache is None or sched is not None:
+            solver = builder()
+            if sched is None:  # prebuilt schedules have no cacheable key
+                solver.plan_key = key
             solver.timed = timed
             return solver
-        solver, hit = cache.get_or_build(key, build)
+        solver, hit = cache.get_or_build(key, builder)
+        # idempotent on hits (the key IS the entry's key)
+        solver.plan_key = key
         if hit and not np.array_equal(solver._source_data, a.data):
             # same pattern, new values: clone with refreshed numerics (the
             # cached entry — and anyone holding it — stays untouched), then

@@ -87,7 +87,7 @@ def pcg_ichol(
     b,
     *,
     k: int = 8,
-    strategy: str = "growlocal",
+    strategy: str = "auto",
     tol: float = 1e-6,
     maxiter: int = 1000,
     dtype=torch.float32,
@@ -99,15 +99,10 @@ def pcg_ichol(
     preconditioner. Returns (x, iters, relres, info-dict). Pass a
     ``PlanCache`` to reuse plans across calls on one sparsity pattern.
 
-    ``strategy`` defaults to the port's ``plan`` default, ``"growlocal"``
-    (the JAX function's default, ``"auto"``, needs the autotuner, which the
-    port does not have yet: passing it raises). ``backend`` is ``"kernel"``
-    (the CUDA kernels) or ``"scan"`` (the plain executor)."""
-    if strategy.lower() == "auto":
-        raise ValueError(
-            "strategy='auto' needs the autotuner, which repro_torch does not "
-            "have yet; pass a registry name such as 'growlocal'"
-        )
+    ``strategy`` defaults to ``"auto"``, as in the JAX package: the
+    autotuner picks each factor's schedule (``repro_torch.autotune``).
+    ``backend`` is ``"kernel"`` (the CUDA kernels) or ``"scan"`` (the plain
+    executor)."""
     device = resolve_device(device)
     Lf = ichol0(a)
     fwd, bwd = factor_pair(

@@ -153,3 +153,14 @@ def average_wavefront_size(dag: SolveDAG) -> float:
     """Paper §6.2: n / longest-path-length — the parallelizability proxy."""
     lp = longest_path_length(dag)
     return dag.n / lp if lp else 0.0
+
+
+def is_topological_order(dag: SolveDAG, order: np.ndarray) -> bool:
+    pos = np.empty(dag.n, dtype=np.int64)
+    pos[order] = np.arange(dag.n)
+    # every edge (parent -> child) must go forward
+    for v in range(dag.n):
+        ps = dag.parents(v)
+        if len(ps) and (pos[ps] >= pos[v]).any():
+            return False
+    return True

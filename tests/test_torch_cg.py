@@ -13,8 +13,11 @@ reference solvers.
     float64 and within ±1 in float32, ``relres < tol``, and x allclose at
     rtol = atol = 5e-3 (tests/test_solvers.py::test_pcg_end_to_end's
     bound); PCG takes fewer iterations than CG;
-  * plan-cache counts, the ``info`` keys and supersteps, and
-    ``strategy="auto"`` (the autotuner, not ported) raising;
+  * plan-cache counts (the selection memo's included), the ``info`` keys
+    and supersteps;
+  * ``pcg_ichol``'s default strategy, ``"auto"`` as in the JAX package: on
+    a 16 × 16 grid in float64 the same ``fwd_strategy``, ``bwd_strategy``
+    and iteration count as the JAX function with its defaults;
   * ``forward_substitution`` array-equal, ``solve_lower_scipy`` equal.
 """
 import functools
@@ -69,8 +72,8 @@ def _jax_runs(dtype):
 def _port_runs(dtype, backend="kernel"):
     A = tsparse.poisson2d_matrix(N_GRID)
     b = _rhs(A.n_rows)
-    pcg = pcg_ichol(A, b, k=4, tol=TOL, maxiter=600, dtype=_TDT[dtype], cache=PlanCache(),
-                    device="cpu", backend=backend)
+    pcg = pcg_ichol(A, b, k=4, strategy="growlocal", tol=TOL, maxiter=600,
+                    dtype=_TDT[dtype], cache=PlanCache(), device="cpu", backend=backend)
     cg = cg_solve(A, b, tol=TOL, maxiter=5000, dtype=_TDT[dtype], device="cpu")
     return pcg, cg
 
@@ -145,9 +148,9 @@ def test_pcg_info_matches_jax(dtype):
         assert info[key] == info_j[key], key
     for side in ("fwd_plan", "bwd_plan"):
         assert info[side] == {k: v for k, v in info_j[side].items() if k != "elastic"}
-    # the JAX stats add the autotuner's selection memo, not ported yet
-    assert info["cache"] == {k: info_j["cache"][k] for k in info["cache"]} == {
-        "hits": 0, "misses": 2, "numeric_updates": 0, "evictions": 0}
+    assert info["cache"] == info_j["cache"] == {
+        "hits": 0, "misses": 2, "numeric_updates": 0, "evictions": 0,
+        "selections": 0, "selection_hits": 0}
 
 
 def test_pcg_backends_agree_bitwise():
@@ -173,11 +176,30 @@ def test_pcg_cache_amortizes_and_counts_no_launches_on_cpu():
 
 
 def test_pcg_strategy_auto_raises():
+    # "auto" no longer raises now that the autotuner is ported: any
+    # spelling resolves through it; an unknown name still raises
     A = tsparse.poisson2d_matrix(6)
-    with pytest.raises(ValueError, match="autotuner"):
-        pcg_ichol(A, np.ones(A.n_rows), strategy="auto", device="cpu")
-    with pytest.raises(ValueError, match="autotuner"):
-        pcg_ichol(A, np.ones(A.n_rows), strategy="Auto", device="cpu")
+    cache = PlanCache()
+    runs = [pcg_ichol(A, np.ones(A.n_rows), strategy=s, device="cpu", cache=cache)
+            for s in ("auto", "Auto")]
+    assert runs[0][1] == runs[1][1] and torch.equal(runs[0][0], runs[1][0])
+    assert runs[1][3]["cache"]["selections"] == 2
+    assert runs[1][3]["cache"]["selection_hits"] == 2
+    with pytest.raises(KeyError, match="unknown strategy"):
+        pcg_ichol(A, np.ones(A.n_rows), strategy="autox", device="cpu")
+
+
+def test_pcg_default_strategy_matches_jax():
+    assert pcg_ichol.__kwdefaults__["strategy"] == "auto"
+    A_j = jsparse.poisson2d_matrix(16)
+    A = tsparse.poisson2d_matrix(16)
+    b = _rhs(A.n_rows, seed=6)
+    with jax.enable_x64(True):
+        _, it_j, _, info_j = jpcg_ichol(A_j, b, dtype=jnp.float64)
+    _, it, relres, info = pcg_ichol(A, b, dtype=torch.float64, device="cpu")
+    for key in ("fwd_strategy", "bwd_strategy", "fwd_supersteps", "bwd_supersteps"):
+        assert info[key] == info_j[key], key
+    assert it == it_j and relres < 1e-6
 
 
 def test_cg_stops_at_maxiter_and_on_zero_rhs():

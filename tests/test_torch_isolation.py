@@ -222,6 +222,39 @@ def test_torch_example_without_device_raises_without_cuda():
     assert "OK" not in out.stdout
 
 
+_QUICKSTART_BLOCKED = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = ["examples/torch_quickstart.py"] + sys.argv[1:]
+runpy.run_path("examples/torch_quickstart.py", run_name="__main__")
+loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert loaded == [], loaded
+"""
+
+
+def test_torch_quickstart_on_cpu_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _QUICKSTART_BLOCKED, "--device", "cpu"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "n=4096" in out.stdout and "hdagg" in out.stdout
+    assert "auto: regime=" in out.stdout and out.stdout.strip().endswith("OK")
+
+
+def test_torch_quickstart_without_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "examples/torch_quickstart.py"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "OK" not in out.stdout
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))

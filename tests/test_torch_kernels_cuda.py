@@ -321,14 +321,16 @@ def test_pcg_on_card_matches_cpu_plain(cuda, dtype):
     b = np.random.default_rng(0).standard_normal(A.n_rows)
     sptrsv.reset_launches()
     spmv.reset_launches()
-    x, iters, relres, info = pcg_ichol(A, b, k=8, tol=1e-6, maxiter=2000, dtype=dtype)
+    # GrowLocal, bulk: pcg_ichol's default "auto" picks elastic on this grid
+    x, iters, relres, info = pcg_ichol(A, b, k=8, strategy="growlocal", tol=1e-6,
+                                       maxiter=2000, dtype=dtype)
     torch.cuda.synchronize()
     assert dict(sptrsv.launches) == {"single": 2 * (iters + 1), "mrhs": 0,
                                      "elastic_single": 0, "elastic_mrhs": 0}
     assert spmv.launches == {"spmv": iters}
     # the CPU plain PCG: the kernels' plain versions (bitwise the scan's)
-    xc, ic, rc, info_c = pcg_ichol(A, b, k=8, tol=1e-6, maxiter=2000, dtype=dtype,
-                                   device="cpu")
+    xc, ic, rc, info_c = pcg_ichol(A, b, k=8, strategy="growlocal", tol=1e-6,
+                                   maxiter=2000, dtype=dtype, device="cpu")
     assert x.device.type == "cuda" and x.dtype == dtype and relres < 1e-6 and rc < 1e-6
     assert abs(iters - ic) <= (0 if dtype == torch.float64 else 1), (iters, ic)
     xc = xc.double().numpy()
@@ -359,3 +361,41 @@ def test_solve_timed_on_card(cuda, backend, mode, m):
     assert _bits_equal(x, s.solve(b))
     cpu = repro_torch.TriangularSolver.plan(L, device="cpu", backend="scan")
     assert _bits_equal(x, cpu.solve(b))
+
+
+@pytest.mark.parametrize("m", [None, 5])
+@pytest.mark.parametrize("gen", ["er", "nb"])
+@pytest.mark.parametrize(
+    "strategy", ["block", "funnel-gl", "growlocal", "hdagg", "serial", "spmp", "wavefront"])
+def test_every_strategy_kernel_matches_plain_bitwise(cuda, strategy, gen, m):
+    L = (erdos_renyi_lower(3000, 2e-3, seed=21) if gen == "er"
+         else narrow_band_lower(3000, 0.14, 10, seed=22))
+    gpu = repro_torch.TriangularSolver.plan(L, strategy=strategy)
+    cpu = repro_torch.TriangularSolver.plan(L, strategy=strategy, device="cpu", backend="scan")
+    assert gpu.strategy == strategy and gpu.n_supersteps == cpu.n_supersteps
+    b = np.random.default_rng(6).standard_normal(3000 if m is None else (3000, m))
+    sptrsv.reset_launches()
+    x = gpu.solve(b)
+    torch.cuda.synchronize()
+    assert sptrsv.launches["single" if m is None else "mrhs"] == 1
+    assert _bits_equal(x, cpu.solve(b))
+
+
+@pytest.mark.parametrize("gen", ["er", "nb"])
+def test_tune_on_card(cuda, gen):
+    L = (erdos_renyi_lower(3000, 2e-3, seed=23) if gen == "er"
+         else narrow_band_lower(3000, 0.14, 10, seed=24))
+    cache = repro_torch.PlanCache()
+    tuned = repro_torch.TriangularSolver.plan(L, strategy="auto", tune=True, cache=cache)
+    sel = tuned.selection
+    assert sel.tuned and tuned.device.type == "cuda"
+    assert [s for s, _ in sel.timings] == [c.strategy for c in sel.candidates]
+    assert sel.slack_timings is not None and all(sec > 0 for _, sec in sel.slack_timings)
+    assert dict(sel.timings)[sel.strategy] == min(t for _, t in sel.timings)
+    ref = repro_torch.TriangularSolver.plan(
+        L, strategy=sel.strategy, options=sel.options, device="cpu", backend="scan")
+    B = np.random.default_rng(7).standard_normal((3000, 4))
+    assert _bits_equal(tuned.solve(B), ref.solve(B))
+    again = repro_torch.TriangularSolver.plan(L, strategy="auto", tune=True, cache=cache)
+    assert again is tuned
+    assert cache.stats.selections == 1 and cache.stats.selection_hits == 1

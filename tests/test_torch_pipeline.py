@@ -200,7 +200,7 @@ def test_info_and_options():
     "kw, err",
     [
         (dict(backend="pallas"), ValueError),
-        (dict(strategy="auto"), KeyError),
+        (dict(strategy="hdag"), KeyError),  # "auto" is a strategy now: a typo
         (dict(dtype=torch.float16), ValueError),
         (dict(lower=False), ValueError),  # a lower matrix is not upper
     ],
