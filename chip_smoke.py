@@ -37,7 +37,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   strategies the seven scheduling strategies on the same matrices:
              TriangularSolver.plan(L, strategy=s) with every other default,
              solve b and B f[n, 32], each answer bitwise the same plan bound
-             on the CPU scan backend and within 1e-5 of scipy in f64
+             on the CPU scan backend (the plan's steps; on the serial plans
+             the CPU kernel backend, the level walk's plain version, bitwise
+             the step walk) and within 1e-5 of scipy in f64
              (relative, in norm); the plan's host seconds, supersteps, T, W,
              bsp_cost (from the plan's rows), levels (= block barriers) and
              the widest level, kernel ms single and m = 32 (CUDA events, 3
@@ -68,6 +70,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              and bwd also with L2 emptied before each launch), and
              a torch.profiler window of 20 iterations (device time by
              kernel, the device's idle share)
+  serve      the batching solve service (repro_torch.serve.SolveService,
+             kernel backend) at n=100,000, each mode a closed loop of 8
+             clients x 25 requests (the CLI's defaults), prewarmed, every
+             b drawn before the window, so the clients only submit:
+             microbatch on ER and NB registered through main_path_auto's
+             PlanCache (no plan built; NB's elastic pick on the elastic
+             m-RHS kernel) with a numeric_update of ER mid-stream;
+             width-class batching on shifted_coupling_lower(n, j, stride=8,
+             seed=j), j = 0..5, wavefront (one width class, a bank of 8
+             lanes); continuous mode, 32 slots, on the same family. Each
+             mode: requests served, throughput, p50/p99 latency
+             (ServeMetrics), dispatch widths, bank rebuilds, launches by
+             kind (banked traffic only on the bank kernel), every result
+             bitwise its direct_reference / GroupReplay on the card and a
+             sample of 64 bitwise the CPU plain version (solved together);
+             the device's idle share in a second, profiled loop of the same
+             requests; the host seconds of update_values on the card. Then
+             the bank kernel on 8 distinct-valued clones of ER's plan at
+             m = 32, every lane used: bitwise its CPU plain version, timed
+             beside the cols kernel on one of those plans and the library
+             (torch.triangular_solve on the clones' block diagonal as
+             sparse CSR, B [8n, 4]: the same x)
              Each main-path phase sets the launch counters to 0 just before
              it and reads them just after; its kernels must have launched.
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
@@ -94,8 +118,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              of the order over runs of slack supersteps and its slack
 
 then the ``kernels`` summary line (the path launches include those of
-the strategies, main_path_auto and pcg phases), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
-without CUDA or outside a checkout of the repository.
+the strategies, main_path_auto, pcg and serve phases), the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``. It exits non-zero,
+printing no result, without CUDA or outside a checkout of the repository.
 """
 import dataclasses
 import json
@@ -122,17 +147,27 @@ KERNELS = {
     "sptrsv_elastic_mrhs": (
         "src/repro/kernels/sptrsv.py:232", "sptrsv_elastic.cu", "elastic_mrhs", _LEVEL_M),
     "spmv": ("src/repro/kernels/spmv.py:32", "spmv.cu", "spmv", "spmv.cu::spmv_sliced_kernel"),
+    # the m-RHS kernel's banked launch: the serve layer's width-class grouping
+    "sptrsv_bank": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "bank",
+                    "level.cuh::sptrsv_level_bank_kernel"),
 }
 KERNEL_REPLACES = {name: k[0] for name, k in KERNELS.items()}
 MAIN_M = 32
 # a float32 solve against scipy's in float64: ||x - x64|| / ||x64||
 RELERR_VS_SCIPY = 1e-5
+LIBRARY_GAP = 1e-4  # a yardstick's answer against the kernel's: the same system solved
 STRATEGIES = ("growlocal", "serial", "wavefront", "spmp", "hdagg", "funnel-gl", "block")
 # the pcg phase: poisson2d_matrix(512), (n, nnz(A), nnz(IC(0) factor))
 PCG_GRID = 512
 PCG_SIZES = (262_144, 1_308_672, 785_408)
 PCG_TOL = 1e-6
 PCG_MAXITER = 2000
+# the serve phase: the CLI's closed loop, the width family, the slots
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 25
+SERVE_SAMPLE = 64  # served results per mode held against the CPU plain version
+SERVE_FAMILY = 6  # shifted_coupling_lower shifts: one width class, a bank of 8 lanes
+SERVE_SLOTS = 32
 T_START = time.perf_counter()
 
 
@@ -149,6 +184,20 @@ def require(cond, msg) -> None:
 
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
+
+
+def device_events(prof) -> list:
+    """The device events of a ``torch.profiler`` run, summed by name,
+    longest first: ``{"name", "count", "ms"}``."""
+    events = []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        events.append({"name": evt.key[:80], "count": evt.count, "ms": us / 1e3})
+    return sorted(events, key=lambda e: -e["ms"])
 
 
 def profile_iterations(run, n_iter=20) -> dict:
@@ -169,15 +218,7 @@ def profile_iterations(run, n_iter=20) -> dict:
         e1.record()
         e1.synchronize()
     elapsed = e0.elapsed_time(e1)
-    kernels = []
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        kernels.append({"name": evt.key[:80], "count": evt.count, "ms": us / 1e3})
-    kernels.sort(key=lambda k: -k["ms"])
+    kernels = device_events(prof)
     busy = sum(k["ms"] for k in kernels)
     return {"iters": n_iter, "elapsed_ms": elapsed, "ms_per_iter": elapsed / n_iter,
             "device_busy_ms": busy, "idle_share": 1.0 - busy / elapsed,
@@ -231,7 +272,7 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
         # z0 = M(b), then one M(r) per iteration: two solves each; one
         # matvec per iteration
         want = {"single": 2 * (iters + 1), "mrhs": 0, "elastic_single": 0,
-                "elastic_mrhs": 0, "spmv": iters}
+                "elastic_mrhs": 0, "bank": 0, "spmv": iters}
         require(launches == want, f"pcg launches {launches}, want {want}")
         require(x.device.type == dev.type and x.dtype == torch.float32 and x.shape == (n,)
                 and bool(torch.isfinite(x).all()), "pcg output")
@@ -419,16 +460,18 @@ def plan_bsp_cost(solver, L, barrier=500.0) -> float:
     return float(loads.max(axis=1).sum() + barrier * plan.n_supersteps)
 
 
-def cpu_scan_twin(solver):
-    """``solver``'s own plan bound on the CPU scan backend, the plain
-    version of every kernel: the same rows, order and values, with no
-    second schedule."""
+def cpu_twin(solver, backend="scan"):
+    """``solver``'s own plan bound on the CPU, the plain version of every
+    kernel: the same rows, order and values, with no second schedule. On
+    the ``scan`` backend it runs the plan's steps; on the ``kernel`` backend
+    the level walk's plain version (``sptrsv_level_ref``, bitwise the
+    steps), one pass per level instead of per step."""
     import torch
 
     import repro_torch
 
     return repro_torch.TriangularSolver(
-        exec_plan=solver.exec_plan, total_perm=solver._perm.cpu().numpy(), backend="scan",
+        exec_plan=solver.exec_plan, total_perm=solver._perm.cpu().numpy(), backend=backend,
         dtype=solver.dtype, device=torch.device("cpu"), fingerprint=solver.fingerprint,
         strategy=solver.strategy, lower=solver.lower, inspector_seconds=0.0)
 
@@ -478,10 +521,15 @@ def strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, mai
             require(gpu.strategy == strategy and gpu.info()["mode"] == "bsp"
                     and gpu.device.type == "cuda" and gpu.backend == "kernel",
                     f"{name} {strategy}: defaults")
-            cpu = cpu_scan_twin(gpu)  # the plain version of the same plan
+            # the kernel's plain version on the same plan, on the CPU: the
+            # plan's steps; on the serial plans (~100,000 steps, over 10 s
+            # each in the step loop) the level walk (sptrsv_level_ref),
+            # bitwise the step walk
+            cpu = cpu_twin(gpu, "kernel" if strategy == "serial" else "scan")
             row = {"matrix": name, "strategy": strategy, "plan_s": plan_s,
                    **{key: gpu.info()["plan"][key] for key in ("n_steps", "n_supersteps", "W", "k")},
-                   **level_shape(gpu), "bsp_cost": plan_bsp_cost(gpu, L), "cpu_plain_s": 0.0}
+                   **level_shape(gpu), "bsp_cost": plan_bsp_cost(gpu, L), "cpu_plain_s": 0.0,
+                   "cpu_plain": cpu.backend}
             for kname, rhs, ref in (("sptrsv_single", b, x64), ("sptrsv_mrhs", B, X64)):
                 x = gpu.solve(rhs)
                 torch.cuda.synchronize()
@@ -513,10 +561,11 @@ def strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, mai
 
 
 def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err, card,
-               strategy_rows) -> dict:
+               strategy_rows):
     """``strategy="auto"`` on the card, model-based and tuned (see the
     module docstring); returns the phase's record, which it has emitted,
-    with the launches of its solves and trials."""
+    with the launches of its solves and trials, and the PlanCache that
+    holds the model-based plans."""
     import torch
 
     import repro_torch
@@ -526,11 +575,15 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
         return {"strategy": sel.strategy, "slack": sel.options.slack}
 
     rows = []
+    # one PlanCache for both matrices: the serve phase registers them
+    # through it and builds no second plan
+    cache = repro_torch.PlanCache()
     sptrsv.reset_launches()  # the model-based path's launches start here
     for name, L in mats.items():
         b, B, _ = inputs[name]
         x64, X64 = refs[name]
-        cache, cache_cpu = repro_torch.PlanCache(), repro_torch.PlanCache()
+        cache_cpu = repro_torch.PlanCache()
+        before = cache.stats.as_dict()
         t0 = time.perf_counter()
         gpu = repro_torch.TriangularSolver.plan(L, strategy="auto", cache=cache)
         plan_s = time.perf_counter() - t0
@@ -568,10 +621,10 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
         t0 = time.perf_counter()
         again = repro_torch.TriangularSolver.plan(L, strategy="auto", cache=cache)
         row["second_plan_s"] = time.perf_counter() - t0
-        st = cache.stats
-        require(again is gpu and st.selections == 1 and st.selection_hits == 1
-                and st.misses == 1 and st.hits == 1, f"{name}: second auto plan: {st}")
-        row["cache"] = st.as_dict()
+        st = {k: v - before[k] for k, v in cache.stats.as_dict().items()}  # this matrix's
+        require(again is gpu and st["selections"] == 1 and st["selection_hits"] == 1
+                and st["misses"] == 1 and st["hits"] == 1, f"{name}: second auto plan: {st}")
+        row["cache"] = st
         rows.append((row, gpu, cpu_plan_s, cache_cpu))
     model_launches = dict(sptrsv.launches)
     nb_mode = [r for r, *_ in rows if r["matrix"] == "nb"][0]["mode"]
@@ -627,11 +680,333 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
         row["tuned"]["ms"] = kernel_ms(tuned, None, cuda_times)
         row["tuned"]["ms_m32"] = kernel_ms(tuned, MAIN_M, cuda_times)
     rec = {"phase": "main_path_auto", "matrices": [r for r, *_ in rows],
+           "plan_cache": cache.stats.as_dict(),
            "tune_matrices": [r["matrix"] for r, *_ in tuned_rows],
            "launches": {"model": model_launches, "tune_and_checks": tuned_launches},
            "bitwise_vs_cpu_scan": True, "relerr_limit": RELERR_VS_SCIPY, **card}
     emit(rec)
-    return rec
+    return rec, cache
+
+
+def plan_work(plan, esize) -> dict:
+    """What this run's data needs of a solve, padding left out: the plan's
+    real entries (index and value), real lane steps (row, diagonal, accum
+    flag) and finishing rows."""
+    real = plan.row_ids < plan.n
+    entries = int((plan.val_src >= 0).sum())
+    lane_steps = int(real.sum())
+    return {"entries": entries, "finishes": int((real & ~plan.accum).sum()),
+            "bytes": entries * (4 + esize) + lane_steps * (4 + esize + 1),
+            "padding_share": 1.0 - entries / plan.col_idx.size}
+
+
+def bound(nbytes, ops) -> dict:
+    """The least time of the card for ``nbytes`` moved and ``ops``
+    operations (data sheet rates): the larger of the two."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+    return {"bound_us": max(bytes_ms, ops_ms) * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, max_abs,
+                main_err, card):
+    """The batching solve service on the card (see the module docstring);
+    returns the phase's record, which it has emitted, with each mode's
+    launches and the bank kernel's timing record."""
+    import collections
+    import itertools
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.kernels import sptrsv
+    from repro_torch.kernels.ops import stack_level_bank
+    from repro_torch.kernels.ref import sptrsv_level_bank_ref
+    from repro_torch.pipeline import GroupBank
+    from repro_torch.serve import (
+        GroupReplay,
+        SolveService,
+        direct_reference,
+        make_sampler,
+        run_closed_loop,
+        width_class_patterns,
+    )
+
+    def check_served(name, kept, grouped):
+        """Every served result bitwise its replay on the card (its
+        ``direct_reference`` at the recorded width and position, through
+        ``GroupReplay`` for banked tickets); a sample of SERVE_SAMPLE of
+        them bitwise the CPU plain version, solved together: a column's
+        bits depend neither on its width nor on its position."""
+        for t, b, x in kept:
+            require(bitwise_equal(torch.from_numpy(x), torch.from_numpy(
+                direct_reference(t.served_by, b, t.batch_width, t.batch_position))),
+                f"serve {name}: a result differs from its replay on the card")
+        step = max(1, len(kept) // SERVE_SAMPLE)
+        sample = kept[::step][:SERVE_SAMPLE]
+        require(len(sample) >= min(32, len(kept)), f"serve {name}: sample {len(sample)}")
+        B = np.stack([b for _, b, _ in sample], axis=1)
+        twins = {}
+        for t, _, _ in sample:
+            s = t.served_by.solver if isinstance(t.served_by, GroupReplay) else t.served_by
+            twins.setdefault(id(s), cpu_twin(s))
+        if grouped:
+            bank = GroupBank()
+            for key, twin in twins.items():
+                bank.add(key, twin)
+            keys = [id(t.served_by.solver if isinstance(t.served_by, GroupReplay)
+                       else t.served_by) for t, _, _ in sample]
+            X = bank.solve(keys, B)
+        else:
+            X = torch.empty(B.shape, dtype=torch.float32)
+            for key, twin in twins.items():
+                cols = [j for j, (t, _, _) in enumerate(sample) if id(t.served_by) == key]
+                X[:, cols] = twin.solve(B[:, cols])
+        err = 0.0
+        for j, (_, _, x) in enumerate(sample):
+            require(bitwise_equal(torch.from_numpy(x), X[:, j]),
+                    f"serve {name}: a result differs from the CPU plain version")
+            err = max(err, max_abs(torch.from_numpy(x), X[:, j]))
+        if grouped:
+            main_err["sptrsv_bank"] = max(main_err.get("sptrsv_bank", 0.0), err)
+        return {"replayed_on_card": len(kept), "cpu_plain_sample": len(sample),
+                "cpu_plain_twins": len(twins), "max_abs_vs_cpu_plain": err}
+
+    def drive(name, svc, patterns, seed, update=None):
+        """The closed loop of the CLI's defaults on ``svc`` over
+        ``patterns`` (prewarmed, telemetry and counters zeroed first).
+        Every request is drawn before the window (``draw_s``), so the
+        clients only submit and wait; ``update()`` runs once, mid-stream,
+        from another thread. Launches are read before any replay. Returns
+        the row, the served ``(ticket, b, x)`` and the metrics, and the
+        drawn requests (``device_window`` replays them)."""
+        total = SERVE_CLIENTS * SERVE_REQUESTS
+        sampler = make_sampler(patterns, "uniform", seed=seed)
+        t0 = time.perf_counter()
+        pool = [sampler() for _ in range(total)]
+        draw_s = time.perf_counter() - t0
+        svc.prewarm()
+        svc.metrics.reset()
+        torch.cuda.synchronize()
+        kept, half = [], threading.Event()
+        drawn = itertools.count()
+
+        def counted():
+            i = next(drawn)
+            if i == total // 2:
+                half.set()
+            return pool[i]
+
+        result = {}
+        updater = None
+        if update is not None:
+            def run_update():
+                if half.wait(600):
+                    result["update"] = update()
+
+            updater = threading.Thread(target=run_update, daemon=True)
+            updater.start()
+        sptrsv.reset_launches()  # this mode's launches start here
+        report = run_closed_loop(svc, counted, n_clients=SERVE_CLIENTS,
+                                 requests_per_client=SERVE_REQUESTS, timeout=600, keep=kept)
+        launches = dict(sptrsv.launches)
+        if updater is not None:
+            updater.join(600)
+            require("update" in result, f"serve {name}: the mid-stream update did not run")
+        snap = report["metrics"]
+        require(report["errors"] == 0 and report["rejected"] == 0 and len(kept) == total
+                and snap["completed"] == total, f"serve {name}: served {len(kept)} of {total}")
+        row = {"mode": name, "requests": total, "completed": snap["completed"],
+               "elapsed_s": report["elapsed_seconds"],
+               "throughput_req_s": report["solves_per_sec"],
+               "latency_us": snap["latency_us"], "queue_wait_us": snap["queue_wait_us"],
+               "batch_solve_us": snap["batch_solve_us"],
+               "dispatch_width_hist": dict(sorted(collections.Counter(
+                   t.batch_width for t, _, _ in kept).items())),
+               "batch_size_hist": snap["batch_size_hist"], "batches": snap["batches"],
+               "grouped_batches": snap["grouped_batches"], "slots": snap["slots"],
+               "draw_s": draw_s, "launches": launches, **result}
+        return row, kept, snap, pool
+
+    def device_window(svc, pool):
+        """The same requests again, in a second closed loop under
+        ``torch.profiler``: the device's time (its kernels and copies,
+        summed) against the loop's elapsed time, whence its idle share
+        while serving. The profiler slows the host, so this loop is
+        slower than the measured one; its launches are not counted."""
+        drawn = itertools.count()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            report = run_closed_loop(svc, lambda: pool[next(drawn)], n_clients=SERVE_CLIENTS,
+                                     requests_per_client=SERVE_REQUESTS, timeout=600)
+        require(report["errors"] == 0 and report["metrics"]["completed"] > 0,
+                "serve: the profiled loop failed")
+        events = device_events(prof)
+        busy = sum(e["ms"] for e in events)
+        elapsed_ms = report["elapsed_seconds"] * 1e3
+        return {"elapsed_ms": elapsed_ms, "req_s": report["solves_per_sec"],
+                "device_busy_ms": busy,
+                "idle_share": 1.0 - busy / elapsed_ms if busy else "not measured",
+                "top": events[:6]}
+
+    rows = []
+    # ---- microbatch: ER and NB through the main_path_auto PlanCache
+    misses = auto_cache.stats.misses
+    er_new = inputs["er"][2]
+    with SolveService(cache=auto_cache, strategy="auto") as svc:
+        fps = {name: svc.register(L) for name, L in mats.items()}
+        require(auto_cache.stats.misses == misses, "serve: registration built a second plan")
+        modes = {name: svc.pattern(fp).current_solver().info()["mode"]
+                 for name, fp in fps.items()}
+
+        def update_er():
+            t0 = time.perf_counter()
+            v = svc.numeric_update(fps["er"], er_new)
+            return {"version": v, "numeric_update_s": time.perf_counter() - t0}
+
+        patterns = [(fps[n], mats[n].n_rows) for n in mats]
+        row, kept, snap, pool = drive("microbatch", svc, patterns, 11, update_er)
+        checks = check_served("microbatch", kept, grouped=False)
+        row["device_window"] = device_window(svc, pool)
+        # update_values alone on the card: the device gather, synchronized
+        er_bound = svc.pattern(fps["er"]).current_solver().bound
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            er_bound.update_values(er_new)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        versions = sorted({(t.fingerprint == fps["er"], t.version) for t, _, _ in kept})
+    launches = row["launches"]
+    # ER's bulk plan on the m-RHS kernel, NB's elastic pick on the elastic
+    # m-RHS kernel: a microbatch is one plan, so no bank
+    require(launches["mrhs"] > 0 and launches["bank"] == 0
+            and (launches["elastic_mrhs"] > 0) == (modes["nb"] == "elastic"),
+            f"serve microbatch launches {launches}, modes {modes}")
+    require((True, 1) in versions and (True, 0) in versions,
+            f"serve microbatch: ER versions served {versions}")
+    row.update(checks, modes=modes, update_values_s=statistics.median(secs),
+               update_values_s_all=secs, plans_built=auto_cache.stats.misses - misses)
+    rows.append(row)
+
+    # ---- width-class batching and continuous serving: one width class
+    cache = repro_torch.PlanCache()
+    t0 = time.perf_counter()
+    with SolveService(cache=cache, strategy="wavefront", width_class_batching=True) as svc:
+        pats = width_class_patterns(svc, SERVE_FAMILY, n=mats["er"].n_rows, stride=8, seed=0)
+        plan_s = time.perf_counter() - t0
+        row, kept, snap, pool = drive("width_class", svc, pats, 12)
+        wc = next(iter(svc._banks.values()))
+        lanes = int(wc._bank.level_off.shape[0])
+        row.update(check_served("width_class", kept, grouped=True), plan_s=plan_s,
+                   patterns=len(pats), bank=wc.describe(), bank_lanes=lanes,
+                   width_classes=len(snap["width_classes"]),
+                   device_window=device_window(svc, pool))
+    launches = row["launches"]
+    plain_batches = snap["batches"] - snap["grouped_batches"]
+    require(launches["bank"] == snap["grouped_batches"] > 0
+            and launches["mrhs"] == plain_batches and launches["elastic_mrhs"] == 0,
+            f"serve width_class launches {launches}, batches {snap['batches']}, "
+            f"grouped {snap['grouped_batches']}")
+    require(lanes == 8, f"serve width_class: a bank of {lanes} lanes, want 8")
+    rows.append(row)
+
+    with SolveService(cache=cache, strategy="wavefront", mode="continuous",
+                      n_slots=SERVE_SLOTS) as svc:
+        misses = cache.stats.misses
+        pats = width_class_patterns(svc, SERVE_FAMILY, n=mats["er"].n_rows, stride=8, seed=0)
+        require(cache.stats.misses == misses, "serve continuous: registration built a plan")
+        row, kept, snap, pool = drive("continuous", svc, pats, 13)
+        eng = next(iter(svc._engines.values()))
+        row.update(check_served("continuous", kept, grouped=True), engine=eng.describe(),
+                   n_slots=eng.n_slots, device_window=device_window(svc, pool))
+    launches = row["launches"]
+    require(launches["bank"] == snap["slots"]["passes"] > 0 and launches["mrhs"] == 0
+            and launches["elastic_mrhs"] == 0,
+            f"serve continuous launches {launches}, passes {snap['slots']['passes']}")
+    rows.append(row)
+
+    # ---- the bank kernel: 8 distinct-valued clones of ER's plan, m = 32
+    L = mats["er"]
+    rng = np.random.default_rng(14)
+    values = [L.data * rng.uniform(0.5, 1.5, L.nnz) for _ in range(8)]
+    clones = [er_solver.clone_with_values(v) for v in values]
+    require(len({c.width_class for c in clones}) == 1, "ER clones: one width class")
+    bank = stack_level_bank([c.bound._la for c in clones], [c._perm for c in clones],
+                            [c._inv for c in clones])
+    n, m = L.n_rows, MAIN_M
+    lane_idx = torch.arange(m, dtype=torch.int32) % 8  # every lane, four columns each
+    b_col = torch.randn((m, n + 1), generator=torch.Generator().manual_seed(15)).to(
+        er_solver.device)
+    b_col[:, n] = 0
+    sptrsv.reset_launches()
+    x = sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col)
+    torch.cuda.synchronize()
+    require(sptrsv.launches["bank"] == 1, "the bank check is one launch")
+    t0 = time.perf_counter()
+    x_cpu = sptrsv_level_bank_ref(*(t.cpu() for t in bank[:9]), lane_idx, b_col.cpu())
+    ref_cpu_s = time.perf_counter() - t0
+    require(bitwise_equal(x, x_cpu), "the bank kernel != its CPU plain version")
+    main_err["sptrsv_bank"] = max(main_err.get("sptrsv_bank", 0.0), max_abs(x, x_cpu))
+    ms = statistics.median(cuda_times(
+        lambda: sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col), 3, 20))
+    # the cols kernel on one of those plans, on the same column-major
+    # buffer: the m-RHS entry's launch as its wrapper makes it (x zeroed,
+    # one launch), without the wrapper's copy of b into that layout
+    la = clones[0].bound._la
+    cols_ms = statistics.median(cuda_times(
+        lambda: sptrsv._launch_level("single", "mrhs", la[:7], b_col.T), 3, 20))
+    plain = cuda_times(lambda: sptrsv_level_bank_ref(*bank[:9], lane_idx, b_col), 0, 1)
+    # the library: one cuSPARSE solve of the 8 clones' block diagonal
+    # (sparse CSR, the rows of lane l at l * n) with B [8n, 4], lane l's
+    # four columns (l, l + 8, l + 16, l + 24) in its rows, in caller order
+    inv = clones[0]._inv  # the clones share ER's plan
+
+    def stacked(cols):  # f[32, n + 1] in plan order -> f[8n, 4] in caller order
+        return cols[:, :n][:, inv].reshape(m // 8, 8, n).permute(1, 2, 0).reshape(8 * n, -1)
+
+    nnz = L.nnz
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        L_bd = torch.sparse_csr_tensor(
+            torch.cat([torch.as_tensor(L.indptr[:-1], dtype=torch.int64) + lane * nnz
+                       for lane in range(8)] + [torch.tensor([8 * nnz])]),
+            torch.cat([torch.as_tensor(L.indices, dtype=torch.int64) + lane * n
+                       for lane in range(8)]),
+            torch.as_tensor(np.concatenate(values), dtype=torch.float32),
+            size=(8 * n, 8 * n)).to(er_solver.device)
+        B_bd = stacked(b_col).contiguous()
+        lib = cuda_times(lambda: torch.triangular_solve(B_bd, L_bd, upper=False), 3, 20)
+        x_lib = torch.triangular_solve(B_bd, L_bd, upper=False)[0]
+    x_ref = stacked(x).double()
+    lib_gap = float((x_lib.double() - x_ref).norm() / x_ref.norm())
+    require(lib_gap < LIBRARY_GAP, f"bank: the library's block-diagonal solve differs "
+            f"from the bank kernel by {lib_gap}")
+    esize = b_col.element_size()
+    work = plan_work(er_solver.exec_plan, esize)  # each lane: the same pattern
+    lanes_used = 8
+    timing = {"matrix": "er", "kernel": "sptrsv_bank", "m": m, "lanes": lanes_used,
+              "bank_lanes": int(bank.level_off.shape[0]), "ms": ms, "cols_ms": cols_ms,
+              "bank_over_cols": ms / cols_ms, "launches_per_solve": 1,
+              **bound(lanes_used * work["bytes"] + 2 * n * m * esize,
+                      2 * (work["entries"] + work["finishes"]) * m),
+              "levels_per_lane": [int(v) for v in bank.n_levels.tolist()],
+              "plain_ms": statistics.median(plain), "plain_reps": len(plain),
+              "plain_cpu_s": ref_cpu_s, "library_ms": statistics.median(lib),
+              "library": "torch.triangular_solve, block-diagonal sparse CSR of the 8 "
+                         "clones, B [8n, 4]", "library_relgap": lib_gap,
+              "bitwise_vs_cpu_plain": True, **card}
+    emit({"phase": "timing", **timing})
+    rec = {"phase": "serve", "modes": rows, "clients": SERVE_CLIENTS,
+           "requests_per_client": SERVE_REQUESTS, "bank_check": {
+               "clones": 8, "m": m, "bitwise_vs_cpu_plain": True, "ms": ms,
+               "cols_ms": cols_ms, "library_ms": timing["library_ms"]}, **card}
+    emit(rec)
+    return rec, timing
 
 
 def main() -> int:
@@ -1005,8 +1380,8 @@ def main() -> int:
     refs = scipy_refs(mats, inputs)
     strat = strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
                              card)
-    auto = auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err, card,
-                      strat["rows"])
+    auto, auto_cache = auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs,
+                                  main_err, card, strat["rows"])
     # the kernels' path launches add these paths' (the tuned plans' trials
     # and solves too, but not the launches that time a kernel alone)
     for counts in (strat["launches"], *auto["launches"].values()):
@@ -1018,6 +1393,13 @@ def main() -> int:
     # the kernels' path launches add this path's
     path_launches["single"] += pcg["launches"]["single"]
     path_launches["spmv"] += pcg["launches"]["spmv"]
+
+    # ---------------------------------------------------------- serve
+    serve, bank_timing = serve_phase(mats, inputs, solvers["er"], auto_cache, cuda_times,
+                                     bitwise_equal, max_abs, main_err, card)
+    for row in serve["modes"]:  # the serving loops' launches, not the replays'
+        for key, v in row["launches"].items():
+            path_launches[key] += v
 
     # --------------------------------------------------------- timing
     def graph_ms(fn, reps):
@@ -1059,24 +1441,6 @@ def main() -> int:
             return statistics.median(ts), gap, None
         except (RuntimeError, NotImplementedError, TypeError) as e:
             return None, None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
-
-    def plan_work(plan, esize):
-        """What this run's data needs of a solve, padding left out: the
-        plan's real entries (index and value), real lane steps (row,
-        diagonal, accum flag) and finishing rows."""
-        real = plan.row_ids < plan.n
-        entries = int((plan.val_src >= 0).sum())
-        lane_steps = int(real.sum())
-        return {"entries": entries, "finishes": int((real & ~plan.accum).sum()),
-                "bytes": entries * (4 + esize) + lane_steps * (4 + esize + 1),
-                "padding_share": 1.0 - entries / plan.col_idx.size}
-
-    def bound(nbytes, ops):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_FLOPS * 1e3
-        return {"bound_us": max(bytes_ms, ops_ms) * 1e3,
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes, "ops": ops}
 
     def rhs_pad(n, m):
         shape = (n + 1,) if m is None else (n + 1, m)
@@ -1329,6 +1693,7 @@ def main() -> int:
         timing[(name, "spmv")] = rec
         emit({"phase": "timing", **rec})
 
+    timing[("er", "sptrsv_bank")] = bank_timing
     summary = []
     for kname, (replaces, source, counter, body) in KERNELS.items():
         rec = timing[("er", kname)]

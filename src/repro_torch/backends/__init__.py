@@ -2,7 +2,7 @@
 
 Built in: ``kernel`` (the CUDA kernels; their plain version on CPU
 tensors) and ``scan`` (the plain PyTorch executor), both with the
-``"elastic"`` capability. See ``base`` for the protocol and ``registry``
+``"grouped"``, ``"elastic"`` and ``"slots"`` capabilities. See ``base`` for the protocol and ``registry``
 for registration.
 """
 from repro_torch.backends.base import (
@@ -13,6 +13,7 @@ from repro_torch.backends.base import (
 )
 from repro_torch.backends.registry import (
     available_backends,
+    backends_with,
     bind,
     get_backend,
     register_backend,
@@ -41,6 +42,7 @@ __all__ = [
     "ScanBackend",
     "ScanBoundSolve",
     "available_backends",
+    "backends_with",
     "bind",
     "expected_entry_count",
     "get_backend",

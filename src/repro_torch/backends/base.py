@@ -15,7 +15,12 @@
         through the plan's ``val_src``/``diag_src`` maps — and returns a NEW
         bound solve sharing the (read-only) index tensors; the old bound is
         untouched;
-      - ``describe()`` — a JSON-ready dict for telemetry.
+      - ``describe()`` — a JSON-ready dict for telemetry;
+      - where ``supports_grouped``: classmethods that solve one rhs per
+        plan of one width class in one dispatch (``solve_grouped``), over
+        a bank stacked once (``stack_bank`` / ``solve_bank``), and over a
+        resident rhs bank (``blank_rhs`` / ``insert_lane`` /
+        ``extract_lane`` / ``solve_resident``).
 
 The value contract ``update_values`` must honor: a solve after
 ``update_values(data)`` is bitwise-identical to a solve on a fresh ``bind``
@@ -84,6 +89,77 @@ class BoundSolve(abc.ABC):
     n: int  # problem size (scratch row excluded)
     n_entries: int  # entry count update_values data must match
 
+    # width-class grouping: True when this bound can solve one rhs per
+    # plan of one width class in a single dispatch (capability
+    # ``"grouped"``). Advertising it is a three-method contract:
+    # ``solve_grouped`` (stack per call; the replay path) plus
+    # ``stack_bank`` / ``solve_bank`` (the serving path —
+    # ``repro_torch.pipeline.GroupBank`` dispatches through them).
+    supports_grouped: bool = False
+
+    @classmethod
+    def _unsupported(cls, what: str):
+        return NotImplementedError(
+            f"backend {getattr(cls, 'backend', cls.__name__)!r} does not support {what}"
+        )
+
+    @classmethod
+    def solve_grouped(cls, bounds, b_cols):
+        """Solve lane j of ``b_cols`` f[g, n] (plan row order) against
+        ``bounds[j]`` — one dispatch for the whole group. All bounds share
+        one width class (equal plan tensor shapes, dtype and device).
+        Returns x f[g, n]. Only meaningful when ``supports_grouped``."""
+        raise cls._unsupported("width-class grouped solves")
+
+    @classmethod
+    def stack_bank(cls, bounds, perms, invs):
+        """Stack one width class's bounds into an opaque device bank (lane
+        axis first, padded up to a power of two) with per-lane row
+        permutations ``perms`` / ``invs`` (int64[n] each) — restacked only
+        when membership changes; only ever passed back to ``solve_bank`` /
+        ``solve_resident``."""
+        raise cls._unsupported("width-class grouped solves (no bank support)")
+
+    @classmethod
+    def solve_bank(cls, bank, lane_idx, B):
+        """Solve column j of ``B`` f[n, m] (caller row order) against bank
+        lane ``lane_idx[j]``; returns x f[n, m] (caller order), bitwise
+        ``solve_grouped`` on the same lanes."""
+        raise cls._unsupported("width-class grouped solves (no bank support)")
+
+    # resident RHS slots — the continuous-batching serve contract
+    # (capability ``"slots"``): a resident rhs bank f[n, S] on the device
+    # that admission writes slot by slot (``insert_lane``), each dispatch
+    # pass solves a lane prefix of (``solve_resident``, bitwise
+    # ``solve_bank`` on the same lanes), and completion reads out of
+    # (``extract_lane``). The three device ops move bits unchanged and
+    # never perturb neighbour slots.
+    @classmethod
+    def blank_rhs(cls, n, slots, dtype, device):
+        """A zeroed resident rhs bank f[n, slots] on ``device``."""
+        raise cls._unsupported("resident RHS slots (no 'slots' capability)")
+
+    @classmethod
+    def insert_lane(cls, B_res, lane, b):
+        """A NEW resident bank with column ``lane`` replaced by ``b`` f[n];
+        every other column's bits are untouched and the input bank is not
+        mutated (a pass in flight keeps its snapshot)."""
+        raise cls._unsupported("resident RHS slots (no 'slots' capability)")
+
+    @classmethod
+    def extract_lane(cls, X, lane):
+        """Column ``lane`` of a pass result ``X`` f[n, S] as f[n], bits
+        unchanged."""
+        raise cls._unsupported("resident RHS slots (no 'slots' capability)")
+
+    @classmethod
+    def solve_resident(cls, bank, lane_idx, B_res):
+        """One continuous-mode pass: solves the first ``len(lane_idx)``
+        columns of the resident bank (the engine's pow2 occupied-lane
+        prefix), bitwise ``solve_bank`` on that prefix; ``B_res`` is on
+        the device already, so nothing re-uploads."""
+        raise cls._unsupported("resident RHS slots (no 'slots' capability)")
+
     def _check_data(self, data) -> np.ndarray:
         """Reject mis-sized update data: a wrong-pattern data vector would
         otherwise gather garbage values instead of raising."""
@@ -142,7 +218,14 @@ class Backend(abc.ABC):
 
     def capabilities(self) -> Tuple[str, ...]:
         """Optional features this backend's bounds implement beyond the
-        core contract. Known so far: ``"elastic"`` — ``bind(slack=s)``
-        executes the bounded-slack mode, bitwise-identical to the
-        bulk-synchronous bound."""
+        core contract: ``"grouped"`` — the bulk bound solves one rhs per
+        plan of one width class in a single dispatch
+        (``BoundSolve.solve_grouped`` / ``stack_bank`` / ``solve_bank``;
+        the serve layer's cross-pattern batching keys on it);
+        ``"elastic"`` — ``bind(slack=s)`` executes the bounded-slack mode,
+        bitwise-identical to the bulk-synchronous bound; ``"slots"`` —
+        resident RHS slots on the stacked bank (``blank_rhs`` /
+        ``insert_lane`` / ``extract_lane`` / ``solve_resident``; the
+        continuous-batching serve engine, ``repro_torch.serve.slots``,
+        requires it)."""
         return ()

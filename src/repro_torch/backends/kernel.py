@@ -4,10 +4,17 @@ port's counterpart of the JAX package's ``pallas`` backend, and the default
 of ``TriangularSolver.plan``. Every solve is one launch of a level walk
 (``kernels.levels``): over the bulk level order, a run per superstep, for
 one right-hand side and for m (a block per column), and in
-``mode="elastic"`` over runs of ``slack`` supersteps. CPU tensors take the
-kernels' plain version. A timed solve is that one launch, timed as one
-step: the kernel, not the scan's segments."""
+``mode="elastic"`` over runs of ``slack`` supersteps. The bulk bound's
+grouped, banked and resident-slot solves (``"grouped"``, ``"slots"``: the
+serve layer's width-class batching) are one launch of the banked level
+walk over a ``LevelBank``, each column on its own plan; it overrides every
+bank method of the scan bound it subclasses that solves, so none reaches
+the plain executor. CPU tensors take the kernels' plain version. A timed
+solve is that one launch, timed as one step: the kernel, not the scan's
+segments."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.backends.base import BoundSolve
 from repro_torch.backends.registry import register_backend
@@ -23,6 +30,8 @@ from repro_torch.kernels.ops import (
     level_plan_arrays,
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
+    solve_with_level_bank,
+    stack_level_bank,
 )
 from repro_torch.solver.executor import elastic_plan_arrays
 
@@ -84,6 +93,7 @@ class KernelBoundSolve(_KernelTimed, ScanBoundSolve):
     tensors by the level order's ``perm``, on the device."""
 
     backend = "kernel"
+    supports_grouped = True
 
     def __init__(self, arrays, val_src, diag_src, *, n_entries):
         pa, self._la = arrays
@@ -92,6 +102,31 @@ class KernelBoundSolve(_KernelTimed, ScanBoundSolve):
 
     def solve(self, b):
         return solve_with_kernel_arrays(self._la, b)
+
+    # width-class grouping and resident slots: the banked kernel over the
+    # members' level tensors (a launch per solve); the resident bank's
+    # inserts and reads are the scan bound's, which move bits only
+    @classmethod
+    def solve_grouped(cls, bounds, b_cols):
+        # the distinct plans stacked for this call (a replay that repeats
+        # one plan in every lane stacks it once), in plan row order
+        las = list({id(b._la): b._la for b in bounds}.values())
+        member = {id(la): i for i, la in enumerate(las)}
+        rows = torch.arange(las[0].n, device=las[0].vals.device)
+        bank = stack_level_bank(las, [rows] * len(las), [rows] * len(las))
+        return solve_with_level_bank(bank, [member[id(b._la)] for b in bounds], b_cols.T).T
+
+    @classmethod
+    def stack_bank(cls, bounds, perms, invs):
+        return stack_level_bank([b._la for b in bounds], perms, invs)
+
+    @classmethod
+    def solve_bank(cls, bank, lane_idx, B):
+        return solve_with_level_bank(bank, lane_idx, B)
+
+    @classmethod
+    def solve_resident(cls, bank, lane_idx, B_res):
+        return solve_with_level_bank(bank, lane_idx, B_res[:, : len(lane_idx)])
 
     def update_values(self, data) -> "KernelBoundSolve":
         vals, diag = self._refreshed(data)
@@ -117,6 +152,9 @@ class ElasticKernelBoundSolve(_KernelTimed, ElasticScanBoundSolve):
     lane-step's flat ``step * k + lane`` index is the same in both."""
 
     backend = "kernel"
+    # as the JAX package's elastic bounds: no grouped twin (its inherited
+    # bank methods raise)
+    supports_grouped = False
 
     def __init__(self, arrays, elastic, val_src, diag_src, *, n_entries):
         ea, self._la = arrays
@@ -146,7 +184,8 @@ class ElasticKernelBoundSolve(_KernelTimed, ElasticScanBoundSolve):
 class KernelBackend(ScanBackend):
     """Single- and multi-RHS CUDA kernels: one launch per solve; inside it
     one block barrier per level, of the bulk level order or, elastic, of
-    the order over runs of ``slack`` supersteps. Binding also checks the
+    the order over runs of ``slack`` supersteps; grouped, banked and
+    resident-slot solves one launch of the banked walk. Binding also checks the
     plan's index contents and the elastic certificate, which the kernels
     read unchecked."""
 
@@ -154,6 +193,9 @@ class KernelBackend(ScanBackend):
     bound_cls = KernelBoundSolve
     elastic_bound_cls = ElasticKernelBoundSolve
     plan_arrays = staticmethod(kernel_arrays)
+
+    def capabilities(self):
+        return ("grouped", "elastic", "slots")
 
     @staticmethod
     def elastic_arrays(exec_plan, *, dtype, device):

@@ -50,6 +50,15 @@ def available_backends() -> Tuple[str, ...]:
         return tuple(_REGISTRY)
 
 
+def backends_with(capability: str) -> Tuple[str, ...]:
+    """Registered backend names advertising ``capability`` (see
+    ``Backend.capabilities``) — e.g. ``backends_with("grouped")`` names
+    the backends the serve layer can width-class-batch across patterns."""
+    with _LOCK:
+        entries = list(_REGISTRY.items())
+    return tuple(name for name, be in entries if capability in be.capabilities())
+
+
 def bind(name: str, exec_plan, **params) -> BoundSolve:
     """Convenience: ``get_backend(name).bind(exec_plan, **params)``; with
     no ``device`` the plan goes to the card (raises without CUDA)."""

@@ -2,7 +2,9 @@
 protocol (step bodies in ``repro_torch.solver.executor``). ``bind(slack=s)``
 binds the elastic macro-step loop (``"elastic"`` capability). Timed
 solves run in segments: one per superstep (bulk), one per macro-step
-(elastic)."""
+(elastic). The bulk bound also solves one rhs per plan of a width class
+in one traversal, grouped, banked and over resident slots (``"grouped"``
+and ``"slots"``); the elastic bound does not."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,6 +23,7 @@ from repro_torch.backends.base import (
 from repro_torch.backends.registry import register_backend
 from repro_torch.core.elastic import elastic_transform
 from repro_torch.device import resolve_device
+from repro_torch.solver import executor
 from repro_torch.solver.executor import (
     PlanArrays,
     _pad_to_window,
@@ -43,6 +46,9 @@ def _device_bytes(tensors) -> int:
 
 class ScanBoundSolve(BoundSolve):
     backend = "scan"
+    # the plain executor reads only the plan tensors, so plans of one
+    # width class (equal shapes) share one traversal, a lane per plan
+    supports_grouped = True
 
     def __init__(self, pa: PlanArrays, val_src, diag_src, *, n_entries):
         self._pa = pa
@@ -58,6 +64,36 @@ class ScanBoundSolve(BoundSolve):
         """Per-superstep timed solve: one segment per non-empty superstep
         of the plan (``solver.executor.solve_with_plan_timed``)."""
         return solve_with_plan_timed(self._pa, b)
+
+    # width-class grouping and resident slots ("grouped", "slots"): the
+    # executor's plain grouped, banked and resident solves
+    @classmethod
+    def solve_grouped(cls, bounds, b_cols):
+        return executor.solve_with_plan_group([b._pa for b in bounds], b_cols)
+
+    @classmethod
+    def stack_bank(cls, bounds, perms, invs):
+        return executor.stack_plan_bank([b._pa for b in bounds], perms, invs)
+
+    @classmethod
+    def solve_bank(cls, bank, lane_idx, B):
+        return executor.solve_with_bank(bank, lane_idx, B)
+
+    @classmethod
+    def blank_rhs(cls, n, slots, dtype, device):
+        return executor.blank_rhs(n, slots, dtype, device)
+
+    @classmethod
+    def insert_lane(cls, B_res, lane, b):
+        return executor.insert_lane(B_res, lane, b)
+
+    @classmethod
+    def extract_lane(cls, X, lane):
+        return executor.extract_lane(X, lane)
+
+    @classmethod
+    def solve_resident(cls, bank, lane_idx, B_res):
+        return executor.solve_resident(bank, lane_idx, B_res)
 
     def _refreshed(self, data):
         """(vals, diag) gathered from ``data`` on the bound's device."""
@@ -105,7 +141,18 @@ class ScanBoundSolve(BoundSolve):
 class ElasticScanBoundSolve(ScanBoundSolve):
     """The ``mode="elastic"`` scan bound: ``ceil(T / slack)`` macro-steps,
     each replaying its window's steps (``core.elastic``), bitwise-identical
-    to ``ScanBoundSolve`` on the same plan."""
+    to ``ScanBoundSolve`` on the same plan. It has no grouped twin, as in
+    the JAX package: width-class grouping stays on the bulk bound, and the
+    bank methods it would inherit raise."""
+
+    supports_grouped = False
+    solve_grouped = BoundSolve.__dict__["solve_grouped"]
+    stack_bank = BoundSolve.__dict__["stack_bank"]
+    solve_bank = BoundSolve.__dict__["solve_bank"]
+    blank_rhs = BoundSolve.__dict__["blank_rhs"]
+    insert_lane = BoundSolve.__dict__["insert_lane"]
+    extract_lane = BoundSolve.__dict__["extract_lane"]
+    solve_resident = BoundSolve.__dict__["solve_resident"]
 
     def __init__(self, ea, elastic, val_src, diag_src, *, n_entries):
         self._ea = ea  # solver.executor.ElasticArrays
@@ -201,7 +248,7 @@ class ScanBackend(Backend):
         )
 
     def capabilities(self):
-        return ("elastic",)
+        return ("grouped", "elastic", "slots")
 
     def bind(self, exec_plan, *, dtype=torch.float32, device=None, slack=0) -> BoundSolve:
         numpy_dtype(dtype)

@@ -2,7 +2,9 @@
 // order (src/repro_torch/kernels/levels.py), shared by csrc/sptrsv.cu (the
 // bulk order, a run per superstep) and csrc/sptrsv_elastic.cu (runs of
 // `slack` supersteps, mode="elastic"). Each launches one block for one
-// right-hand side and a block per column for m.
+// right-hand side and a block per column for m; csrc/sptrsv.cu also
+// launches a block per column over a bank of plans, each column on its
+// own plan (sptrsv_level_bank_kernel).
 //
 // A vertex is a lane's run of accum steps plus the step that finishes it;
 // the host orders the plan's real lane-steps by (run, level, lane, step)
@@ -107,6 +109,34 @@ __global__ void sptrsv_level_cols_kernel(
        x + c, int64_t{1});
 }
 
+// A bank of plans of one width class (the serve layer's grouped and
+// resident-slot solves), m right-hand sides in the column-major layout of
+// sptrsv_level_cols_kernel: block c walks column c on ITS OWN lane
+// lane_idx[c]. The bank concatenates its lanes' level tensors, each lane's
+// vert_ptr shifted by its lane-step offset and its level_ptr by its vertex
+// offset, so lane l's levels are level_ptr[level_off[l] ..
+// level_off[l] + n_levels[l]] and the walk runs unchanged: a column's bits
+// are those of sptrsv_level_cols_kernel on its lane's plan alone. Lanes
+// share n, T, k, W and the superstep bounds, not their level counts, so
+// nothing is padded.
+template <typename T>
+__global__ void sptrsv_level_bank_kernel(
+    const int32_t* __restrict__ row_ids, const int32_t* __restrict__ col_idx,
+    const T* __restrict__ vals, const T* __restrict__ diag,
+    const uint8_t* __restrict__ accum, const int32_t* __restrict__ vert_ptr,
+    const int32_t* __restrict__ level_ptr,
+    const int32_t* __restrict__ level_off,  // [lanes]
+    const int32_t* __restrict__ n_levels,   // [lanes]
+    const int32_t* __restrict__ lane_idx,   // [m]
+    int W, int64_t rows,
+    const T* __restrict__ b,  // [m, rows]
+    T* x) {                   // the same layout, zeroed by the caller
+  const int lane = __ldg(lane_idx + blockIdx.x);
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * rows;
+  walk(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr + __ldg(level_off + lane),
+       __ldg(n_levels + lane), W, b + c, x + c, int64_t{1});
+}
+
 template <typename T>
 int launch(const void* row_ids, const void* col_idx, const void* vals, const void* diag,
            const void* accum, const void* vert_ptr, const void* level_ptr, int n_levels,
@@ -131,6 +161,22 @@ int launch_cols(const void* row_ids, const void* col_idx, const void* vals,
       static_cast<const uint8_t*>(accum), static_cast<const int32_t*>(vert_ptr),
       static_cast<const int32_t*>(level_ptr), n_levels, W, rows, static_cast<const T*>(b),
       static_cast<T*>(x));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bank(const void* row_ids, const void* col_idx, const void* vals,
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* level_ptr, const void* level_off, const void* n_levels,
+                const void* lane_idx, int W, int m, int64_t rows, const void* b, void* x,
+                void* stream) {
+  sptrsv_level_bank_kernel<T><<<m, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_idx),
+      static_cast<const T*>(vals), static_cast<const T*>(diag),
+      static_cast<const uint8_t*>(accum), static_cast<const int32_t*>(vert_ptr),
+      static_cast<const int32_t*>(level_ptr), static_cast<const int32_t*>(level_off),
+      static_cast<const int32_t*>(n_levels), static_cast<const int32_t*>(lane_idx), W, rows,
+      static_cast<const T*>(b), static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
 }
 

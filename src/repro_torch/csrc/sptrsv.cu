@@ -31,6 +31,12 @@
 //
 // Single right-hand side: one block of 1,024 threads.
 //
+// A bank of plans (the serve layer's width-class grouping, for which the JAX
+// package vmaps its scan over the lanes): sptrsv_bank_f32/_f64 launch the
+// same column grid, block c walking column c on its own plan of the bank
+// (level.cuh, sptrsv_level_bank_kernel), with the bits of the m-RHS entry on
+// that plan alone. Its bound is the bytes of the lanes it reads, b and x.
+//
 // m right-hand sides (replaces src/repro/kernels/sptrsv.py:98,
 // _sptrsv_mrhs_kernel, which carries a [k, m] accumulator tile through the
 // plan's steps in VMEM): the column grid, block c walks the level order for
@@ -98,6 +104,30 @@ int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
                     int64_t rows, const void* b, void* x, void* stream) {
   return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
                                     level_ptr, n_levels, W, m, rows, b, x, stream);
+}
+
+// A bank of plans of one width class, m right-hand sides column-major:
+// column c walks its own lane lane_idx[c] (level.cuh,
+// sptrsv_level_bank_kernel). The serve layer's grouped, banked and
+// resident-slot solves.
+int sptrsv_bank_f32(const void* row_ids, const void* col_idx, const void* vals,
+                    const void* diag, const void* accum, const void* vert_ptr,
+                    const void* level_ptr, const void* level_off, const void* n_levels,
+                    const void* lane_idx, int W, int m, int64_t rows, const void* b,
+                    void* x, void* stream) {
+  return level::launch_bank<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                   level_ptr, level_off, n_levels, lane_idx, W, m, rows, b,
+                                   x, stream);
+}
+
+int sptrsv_bank_f64(const void* row_ids, const void* col_idx, const void* vals,
+                    const void* diag, const void* accum, const void* vert_ptr,
+                    const void* level_ptr, const void* level_off, const void* n_levels,
+                    const void* lane_idx, int W, int m, int64_t rows, const void* b,
+                    void* x, void* stream) {
+  return level::launch_bank<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                    level_ptr, level_off, n_levels, lane_idx, W, m, rows, b,
+                                    x, stream);
 }
 
 }  // extern "C"

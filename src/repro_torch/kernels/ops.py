@@ -9,7 +9,10 @@ a run per superstep (``level_plan_arrays``, ``solve_with_kernel_arrays``);
 the elastic kernels take the order over runs of the certificate's
 ``slack`` supersteps (``elastic_kernel_arrays``,
 ``solve_with_elastic_kernel_arrays``). Each solve is one launch with one
-block barrier per level.
+block barrier per level. A bank of plans of one width class
+(``LevelBank``, ``stack_level_bank``) takes the serve layer's grouped and
+resident-slot solves, each column on its own plan, in one launch of the
+banked kernel (``solve_with_level_bank``).
 
 This module is the device half of the ``kernel`` entry in
 ``repro_torch.backends`` — bind through the registry
@@ -25,8 +28,12 @@ import torch
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.levels import LevelOrder, level_order
-from repro_torch.kernels.sptrsv import sptrsv_elastic_cuda, sptrsv_level_cuda
-from repro_torch.solver.executor import PlanArrays, pad_rhs, plan_arrays
+from repro_torch.kernels.sptrsv import (
+    sptrsv_elastic_cuda,
+    sptrsv_level_bank_cuda,
+    sptrsv_level_cuda,
+)
+from repro_torch.solver.executor import PlanArrays, pad_rhs, plan_arrays, pow2_lanes
 
 
 def check_plan_indices(plan: ExecPlan) -> None:
@@ -104,6 +111,97 @@ def solve_with_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
     ``bind_kernel_solver`` and the ``kernel`` backend."""
     b_pad = pad_rhs(b.to(la.vals.dtype))
     return sptrsv_level_cuda(*la[:7], b_pad)[: la.n]
+
+
+class LevelBank(NamedTuple):
+    """A width class's plans in level order, stacked once on the device:
+    the banked kernel's tensors. Each lane's level tensors are concatenated
+    (``vert_ptr`` shifted by the lane's lane-step offset, ``level_ptr`` by
+    its vertex offset), so lane l walks ``level_ptr[level_off[l] ..
+    level_off[l] + n_levels[l]]`` of the shared arrays. The lane axis is
+    padded up to a power of two by repeating lane 0
+    (``solver.executor.pow2_lanes``), whose padded lanes point at lane 0's
+    levels and copy no plan data."""
+
+    row_ids: torch.Tensor  # int32[sum P]
+    col_idx: torch.Tensor  # int32[sum P, W]
+    vals: torch.Tensor  # f[sum P, W]
+    diag: torch.Tensor  # f[sum P]
+    accum: torch.Tensor  # bool[sum P]
+    vert_ptr: torch.Tensor  # int32[sum V + 1]
+    level_ptr: torch.Tensor  # int32[sum L + 1]
+    level_off: torch.Tensor  # int32[lanes]: a lane's first entry of level_ptr
+    n_levels: torch.Tensor  # int32[lanes]
+    perm: torch.Tensor  # int64[lanes, n]: caller order -> plan row order
+    inv: torch.Tensor  # int64[lanes, n]: plan row order -> caller order
+    n: int
+
+
+_INT32_MAX = 2**31 - 1
+
+
+def _concat_levels(las, lanes):
+    """The banked kernel's nine tensors for the level tensors ``las`` (one
+    width class: the same n, W, dtype and device): each member's tensors
+    concatenated, and the lane tables of ``lanes`` (member indices). Raises
+    where a concatenated count passes int32, which the kernel indexes
+    with."""
+    n, W = las[0].n, las[0].col_idx.shape[1]
+    if any(la.n != n or la.col_idx.shape[1] != W for la in las):
+        raise ValueError("a level bank takes plans of one width class (the same n and W)")
+    n_steps = [la.row_ids.shape[0] for la in las]
+    n_verts = [la.vert_ptr.shape[0] - 1 for la in las]
+    n_lvls = [la.level_ptr.shape[0] - 1 for la in las]
+    totals = {"lane-steps": sum(n_steps), "vertices": sum(n_verts) + 1,
+              "levels": sum(n_lvls) + 1}
+    for what, total in totals.items():
+        if total > _INT32_MAX:
+            raise ValueError(f"the bank's {what} ({total}) pass int32")
+    p_off = np.concatenate([[0], np.cumsum(n_steps)])
+    v_off = np.concatenate([[0], np.cumsum(n_verts)])
+    l_off = np.concatenate([[0], np.cumsum(n_lvls)])
+    tail = las[0].vert_ptr.new_tensor
+    vert_ptr = torch.cat([la.vert_ptr[:-1] + int(p) for la, p in zip(las, p_off)]
+                         + [tail([int(p_off[-1])])])
+    level_ptr = torch.cat([la.level_ptr[:-1] + int(v) for la, v in zip(las, v_off)]
+                          + [tail([int(v_off[-1])])])
+
+    def lane_table(values):
+        return torch.as_tensor(np.asarray(values, np.int64)[lanes]).to(
+            device=las[0].vals.device, dtype=torch.int32)
+
+    return (*(torch.cat([getattr(la, f) for la in las]) for f in LevelArrays._fields[:5]),
+            vert_ptr, level_ptr, lane_table(l_off[:-1]), lane_table(n_lvls))
+
+
+def stack_level_bank(las, perms, invs) -> LevelBank:
+    """Stack one width class's level tensors ``las`` (``LevelArrays``) with
+    their row permutations ``perms`` / ``invs`` (int64[n] each) into a
+    ``LevelBank``, its lane axis padded up to a power of two."""
+    lanes = pow2_lanes(len(las))
+    return LevelBank(
+        *_concat_levels(las, lanes),
+        perm=torch.stack([perms[i] for i in lanes]),
+        inv=torch.stack([invs[i] for i in lanes]),
+        n=las[0].n,
+    )
+
+
+def solve_with_level_bank(bank: LevelBank, lane_idx, B) -> torch.Tensor:
+    """The banked solve: column j of ``B`` f[n, m] (caller row order) on
+    bank lane ``lane_idx[j]``. One ``torch.gather`` puts B's columns, each
+    permuted by its lane's ``perm``, straight into the kernel's
+    column-major buffer f[m, n+1] (the scratch entry 0), one launch of
+    ``sptrsv_level_bank_cuda`` solves every column, and one gather by the
+    lanes' ``inv`` returns x f[n, m] in caller order."""
+    lanes = torch.as_tensor(np.asarray(lane_idx, dtype=np.int64))
+    B = torch.as_tensor(B).to(device=bank.vals.device, dtype=bank.vals.dtype)
+    m, n = lanes.shape[0], bank.n
+    b_col = B.new_zeros((m, n + 1))
+    on_device = lanes.to(B.device)
+    torch.gather(B.T, 1, bank.perm[on_device], out=b_col[:, :n])
+    x_col = sptrsv_level_bank_cuda(*bank[:9], lanes, b_col)
+    return torch.gather(x_col[:, :n], 1, bank.inv[on_device]).T
 
 
 def check_elastic_certificate(plan: ExecPlan) -> None:

@@ -5,7 +5,8 @@ the scan executor's step bodies run as a loop of eager PyTorch operations
 (it is not a second implementation), and the function every SpTRSV kernel
 computes bit for bit. ``sptrsv_level_ref`` is the plain version of the
 level-ordered kernels (the bulk and the elastic ones, one and m right-hand
-sides) and ``spmv_sliced_ref`` that of the SpMV kernel, y = A x on the
+sides), ``sptrsv_level_bank_ref`` that of the banked one (each column on
+its own plan of a bank), and ``spmv_sliced_ref`` that of the SpMV kernel, y = A x on the
 sliced layout. ``spmv_ell_ref`` is the plain version of the JAX package's
 per-ELL-row TPU kernel, and ``spmv_ell_rows_ref`` adds the split rows to
 it: the definition ``spmv_sliced_ref`` keeps bit for bit. The CPU tests use
@@ -66,6 +67,38 @@ def sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b
             fin = ~accum[p]
             rows = row_ids[p][fin]
             x[rows] = (b_pad[rows] - a[fin]) / lift(diag[p][fin])
+    return x
+
+
+def bank_lane(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, level_off, n_levels,
+              lane):
+    """Lane ``lane`` of a bank of level tensors (``kernels.ops.LevelBank``)
+    as the level tensors of its plan alone: its slice of the concatenation,
+    ``vert_ptr`` and ``level_ptr`` shifted back to start at 0."""
+    l0 = int(level_off[lane])
+    lp = level_ptr[l0 : l0 + int(n_levels[lane]) + 1]
+    v0, v1 = int(lp[0]), int(lp[-1])
+    vp = vert_ptr[v0 : v1 + 1]
+    p0, p1 = int(vp[0]), int(vp[-1])
+    return (row_ids[p0:p1], col_idx[p0:p1], vals[p0:p1], diag[p0:p1], accum[p0:p1],
+            vp - p0, lp - v0)
+
+
+def sptrsv_level_bank_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr,
+                          level_off, n_levels, lane_idx, b_col):
+    """Plain banked level-ordered SpTRSV: column j of ``b_col`` f[m, n+1]
+    (column-major, the scratch entry last) solved on bank lane
+    ``lane_idx[j]`` — ``sptrsv_level_ref`` on that lane's level tensors
+    (``bank_lane``), the columns of one lane together (a column's bits do
+    not depend on its neighbours). Shapes: the bank's concatenated level
+    tensors (``kernels.ops.LevelBank``), level_off and n_levels int32[lanes],
+    lane_idx int[m]. Returns x f[m, n+1], the layout of ``b_col``."""
+    bank = (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, level_off, n_levels)
+    lanes = torch.as_tensor(lane_idx).long()
+    x = torch.zeros_like(b_col)
+    for lane in torch.unique(lanes).tolist():
+        cols = torch.nonzero(lanes == lane).squeeze(1).to(b_col.device)
+        x[cols] = sptrsv_level_ref(*bank_lane(*bank, lane), b_col[cols].T).T
     return x
 
 

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -55,6 +56,7 @@ from repro_torch.kernels.ref import SLICE_ROWS, spmv_sliced_ref
 from repro_torch.sparse.csr import CSRMatrix
 
 launches = {"spmv": 0}
+_COUNT_LOCK = threading.Lock()  # counts are read-modify-writes from any thread
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
@@ -62,7 +64,14 @@ _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    launches["spmv"] = 0
+    with _COUNT_LOCK:
+        launches["spmv"] = 0
+
+
+def _count(kind: str = "spmv") -> None:
+    """One launch: the only place a launch is counted."""
+    with _COUNT_LOCK:
+        launches[kind] += 1
 
 
 def ell_width(m: CSRMatrix, width: int | None = None) -> int:
@@ -201,7 +210,7 @@ def _run(col, val, slice_ptr, row_len, width, x):
                  n, width, x.data_ptr(), y.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"spmv_sliced launch failed: CUDA error {err}")
-    launches["spmv"] += 1
+    _count()
     return y
 
 

@@ -19,20 +19,30 @@ right-hand side padded with the scratch row, and returns x shaped like
   * tensors on a CUDA device launch the kernel or raise — a missing
     ``nvcc``, a failed build and a refused launch all raise.
 
-``launches`` counts the kernel launches per entry point, so a run can show
-that its solves went through the kernels.
+``sptrsv_level_bank_cuda`` launches the same column grid over a bank of
+plans of one width class, each column on its own plan (the serve layer's
+grouped and resident-slot solves; the JAX package vmaps its scan over the
+lanes instead).
+
+``launches`` counts the kernel launches per entry point, under a lock (the
+serve layer launches from several threads), so a run can show that its
+solves went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import sptrsv_level_ref
+from repro_torch.kernels.ref import sptrsv_level_bank_ref, sptrsv_level_ref
 
-launches = {"single": 0, "mrhs": 0, "elastic_single": 0, "elastic_mrhs": 0}
+launches = {"single": 0, "mrhs": 0, "elastic_single": 0, "elastic_mrhs": 0, "bank": 0}
+# the serve layer launches from worker threads and its slot dispatcher at
+# once; a count is a read-modify-write, so it takes the lock
+_COUNT_LOCK = threading.Lock()
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
@@ -40,12 +50,21 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SINGLE = [_P] * 7 + [_I, _I, _P, _P, _P]
 _COLS = [_P] * 7 + [_I, _I, _I, _I64, _P, _P, _P]
-_ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "elastic_single": _SINGLE, "elastic_mrhs": _COLS}
+_BANK = [_P] * 10 + [_I, _I, _I64, _P, _P, _P]
+_ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "elastic_single": _SINGLE, "elastic_mrhs": _COLS,
+             "bank": _BANK}
 
 
 def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
+    with _COUNT_LOCK:
+        for key in launches:
+            launches[key] = 0
+
+
+def _count(kind: str) -> None:
+    """One launch of ``kind``: the only place a launch is counted."""
+    with _COUNT_LOCK:
+        launches[kind] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,7 +89,7 @@ def _launch(kind, vals, b, *args):
         err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"sptrsv_{kind} launch failed: CUDA error {err}")
-    launches[kind] += 1
+    _count(kind)
 
 
 def _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b):
@@ -168,3 +187,51 @@ def sptrsv_elastic_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr
     if b_pad.device.type == "cpu":
         return sptrsv_level_ref(*level, b_pad)
     return _launch_level("elastic_single", "elastic_mrhs", level, b_pad)
+
+
+def _check_bank(level_off, n_levels, lane_idx, b_col, level):
+    """The bank's lane tables and the host-side ``lane_idx`` (every entry a
+    lane of the bank: the kernel reads them unchecked), on top of
+    ``_check_level``'s checks of the concatenated level tensors and of the
+    column-major right-hand side b_col f[m, n+1]."""
+    _check_level(*level, b_col)
+    for name, t in (("level_off", level_off), ("n_levels", n_levels)):
+        if not isinstance(t, torch.Tensor) or t.device != b_col.device:
+            raise ValueError(f"{name} must be a tensor on {b_col.device}")
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous int32[lanes]")
+    lanes = level_off.shape[0]
+    if n_levels.shape[0] != lanes or lanes < 1:
+        raise ValueError(f"level_off and n_levels must be [lanes >= 1]; got {lanes}, "
+                         f"{n_levels.shape[0]}")
+    if not isinstance(lane_idx, torch.Tensor) or lane_idx.device.type != "cpu":
+        raise TypeError("lane_idx must be a tensor on the host (it is checked there)")
+    if lane_idx.dim() != 1 or lane_idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"lane_idx must be int[m]; got {lane_idx.dtype}{tuple(lane_idx.shape)}")
+    if b_col.dim() != 2 or b_col.shape[0] != lane_idx.shape[0]:
+        raise ValueError(f"b_col must be [m={lane_idx.shape[0]}, n+1]; got {tuple(b_col.shape)}")
+    if lane_idx.numel() and (int(lane_idx.min()) < 0 or int(lane_idx.max()) >= lanes):
+        raise ValueError(f"lane_idx holds lanes outside [0, {lanes})")
+
+
+def sptrsv_level_bank_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr,
+                           level_off, n_levels, lane_idx, b_col):
+    """Scheduled SpTRSV over a bank of plans of one width class
+    (``kernels.ops.LevelBank``): the lanes' level tensors concatenated,
+    level_off and n_levels int32[lanes] (lane l walks ``level_ptr[
+    level_off[l] .. level_off[l] + n_levels[l]]``), lane_idx int[m] on the
+    host, b_col f[m, n+1] column-major (a column's rows contiguous, the
+    scratch entry last). Column j is solved on lane ``lane_idx[j]``, one
+    block per column, in one launch; returns x f[m, n+1] in b_col's
+    layout. Bitwise ``sptrsv_level_cuda`` on each column's plan alone."""
+    level = (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr)
+    _check_bank(level_off, n_levels, lane_idx, b_col, level)
+    if b_col.device.type == "cpu":
+        return sptrsv_level_bank_ref(*level, level_off, n_levels, lane_idx, b_col)
+    x = torch.zeros_like(b_col)
+    m = b_col.shape[0]
+    lanes = lane_idx.to(device=b_col.device, dtype=torch.int32)
+    ptrs = [t.data_ptr() for t in (*level, level_off, n_levels, lanes)]
+    _launch("bank", vals, b_col, *ptrs, col_idx.shape[1], m, b_col.shape[1],
+            b_col.data_ptr(), x.data_ptr())
+    return x

@@ -16,7 +16,8 @@ model; ``tune=True`` adds measured trials); the outcome is memoized in the
 Module map:
 
   * ``registry``  — named scheduling strategies behind one signature
-  * ``solver``    — ``TriangularSolver`` / ``factor_pair`` (plan + bind)
+  * ``solver``    — ``TriangularSolver`` / ``factor_pair`` (plan + bind),
+                    ``grouped_solve`` / ``GroupBank`` (one width class)
   * ``cache``     — sparsity-pattern-keyed plan cache with hit/miss stats
 """
 from repro_torch.pipeline.cache import CacheStats, PlanCache
@@ -27,7 +28,12 @@ from repro_torch.pipeline.registry import (
     register_scheduler,
     schedule,
 )
-from repro_torch.pipeline.solver import TriangularSolver, factor_pair
+from repro_torch.pipeline.solver import (
+    GroupBank,
+    TriangularSolver,
+    factor_pair,
+    grouped_solve,
+)
 from repro_torch.sparse.csr import pattern_fingerprint
 
 __all__ = [
@@ -39,6 +45,8 @@ __all__ = [
     "get_scheduler",
     "register_scheduler",
     "schedule",
+    "GroupBank",
     "TriangularSolver",
     "factor_pair",
+    "grouped_solve",
 ]

@@ -17,8 +17,10 @@ The cache also memoizes ``strategy="auto"`` outcomes per fingerprint
 the previously selected concrete config with zero selection work, then
 hits the plan entry stored under that concrete key.
 
-A copy of the JAX package's ``pipeline/cache.py`` without the serve
-layer's width-class index, which comes with grouped solves.
+The width-class index (``note_width_class``, ``width_class_members``,
+``width_class_sizes``) records which cached plans share one structural
+solve identity (``TriangularSolver.width_class``), so the serve layer can
+batch across patterns; its entries leave with their plan.
 """
 from __future__ import annotations
 
@@ -68,6 +70,10 @@ class PlanCache:
         self._selections_max = max(4 * maxsize, 64) if maxsize else 4096
         # keys exempt from LRU eviction (live-serving plans — see pin())
         self._pinned: set = set()
+        # width-class index: structural solve identity -> the plan keys
+        # sharing it (``TriangularSolver.width_class``). Index entries leave
+        # with their plan, so the index stays bounded by the live entries.
+        self._width_classes: "OrderedDict[Hashable, set]" = OrderedDict()
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -132,11 +138,21 @@ class PlanCache:
             return
         for key in [k for k in self._entries if k not in self._pinned]:
             self._entries.pop(key)
+            self._drop_width_class_locked(key)
             self.stats.evictions += 1
             obs.counter_add("cache.evict")
             over -= 1
             if over <= 0:
                 break
+
+    def _drop_width_class_locked(self, key: Hashable) -> None:
+        """Remove ``key`` from the width-class index (and drop classes that
+        emptied)."""
+        for wc in [wc for wc, keys in self._width_classes.items() if key in keys]:
+            keys = self._width_classes[wc]
+            keys.discard(key)
+            if not keys:
+                del self._width_classes[wc]
 
     def pin(self, key: Hashable) -> None:
         """Exempt ``key`` from LRU eviction while it serves live traffic.
@@ -159,6 +175,23 @@ class PlanCache:
         with self._lock:
             return frozenset(self._pinned)
 
+    def note_width_class(self, width_class: Hashable, key: Hashable) -> None:
+        """Record that plan ``key`` belongs to ``width_class`` (the
+        structural solve identity from ``TriangularSolver.width_class``).
+        Idempotent."""
+        with self._lock:
+            self._width_classes.setdefault(width_class, set()).add(key)
+
+    def width_class_members(self, width_class: Hashable) -> frozenset:
+        with self._lock:
+            return frozenset(self._width_classes.get(width_class, ()))
+
+    def width_class_sizes(self) -> dict:
+        """{width_class: member count} — classes with more than one member
+        are the cross-pattern batching opportunities."""
+        with self._lock:
+            return {wc: len(keys) for wc, keys in self._width_classes.items()}
+
     def replace(self, key: Hashable, entry: object) -> None:
         """Swap the canonical entry for ``key`` (e.g. after a value
         refresh). No-op on the stats; the key must already exist or the
@@ -177,3 +210,4 @@ class PlanCache:
             self._entries.clear()
             self._selections.clear()
             self._pinned.clear()
+            self._width_classes.clear()

@@ -39,13 +39,19 @@ outcome is memoized in the ``PlanCache`` and recorded on
 ``timed=True`` routes every solve through ``solve_timed``: the same bits,
 with per-step timings (``BoundSolve.solve_timed``) kept on
 ``last_step_timings`` and, when tracing is on, spans in the active buffer.
+
+Solvers of one ``width_class`` (equal plan shapes, one binding) solve one
+right-hand side each in a single dispatch: ``grouped_solve`` stacks them
+per call, a ``GroupBank`` once (the serve layer's cross-pattern batching;
+on the ``kernel`` backend one launch of the banked level walk).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -179,6 +185,26 @@ class TriangularSolver:
         """The backend ``BoundSolve`` this solver executes through
         (telemetry via ``bound.describe()``)."""
         return self._bound
+
+    @property
+    def width_class(self) -> tuple:
+        """Structural identity of this solver's bound solve: two solvers
+        with equal width classes hold equally shaped ``ExecPlan`` tensors
+        (n, T, k, W, superstep bounds) bound the same way (backend, dtype,
+        device, slack), so when the backend supports it their requests can
+        ride one grouped dispatch (``grouped_solve``; the serve layer's
+        cross-pattern batching). Orientation (``lower``) is left out: it
+        changes only the host-side permutation."""
+        p = self.exec_plan
+        return (p.n, p.n_steps, p.k, p.W, tuple(int(x) for x in p.step_bounds)) + (
+            binding_fingerprint(backend=self.backend, dtype=self.dtype, width=p.W,
+                                device=self.device, slack=self._slack))
+
+    @property
+    def supports_grouping(self) -> bool:
+        """True when this solver's bound can serve width-class grouped
+        solves (one dispatch, one plan per column)."""
+        return bool(getattr(self._bound, "supports_grouped", False))
 
     # ---------------------------------------------------------- solving
     def _check_b(self, b) -> torch.Tensor:
@@ -505,6 +531,156 @@ class TriangularSolver:
             cache.note_numeric_update()
         solver.timed = timed
         return solver
+
+
+def grouped_solve(solvers, B) -> torch.Tensor:
+    """Solve column j of ``B`` f[n, m] with ``solvers[j]`` — one grouped
+    dispatch (``BoundSolve.solve_grouped``: one launch of the banked kernel
+    on the ``kernel`` backend), each column against its own plan (pattern
+    and values may differ per column; the solvers share one
+    ``width_class``). Per-column permutations are applied and undone here,
+    so columns may mix orientations. Returns x f[n, m] on the solvers'
+    device.
+
+    A column's bits depend only on its own (plan, b), never on its
+    neighbours; the replay reference of a grouped result is the same call
+    with the request's own solver in every column
+    (``repro_torch.serve.GroupReplay``)."""
+    if not solvers:
+        raise ValueError("grouped_solve needs at least one solver")
+    wc = solvers[0].width_class
+    for s in solvers[1:]:
+        if s.width_class != wc:
+            raise ValueError(
+                "grouped_solve requires one width class; got solvers "
+                f"with {s.width_class} vs {wc}"
+            )
+    bound0 = solvers[0]._bound
+    if not getattr(bound0, "supports_grouped", False):
+        raise NotImplementedError(
+            f"backend {solvers[0].backend!r} does not support width-class "
+            "grouped solves"
+        )
+    B = torch.as_tensor(B).to(device=solvers[0].device, dtype=solvers[0].dtype)
+    if B.dim() != 2 or B.shape[0] != solvers[0].n or B.shape[1] != len(solvers):
+        raise ValueError(
+            f"B must be [n={solvers[0].n}, m={len(solvers)}] (one column "
+            f"per solver); got {tuple(B.shape)}"
+        )
+    b_cols = torch.stack([B[:, j][s._perm] for j, s in enumerate(solvers)])
+    X = type(bound0).solve_grouped([s._bound for s in solvers], b_cols)
+    return torch.stack([X[j][s._inv] for j, s in enumerate(solvers)], dim=1)
+
+
+class GroupBank:
+    """Device-side bank of one width class's live plans — the serving path
+    for cross-pattern grouped batches.
+
+    ``grouped_solve`` stacks the plans on every call (fine for replay); a
+    bank stacks its members ONCE (``BoundSolve.stack_bank``) and lets every
+    microbatch index its lanes in one dispatch (``solve_bank``): the same
+    bits. Members are keyed by caller-chosen hashable keys (the serve layer
+    uses ``(fingerprint, version)``); adding or dropping a member
+    invalidates the stack, which is rebuilt on the next solve (the lane
+    count pads to a power of two).
+
+    Backend-agnostic: the bank dispatches through the ``BoundSolve`` bank
+    contract, which every backend advertising ``supports_grouped``
+    implements — the ``kernel`` backend with one launch of its banked
+    level walk, the ``scan`` backend with its plain grouped scan."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._solvers: Dict = {}  # key -> solver; dict order = lane order
+        self._index: Dict = {}
+        self._bank = None
+        self.rebuilds = 0  # telemetry: restacks actually performed
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._solvers)
+
+    def add(self, key, solver: "TriangularSolver") -> None:
+        """Register ``solver`` under ``key`` (idempotent). The solver must
+        support grouping and share the bank's width class."""
+        if not solver.supports_grouping:
+            raise NotImplementedError(
+                f"backend {solver.backend!r} does not support width-class "
+                "grouped solves"
+            )
+        with self._lock:
+            if key in self._solvers:
+                return
+            if self._solvers:
+                wc0 = next(iter(self._solvers.values())).width_class
+                if solver.width_class != wc0:
+                    raise ValueError(
+                        "GroupBank requires one width class; got "
+                        f"{solver.width_class} vs {wc0}"
+                    )
+            self._solvers[key] = solver
+            self._bank = None
+
+    def drop(self, key) -> None:
+        with self._lock:
+            if self._solvers.pop(key, None) is not None:
+                self._bank = None
+
+    def prune(self, keep) -> None:
+        """Drop every member whose key fails ``keep(key)`` — the serve
+        layer retires lanes of superseded, drained plan versions. ``keep``
+        runs under the bank lock, serialized with concurrent ``add``s."""
+        with self._lock:
+            dead = [k for k in self._solvers if not keep(k)]
+            for k in dead:
+                del self._solvers[k]
+            if dead:
+                self._bank = None
+
+    def _ensure_locked(self):
+        if self._bank is None:
+            solvers = list(self._solvers.values())
+            cls = type(solvers[0]._bound)
+            self._bank = cls.stack_bank(
+                [s._bound for s in solvers],
+                [s._perm for s in solvers],
+                [s._inv for s in solvers],
+            )
+            self._bound_cls = cls
+            self._index = {k: i for i, k in enumerate(self._solvers)}
+            self.rebuilds += 1
+        return self._bound_cls, self._bank, self._index
+
+    def _lanes(self, keys):
+        with self._lock:
+            cls, bank, index = self._ensure_locked()
+            lane_idx = np.fromiter((index[k] for k in keys), np.int32, count=len(keys))
+        return cls, bank, lane_idx
+
+    def solve(self, keys, B) -> torch.Tensor:
+        """Solve column j of ``B`` f[n, m] (caller row order) against the
+        member registered under ``keys[j]``; returns x f[n, m] on the
+        device. Bitwise ``grouped_solve`` on the same members, so
+        ``GroupReplay`` stays the replay reference of bank-served
+        results."""
+        cls, bank, lane_idx = self._lanes(keys)
+        return cls.solve_bank(bank, lane_idx, B)
+
+    def solve_resident(self, keys, B_res) -> torch.Tensor:
+        """One continuous-mode pass: column j of the resident ``B_res``
+        f[n, S] against the member under ``keys[j]`` — bitwise
+        :meth:`solve` on the same keys, but ``B_res`` stays on the device
+        (the continuous engine, ``repro_torch.serve.slots``, writes it
+        slot by slot with ``insert_lane``)."""
+        cls, bank, lane_idx = self._lanes(keys)
+        return cls.solve_resident(bank, lane_idx, B_res)
+
+    def describe(self) -> dict:
+        with self._lock:
+            return {
+                "n_lanes": len(self._solvers),
+                "rebuilds": self.rebuilds,
+            }
 
 
 def factor_pair(lf: CSRMatrix, *, cache: Optional[PlanCache] = None, **kw):

@@ -1,16 +1,25 @@
 """Solvers: the plain PyTorch executors over compiled plans (bulk and
-elastic, untimed and timed), the serial reference solvers, and
+elastic, untimed and timed; grouped, banked and resident-slot solves of
+one width class), the serial reference solvers, and
 (preconditioned) conjugate gradient, the end-to-end consumer."""
 from repro_torch.solver.executor import (
+    BankTensors,
     ElasticArrays,
     PlanArrays,
+    blank_rhs,
     elastic_plan_arrays,
+    extract_lane,
+    insert_lane,
     make_solver,
     plan_arrays,
+    solve_resident,
+    solve_with_bank,
     solve_with_elastic,
     solve_with_elastic_timed,
     solve_with_plan,
+    solve_with_plan_group,
     solve_with_plan_timed,
+    stack_plan_bank,
 )
 from repro_torch.solver.reference import forward_substitution, solve_lower_scipy
 
@@ -26,17 +35,25 @@ def __getattr__(name):
 
 
 __all__ = [
+    "BankTensors",
     "ElasticArrays",
     "PlanArrays",
+    "blank_rhs",
     "cg_solve",
     "elastic_plan_arrays",
+    "extract_lane",
     "forward_substitution",
+    "insert_lane",
     "make_solver",
     "pcg_ichol",
     "plan_arrays",
     "solve_lower_scipy",
+    "solve_resident",
+    "solve_with_bank",
     "solve_with_elastic",
     "solve_with_elastic_timed",
     "solve_with_plan",
+    "solve_with_plan_group",
     "solve_with_plan_timed",
+    "stack_plan_bank",
 ]

@@ -137,6 +137,146 @@ def make_solver(plan: ExecPlan, dtype=torch.float32, device=None):
     return solve
 
 
+# ------------------------------------------------- width-class grouping
+# The plain versions of the grouped, banked and resident solves (the
+# ``scan`` backend runs them; the ``kernel`` backend launches its banked
+# level walk instead). Lane j solves ITS OWN plan on its own right-hand
+# side: the single-RHS step body run for every lane at once, gathers and
+# scatters along the lane axis. The ops are elementwise, so a lane's bits
+# are the single-RHS scan's on its plan, whatever its neighbours hold.
+
+
+def _step_lanes(x, acc, rows, cols, v, d, a, b_pad):
+    """``_step_single`` for g lanes at once: x f[g, n+1] (updated in
+    place), acc f[g, k]; rows int64[g, k], cols int64[g, k, W] (as
+    ``torch.gather`` takes them), v f[g, k, W], d f[g, k], a bool[g, k],
+    b_pad f[g, n+1]. Lane i reads and writes row i of x only."""
+    for w in range(v.shape[2]):
+        acc = torch.addcmul(acc, v[:, :, w], torch.gather(x, 1, cols[:, :, w]))
+    xv = (torch.gather(b_pad, 1, rows) - acc) / d
+    # finishing lanes write x; padded lanes all write the scratch slot's 0
+    x.scatter_(1, rows, torch.where(a, torch.gather(x, 1, rows), xv))
+    acc = torch.where(a, acc, 0.0)
+    return x, acc
+
+
+def _scan_lanes(row_ids, col_idx, vals, diag, accum, b_pad):
+    """The grouped scan: every tensor carries a leading lane axis g and
+    lane i runs its own plan (``row_ids[i]``, ...) on ``b_pad[i]`` f[n+1].
+    Returns x f[g, n+1] (the last column is scratch)."""
+    x = torch.zeros_like(b_pad)
+    acc = b_pad.new_zeros((row_ids.shape[0], row_ids.shape[2]))
+    row_ids, col_idx = row_ids.long(), col_idx.long()
+    for t in range(row_ids.shape[1]):
+        x, acc = _step_lanes(x, acc, row_ids[:, t], col_idx[:, t], vals[:, t], diag[:, t],
+                             accum[:, t], b_pad)
+    return x
+
+
+_PLAN_FIELDS = ("row_ids", "col_idx", "vals", "diag", "accum")
+
+
+def solve_with_plan_group(pas, b_cols: torch.Tensor) -> torch.Tensor:
+    """Solve lane j of ``b_cols`` f[g, n] (already in plan row order)
+    against ``pas[j]``. All plans share one width class (equal tensor
+    shapes); returns x f[g, n]. Stacks the plan tensors per call — the
+    replay path; serving amortizes the stacking in a ``BankTensors``
+    bank (``solve_with_bank``, the same bits)."""
+    dtype = pas[0].vals.dtype
+    b = b_cols.to(dtype)
+    b_pad = torch.cat([b, b.new_zeros((b.shape[0], 1))], dim=1)
+    stacked = [torch.stack([getattr(pa, f) for pa in pas]) for f in _PLAN_FIELDS]
+    return _scan_lanes(*stacked, b_pad)[:, : pas[0].n]
+
+
+class BankTensors(NamedTuple):
+    """A width class's plan tensors stacked once on the device (lane axis
+    P first) with each lane's row permutations: the serving path for
+    cross-pattern grouped batches, restacked only when the class's
+    membership changes."""
+
+    row_ids: torch.Tensor  # int32[P, T, k]
+    col_idx: torch.Tensor  # int32[P, T, k, W]
+    vals: torch.Tensor  # f[P, T, k, W]
+    diag: torch.Tensor  # f[P, T, k]
+    accum: torch.Tensor  # bool[P, T, k]
+    perm: torch.Tensor  # int64[P, n]  caller order -> plan row order
+    inv: torch.Tensor  # int64[P, n]  plan row order -> caller order
+
+
+def pow2_lanes(count: int) -> list:
+    """The bank's lane list for ``count`` members: their indices, padded
+    up to a power of two by repeating lane 0, so a bank takes at most
+    log2 distinct lane counts as classes grow and shrink."""
+    pad = (1 << max(count - 1, 0).bit_length()) - count if count > 1 else 0
+    return list(range(count)) + [0] * pad
+
+
+def stack_plan_bank(pas, perms, invs) -> BankTensors:
+    """Stack one width class's plans into a ``BankTensors``, the lane axis
+    padded up to a power of two (``pow2_lanes``)."""
+    idx = pow2_lanes(len(pas))
+    return BankTensors(
+        *(torch.stack([getattr(pas[i], f) for i in idx]) for f in _PLAN_FIELDS),
+        perm=torch.stack([perms[i] for i in idx]),
+        inv=torch.stack([invs[i] for i in idx]),
+    )
+
+
+def _lane_tensor(lane_idx, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(lane_idx, dtype=np.int64)).to(device)
+
+
+def solve_with_bank(bank: BankTensors, lane_idx, B) -> torch.Tensor:
+    """Solve column j of ``B`` f[n, m] (caller row order) against bank lane
+    ``lane_idx[j]`` — its plan tensors and its row permutation. Returns x
+    f[n, m] in caller order, bitwise ``solve_with_plan_group`` on the same
+    lanes (the gathers move bits unchanged)."""
+    lanes = _lane_tensor(lane_idx, bank.vals.device)
+    dtype = bank.vals.dtype
+    B = torch.as_tensor(B).to(device=bank.vals.device, dtype=dtype)
+    b = torch.gather(B.T, 1, bank.perm[lanes])
+    b_pad = torch.cat([b, b.new_zeros((b.shape[0], 1))], dim=1)
+    x = _scan_lanes(*(getattr(bank, f)[lanes] for f in _PLAN_FIELDS), b_pad)
+    return torch.gather(x[:, :-1], 1, bank.inv[lanes]).T
+
+
+# ------------------------------------------------- resident RHS slots
+# The continuous-batching serve engine (``repro_torch.serve.slots``) keeps
+# one resident right-hand-side bank B f[n, S] per width class on the
+# device: admission inserts a request's b into a free slot, each dispatch
+# pass solves a pow2 lane prefix of the bank, and completion extracts the
+# finished slot's column. The bank is column-major (a slot's column is
+# contiguous), which moves no bits.
+
+
+def blank_rhs(n: int, slots: int, dtype, device) -> torch.Tensor:
+    """A zeroed resident right-hand-side bank f[n, slots] on ``device``,
+    each column contiguous."""
+    return torch.zeros((slots, n), dtype=dtype, device=device).T
+
+
+def insert_lane(B_res: torch.Tensor, lane: int, b) -> torch.Tensor:
+    """A NEW resident bank with column ``lane`` replaced by ``b`` f[n];
+    every other column's bits are untouched. Pure: the input bank is not
+    mutated, so a pass holding the old bank keeps solving its snapshot."""
+    out = B_res.clone()  # keeps the column-major strides
+    out[:, lane] = torch.as_tensor(b).to(device=B_res.device, dtype=B_res.dtype)
+    return out
+
+
+def extract_lane(X: torch.Tensor, lane: int) -> torch.Tensor:
+    """Column ``lane`` of ``X`` f[n, S] as f[n] (bits unchanged)."""
+    return X[:, lane]
+
+
+def solve_resident(bank: BankTensors, lane_idx, B_res: torch.Tensor) -> torch.Tensor:
+    """One continuous-mode pass: ``solve_with_bank`` on the first
+    ``len(lane_idx)`` columns of the resident bank (the engine's pow2
+    occupied-lane prefix), bitwise the same call on those columns."""
+    return solve_with_bank(bank, lane_idx, B_res[:, : len(lane_idx)])
+
+
 # --------------------------------------------------------------- elastic
 class ElasticArrays(NamedTuple):
     """Plan tensors in macro-step layout: the T plan steps, padded up to

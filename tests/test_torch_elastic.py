@@ -450,8 +450,8 @@ def test_backend_without_elastic_capability_raises():
             get_backend("bulk-only").bind(plan, slack=2, device="cpu")
     finally:
         unregister_backend("bulk-only")
-    assert get_backend("scan").capabilities() == ("elastic",)
-    assert get_backend("kernel").capabilities() == ("elastic",)
+    assert get_backend("scan").capabilities() == ("grouped", "elastic", "slots")
+    assert get_backend("kernel").capabilities() == ("grouped", "elastic", "slots")
 
 
 def test_plan_cache_keys_differ_by_slack():

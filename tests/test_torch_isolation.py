@@ -16,7 +16,7 @@ import repro_torch
 from repro_torch import backends
 from repro_torch.backends import get_backend
 from repro_torch.core import elastic_transform
-from repro_torch.kernels import build, spmv, sptrsv
+from repro_torch.kernels import build, ops, spmv, sptrsv
 from repro_torch.kernels.ops import (
     bind_kernel_solver,
     elastic_kernel_arrays,
@@ -50,6 +50,9 @@ def _imports(path: Path):
 def test_no_jax_or_repro_imports_in_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    scanned = {f.relative_to(PKG).parts[0] for f in files}
+    assert {"serve", "launch"} <= scanned  # the serve layer and its CLI too
+    assert len([f for f in files if f.parent.name == "serve"]) >= 7
     bad = [
         (str(f.relative_to(REPO)), mod)
         for f in files
@@ -84,6 +87,16 @@ L = narrow_band_lower(300, 0.14, 10, seed=1)
 s = repro_torch.TriangularSolver.plan(L, device="cpu")
 x = s.solve(np.ones(300)).numpy()
 assert np.isfinite(x).all()
+import repro_torch.launch.solver_serve
+from repro_torch.serve import SolveService, direct_reference
+from repro_torch.sparse import shifted_coupling_lower
+with SolveService(mode="continuous", strategy="wavefront", device="cpu") as svc:
+    fp = svc.register(shifted_coupling_lower(96, 0, seed=1))
+    t = svc.submit(fp, np.ones(96))
+    y = t.result(timeout=60)
+    assert np.array_equal(y, direct_reference(t.served_by, np.ones(96), t.batch_width,
+                                              t.batch_position))
+    assert svc.stats()["slots"]["passes"] == 1
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert loaded == [], loaded
 print("ok")
@@ -171,12 +184,25 @@ def _pcg_ichol(plan):
     return pcg_ichol(A, np.ones(A.n_rows))
 
 
+def _serve_register(plan):
+    from repro_torch.serve import SolveService
+
+    with SolveService(strategy="growlocal") as svc:
+        return svc.register(erdos_renyi_lower(plan.n, 0.05, seed=0))
+
+
+def _serve_cli(plan):
+    from repro_torch.launch import solver_serve
+
+    return solver_serve.main(["--mix", "width", "--strategy", "wavefront", "--requests", "1"])
+
+
 @pytest.mark.parametrize(
     "entry",
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
      _kernel_plan_arrays, _level_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
      _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv,
-     _ell_operator, _cg_solve, _pcg_ichol],
+     _ell_operator, _cg_solve, _pcg_ichol, _serve_register, _serve_cli],
 )
 def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     # every entry point that places tensors defaults to the card
@@ -202,7 +228,10 @@ def test_sptrsv_cuda_on_cpu_takes_plain_path():
     solver.solve(np.ones(120))
     assert torch.equal(elastic.solve(np.ones((120, 3))), solver.solve(np.ones((120, 3))))
     spmv.spmv(L, np.ones(120), device="cpu")
-    assert set(sptrsv.launches) == {"single", "mrhs", "elastic_single", "elastic_mrhs"}
+    bank = ops.stack_level_bank([la, la], [solver._perm] * 2, [solver._inv] * 2)
+    xb = sptrsv.sptrsv_level_bank_cuda(*bank[:9], torch.tensor([1, 0]), bm.T[:2].contiguous())
+    assert torch.equal(xb, xm.T[:2])
+    assert set(sptrsv.launches) == {"single", "mrhs", "elastic_single", "elastic_mrhs", "bank"}
     assert not any(sptrsv.launches.values()) and spmv.launches == {"spmv": 0}
     assert torch.equal(xm[:, 0], x1)
     pa = plan_arrays(solver.exec_plan, device="cpu")

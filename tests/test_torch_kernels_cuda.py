@@ -1,8 +1,10 @@
 """The CUDA kernels (bulk SpTRSV, the level walk of the bulk order for one
 RHS and, a block per column, for m RHS; elastic SpTRSV, the level walk over
-runs of supersteps for one and m RHS; SpMV, and SpMV bound once as CG's
-matvec) against their plain versions, on the card; IC(0)-preconditioned CG
-on the card against the CPU plain PCG, and timed solves on the card.
+runs of supersteps for one and m RHS; the banked walk, a column per block
+on its own plan of a bank; SpMV, and SpMV bound once as CG's matvec)
+against their plain versions, on the card; IC(0)-preconditioned CG on the
+card against the CPU plain PCG, timed solves, and width-class and
+continuous serving on the card.
 
 Marked ``cuda``: every test here skips on a host without a CUDA device (it
 adds no pass there). On the card run it with
@@ -326,7 +328,7 @@ def test_pcg_on_card_matches_cpu_plain(cuda, dtype):
                                        maxiter=2000, dtype=dtype)
     torch.cuda.synchronize()
     assert dict(sptrsv.launches) == {"single": 2 * (iters + 1), "mrhs": 0,
-                                     "elastic_single": 0, "elastic_mrhs": 0}
+                                     "elastic_single": 0, "elastic_mrhs": 0, "bank": 0}
     assert spmv.launches == {"spmv": iters}
     # the CPU plain PCG: the kernels' plain versions (bitwise the scan's)
     xc, ic, rc, info_c = pcg_ichol(A, b, k=8, strategy="growlocal", tol=1e-6,
@@ -399,3 +401,119 @@ def test_tune_on_card(cuda, gen):
     again = repro_torch.TriangularSolver.plan(L, strategy="auto", tune=True, cache=cache)
     assert again is tuned
     assert cache.stats.selections == 1 and cache.stats.selection_hits == 1
+
+
+# ------------------------------------------------------------ the bank kernel
+def _bank_clones(gen, dtype, device, count=4):
+    L = (erdos_renyi_lower(2000, 1e-3, seed=0) if gen == "er"
+         else narrow_band_lower(2000, 0.14, 10, seed=0))
+    s0 = repro_torch.TriangularSolver.plan(L, device=device, dtype=dtype)
+    rng = np.random.default_rng(2)
+    return [s0.clone_with_values(L.data * rng.uniform(0.5, 1.5, L.nnz)) for _ in range(count)]
+
+
+@pytest.mark.parametrize("lanes", ["repeats", "all", "pow2_prefix"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gen", ["er", "nb"])
+def test_bank_kernel_matches_bank_ref_bitwise(cuda, gen, dtype, lanes):
+    from repro_torch.kernels.ops import stack_level_bank
+    from repro_torch.kernels.ref import sptrsv_level_bank_ref
+
+    clones = _bank_clones(gen, dtype, cuda, count=3)  # 4 lanes, lane 3 = lane 0
+    bank = stack_level_bank([c.bound._la for c in clones], [c._perm for c in clones],
+                            [c._inv for c in clones])
+    lane_idx = torch.tensor({"repeats": [2, 2, 0, 1, 0, 3, 1, 2], "all": [0, 1, 2, 3],
+                             "pow2_prefix": [1, 0]}[lanes], dtype=torch.int32)
+    m, n = lane_idx.shape[0], bank.n
+    b_col = torch.as_tensor(np.random.default_rng(3).standard_normal((m, n + 1)), dtype=dtype)
+    b_col[:, n] = 0
+    cpu_bank = [t.cpu() for t in bank[:9]]
+    x_cpu = sptrsv_level_bank_ref(*cpu_bank, lane_idx, b_col)
+    before = sptrsv.launches["bank"]
+    x_gpu = sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col.to(cuda))
+    torch.cuda.synchronize()
+    assert sptrsv.launches["bank"] == before + 1
+    assert _bits_equal(x_gpu, x_cpu)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "scan"])
+def test_bound_bank_solves_launch_the_bank_kernel(cuda, backend, monkeypatch):
+    """On CUDA tensors the kernel bound's grouped, bank and resident
+    solves launch the bank kernel once per call and never reach the plain
+    executor (patched to raise); the scan bound is the plain executor,
+    and the two agree bitwise."""
+    from repro_torch.pipeline import GroupBank, grouped_solve
+    from repro_torch.solver import executor
+
+    clones = _bank_clones("er", torch.float32, cuda)
+    if backend == "kernel":
+        for name in ("solve_with_plan_group", "stack_plan_bank", "solve_with_bank",
+                     "solve_resident"):
+            def boom(*a, _name=name, **k):
+                raise AssertionError(f"the kernel bound reached executor.{_name}")
+
+            monkeypatch.setattr(executor, name, boom)
+    else:
+        clones = [repro_torch.TriangularSolver(
+            exec_plan=c.exec_plan, total_perm=c._perm.cpu().numpy(), backend="scan",
+            dtype=c.dtype, device=cuda, fingerprint=c.fingerprint, strategy=c.strategy,
+            lower=True, inspector_seconds=0.0) for c in clones]
+    n = clones[0].n
+    rng = np.random.default_rng(4)
+    B = rng.standard_normal((n, 4)).astype(np.float32)
+    sptrsv.reset_launches()
+    X = grouped_solve(clones, B)
+    bank = GroupBank()
+    for i, c in enumerate(clones):
+        bank.add(i, c)
+    keys = [3, 1, 1, 0, 2, 0, 3, 2]
+    B8 = rng.standard_normal((n, 8)).astype(np.float32)
+    Xb = bank.solve(keys, B8)
+    cls = type(clones[0].bound)
+    R = cls.blank_rhs(n, 8, torch.float32, cuda)
+    for j in range(8):
+        R = cls.insert_lane(R, j, B8[:, j])
+    Xr = bank.solve_resident(keys[:4], R)
+    torch.cuda.synchronize()
+    want = {"kernel": 3, "scan": 0}[backend]
+    assert sptrsv.launches["bank"] == want and sptrsv.launches["mrhs"] == 0
+    for j, c in enumerate(clones):  # each column on its own plan
+        assert _bits_equal(X[:, j], c.solve(B[:, j]))
+    assert _bits_equal(Xr, Xb[:, :4])
+    monkeypatch.undo()  # the CPU scan reference below runs the plain executor
+    cpu = [repro_torch.TriangularSolver(
+        exec_plan=c.exec_plan, total_perm=c._perm.cpu().numpy(), backend="scan",
+        dtype=c.dtype, device=torch.device("cpu"), fingerprint=c.fingerprint,
+        strategy=c.strategy, lower=True, inspector_seconds=0.0) for c in clones]
+    cbank = GroupBank()
+    for i, c in enumerate(cpu):
+        cbank.add(i, c)
+    assert _bits_equal(Xb, cbank.solve(keys, B8))
+
+
+def test_serve_on_card_launches_the_bank_kernel(cuda):
+    """Width-class and continuous serving on the card: banked traffic
+    launches the bank kernel, every result bitwise its replay."""
+    from repro_torch.serve import SolveService, direct_reference, width_class_patterns
+
+    for kw in ({"width_class_batching": True, "max_wait_us": 200_000}, {"mode": "continuous"}):
+        sptrsv.reset_launches()
+        with SolveService(strategy="wavefront", max_batch=8, **kw) as svc:
+            pats = width_class_patterns(svc, 4, n=2000, seed=5)
+            rng = np.random.default_rng(6)
+            tickets = []
+            for i in range(8):
+                fp, n = pats[i % 4]
+                b = rng.standard_normal(n).astype(np.float32)
+                tickets.append((svc.submit(fp, b), b))
+            served = [(t, b, t.result(timeout=120)) for t, b in tickets]
+            snap = svc.stats()
+            launches = dict(sptrsv.launches)  # the serving's, before the replays
+            for t, b, x in served:
+                assert np.array_equal(
+                    x, direct_reference(t.served_by, b, t.batch_width, t.batch_position))
+        # a grouped batch or a pass is one bank launch; a homogeneous batch
+        # takes the m-RHS kernel
+        banked = snap["grouped_batches"] + snap["slots"]["passes"]
+        assert launches["bank"] == banked > 0, (kw, launches, snap["batches"])
+        assert launches["mrhs"] == snap["batches"] - banked, (kw, launches)

@@ -47,7 +47,7 @@ from repro_torch.convert import csr_from_numpy, exec_plan_from_numpy
 from repro_torch.kernels import level_sweep, ops, sptrsv
 from repro_torch.kernels.levels import level_order
 from repro_torch.kernels.ops import level_plan_arrays
-from repro_torch.kernels.ref import sptrsv_level_ref, sptrsv_ref
+from repro_torch.kernels.ref import sptrsv_level_bank_ref, sptrsv_level_ref, sptrsv_ref
 from repro_torch.solver.executor import pad_rhs, plan_arrays
 from repro_torch.sparse import erdos_renyi_lower, ichol0, narrow_band_lower, poisson2d_matrix
 
@@ -453,3 +453,98 @@ def test_group_ref_bitwise_vs_step_walk_and_jax(name, signed_zeros, dtype, cols)
     _assert_bitwise(x[: plan.n], x_jax)
     if signed_zeros:
         assert (x.signbit() & (x == 0)).any()  # -0 reached x
+
+
+# ------------------------------------------------------------ the level bank
+def _bank_members(name, dtype):
+    """Three clones of one plan with distinct values (one width class):
+    their level tensors and row permutations, on the CPU."""
+    L = {"er": lambda: erdos_renyi_lower(600, 4e-3, seed=13),
+         "nb": lambda: narrow_band_lower(600, 0.14, 10, seed=14)}[name]()
+    s0 = repro_torch.TriangularSolver.plan(L, device="cpu", dtype=_TORCH[dtype])
+    rng = np.random.default_rng(15)
+    clones = [s0.clone_with_values(L.data * rng.uniform(0.5, 1.5, L.nnz)) for _ in range(3)]
+    return ([c.bound._la for c in clones], [c._perm for c in clones],
+            [c._inv for c in clones], clones)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["er", "nb"])
+def test_level_bank_ref_is_level_ref_per_column(name, dtype):
+    """``sptrsv_level_bank_ref`` == ``sptrsv_level_ref`` on each column's
+    own lane, bitwise; the wrapper on CPU tensors is the plain version and
+    counts no launch; lanes repeat and every lane is used."""
+    las, perms, invs, _ = _bank_members(name, dtype)
+    bank = ops.stack_level_bank(las, perms, invs)
+    n = bank.n
+    lane_idx = torch.tensor([2, 0, 1, 1, 0, 3, 2, 0], dtype=torch.int32)  # lane 3 pads lane 0
+    b_col = torch.from_numpy(np.random.default_rng(16).standard_normal((8, n + 1))).to(
+        _TORCH[dtype])
+    b_col[:, n] = 0
+    x = sptrsv_level_bank_ref(*bank[:9], lane_idx, b_col)
+    assert x.shape == b_col.shape and x.dtype == b_col.dtype
+    for j, lane in enumerate(lane_idx.tolist()):
+        la = las[[0, 1, 2, 0][lane]]
+        _assert_bitwise(x[j].numpy(), sptrsv_level_ref(*la[:7], b_col[j]).numpy())
+    assert not np.array_equal(x[1].numpy(), x[2].numpy())  # distinct values per lane
+    sptrsv.reset_launches()
+    _assert_bitwise(sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col).numpy(),
+                    x.numpy())
+    assert not any(sptrsv.launches.values())
+
+
+def test_level_bank_layout():
+    """The concatenation: each lane's slice (``bank_lane``) is its own
+    level tensors exactly; the lane axis pads to a power of two with
+    lane 0's levels and no copy of plan data; perm / inv stack per lane."""
+    from repro_torch.kernels.ref import bank_lane
+
+    las, perms, invs, _ = _bank_members("er", "float32")
+    bank = ops.stack_level_bank(las, perms, invs)
+    assert bank.level_off.tolist()[3] == 0 and bank.n_levels.shape == (4,)
+    assert bank.row_ids.shape[0] == sum(la.row_ids.shape[0] for la in las)
+    assert bank.perm.shape == (4, bank.n) and torch.equal(bank.perm[3], perms[0])
+    assert torch.equal(bank.inv[1], invs[1])
+    for lane, la in enumerate(las + [las[0]]):
+        got = bank_lane(*bank[:9], lane)
+        for a, b in zip(got, la[:7]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    one = ops.stack_level_bank(las[:1], perms[:1], invs[:1])
+    assert one.level_off.tolist() == [0]  # one member, no padding
+
+
+def test_level_bank_rejects_mixed_classes_and_int32_overflow(monkeypatch):
+    las, perms, invs, _ = _bank_members("er", "float32")
+    other = repro_torch.TriangularSolver.plan(erdos_renyi_lower(500, 4e-3, seed=13),
+                                              device="cpu")
+    with pytest.raises(ValueError, match="width class"):  # another n
+        ops.stack_level_bank([las[0], other.bound._la], perms[:2], invs[:2])
+    monkeypatch.setattr(ops, "_INT32_MAX", las[0].row_ids.shape[0] + 1)
+    with pytest.raises(ValueError, match="pass int32"):
+        ops.stack_level_bank(las, perms, invs)
+
+
+def test_level_bank_wrapper_checks():
+    las, perms, invs, _ = _bank_members("nb", "float32")
+    bank = ops.stack_level_bank(las, perms, invs)
+    n = bank.n
+    b_col = torch.zeros((2, n + 1))
+    good = torch.tensor([0, 3], dtype=torch.int32)
+    sptrsv.sptrsv_level_bank_cuda(*bank[:9], good, b_col)
+    for lanes, err in [
+        (torch.tensor([0, 4], dtype=torch.int32), ValueError),  # no lane 4
+        (torch.tensor([-1, 0], dtype=torch.int32), ValueError),
+        (torch.tensor([0], dtype=torch.int32), ValueError),  # m != columns of b
+        (torch.tensor([0.0, 1.0]), TypeError),  # not an integer tensor
+        ([0, 1], TypeError),  # not a tensor
+    ]:
+        with pytest.raises(err):
+            sptrsv.sptrsv_level_bank_cuda(*bank[:9], lanes, b_col)
+    with pytest.raises(TypeError):
+        sptrsv.sptrsv_level_bank_cuda(*bank[:7], bank.level_off.long(), bank.n_levels, good,
+                                      b_col)
+    with pytest.raises(TypeError):  # b dtype against vals
+        sptrsv.sptrsv_level_bank_cuda(*bank[:9], good, b_col.double())
+    meta = ops.LevelBank(*(t.to("meta") for t in bank[:9]), bank.perm, bank.inv, n)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        sptrsv.sptrsv_level_bank_cuda(*meta[:9], good, torch.zeros((2, n + 1), device="meta"))
