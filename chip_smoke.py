@@ -32,6 +32,16 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              bitwise-equal to the bulk answers above; the barrier counts
              (supersteps, the elastic level order's levels, and the
              certificate's readiness waves the TPU kernel walks)
+  validate   the static verifier on the card path (repro_torch.analysis):
+             TriangularSolver.plan(L, validate="full") on the same
+             matrices, bulk and mode="elastic", each on a fresh PlanCache;
+             the same b, B, numeric_update, b, B: every answer bitwise the
+             unvalidated main path's, one launch a solve; the host seconds
+             of compile_plan, full and (REPRO_VALIDATE=fast, no argument)
+             fast verification, level_order and the level check of the
+             bound order, fast over compile; no finding; then a bind whose
+             level order carries a levels mutation (levels_shift_run) is
+             refused with VerificationError before any launch
   main_path_spmv      spmv(L, x) on the same matrices, against scipy in f64
              and bitwise the CPU plain version; one launch a call
   strategies the seven scheduling strategies on the same matrices:
@@ -117,8 +127,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              call makes; the elastic lines report the levels
              of the order over runs of slack supersteps and its slack
 
-then the ``kernels`` summary line (the path launches include those of
-the strategies, main_path_auto, pcg and serve phases), the nvidia-smi
+then the ``kernels`` summary line (the path launches include those of the
+validate, strategies, main_path_auto, pcg and serve phases), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. It exits non-zero,
 printing no result, without CUDA or outside a checkout of the repository.
 """
@@ -686,6 +696,122 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
            "bitwise_vs_cpu_scan": True, "relerr_limit": RELERR_VS_SCIPY, **card}
     emit(rec)
     return rec, cache
+
+
+def validate_phase(mats, inputs, answers, bitwise_equal, card) -> dict:
+    """The ``validate`` phase (see the module docstring): plans ER and NB
+    with ``validate="full"``, bulk and elastic, each on a fresh
+    ``PlanCache``, solves the main path's b, B, ``numeric_update`` and b,
+    B again, every answer bitwise the unvalidated main path's with one
+    launch a solve; the verifier's host seconds from the obs spans; then
+    ``REPRO_VALIDATE=fast`` with no argument, and a bind whose level order
+    carries a ``levels`` mutation, which must raise before any launch.
+    Returns the phase's record, which it has emitted."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import analysis, obs
+    from repro_torch.analysis import mutate
+    from repro_torch.kernels import ops, sptrsv
+    from repro_torch.kernels.levels import level_order
+    from repro_torch.pipeline import PlanCache
+
+    def spans_s(buf, name):
+        return [(sp.t1_ns - sp.t0_ns) / 1e9 for sp in buf.spans() if sp.name == name]
+
+    def traced_plan(L, **kw):
+        """Plan on a fresh cache under a trace: (solver, seconds, buffer)."""
+        buf = obs.TraceBuffer("validate")
+        t0 = time.perf_counter()
+        with obs.tracing(buf):
+            s = repro_torch.TriangularSolver.plan(L, cache=PlanCache(), **kw)
+        return s, time.perf_counter() - t0, buf
+
+    sptrsv.reset_launches()  # the validated paths' launches start here
+    rows, findings = [], 0
+    for name, L in mats.items():
+        b, B, new_data = inputs[name]
+        row = {"matrix": name, "n": L.n_rows}
+        for mode in ("bsp", "elastic"):
+            s, plan_s, buf = traced_plan(L, validate="full", mode=mode)
+            counters = buf.counters()
+            require(counters.get("analysis.verifications") == 2,
+                    f"{name} {mode}: validate='full' did not verify build and bind")
+            findings += counters.get("analysis.findings", 0)
+            for stage in ("initial", "numeric_update"):
+                if stage == "numeric_update":
+                    s.numeric_update(new_data)
+                for kname, rhs in (("sptrsv_single", b), ("sptrsv_mrhs", B)):
+                    x = s.solve(rhs)
+                    torch.cuda.synchronize()
+                    require(bitwise_equal(x, answers[(name, stage, kname)]),
+                            f"{name} {mode} {stage} {kname}: validated != unvalidated")
+            tag = "" if mode == "bsp" else "elastic_"
+            row[f"{tag}plan_s"] = round(plan_s, 3)
+            row[f"{tag}level_check_full_s"] = spans_s(buf, "analysis.verify.levels")[0]
+            if mode == "bsp":
+                row["compile_plan_s"] = spans_s(buf, "inspector.compile_plan")[0]
+                row["verify_full_s"] = spans_s(buf, "analysis.verify")[0]
+                t0 = time.perf_counter()
+                order = level_order(s.exec_plan)
+                row["level_order_s"] = time.perf_counter() - t0
+                held = s.bound._la.order
+                require(all(np.array_equal(getattr(order, f), getattr(held, f))
+                            for f in ("perm", "vert_ptr", "level_ptr", "level_run")),
+                        f"{name}: the bound level order is not level_order(plan)")
+                row["levels"] = order.n_levels
+        # REPRO_VALIDATE=fast with no argument verifies, build and bind
+        before = os.environ.get("REPRO_VALIDATE")
+        os.environ["REPRO_VALIDATE"] = "fast"
+        try:
+            _, _, buf = traced_plan(L)
+        finally:
+            if before is None:
+                del os.environ["REPRO_VALIDATE"]
+            else:
+                os.environ["REPRO_VALIDATE"] = before
+        require(buf.counters().get("analysis.verifications") == 2,
+                f"{name}: REPRO_VALIDATE=fast did not verify")
+        findings += buf.counters().get("analysis.findings", 0)
+        row["verify_fast_s"] = spans_s(buf, "analysis.verify")[0]
+        row["level_check_fast_s"] = spans_s(buf, "analysis.verify.levels")[0]
+        row["fast_over_compile"] = row["verify_fast_s"] / row["compile_plan_s"]
+        rows.append(row)
+    launches = dict(sptrsv.launches)
+    per_kind = 2 * len(mats)  # before and after numeric_update, as unvalidated
+    for kind in ("single", "mrhs", "elastic_single", "elastic_mrhs"):
+        require(launches[kind] == per_kind,
+                f"validated {kind} launches {launches[kind]}: one a solve")
+    require(findings == 0, f"{findings} findings on pristine plans")
+
+    # the gate on the card path: a bind whose level order carries a
+    # structural mutation is refused before any launch
+    real = ops.level_order
+
+    def shifted(plan, slack=1):
+        order = real(plan, slack)
+        art = analysis.Artifacts(L=None, sched=None, plan=plan, levels=order)
+        return mutate.levels_shift_run(art, np.random.default_rng(0)).levels
+
+    ops.level_order = shifted
+    try:
+        raised = None
+        try:
+            repro_torch.TriangularSolver.plan(mats["nb"], validate="fast", cache=PlanCache())
+        except analysis.VerificationError as e:
+            raised = e.report.codes()
+    finally:
+        ops.level_order = real
+    require(raised is not None, "a mutated level order was not refused")
+    require(dict(sptrsv.launches) == launches, "the refused bind launched a kernel")
+    rec = {"phase": "validate", "matrices": rows, "launches": launches, "findings": findings,
+           "bitwise_vs_unvalidated": True, "mutated_order_refused": list(raised),
+           "mutation": "levels_shift_run", **card}
+    emit(rec)
+    return rec
 
 
 def plan_work(plan, esize) -> dict:
@@ -1348,6 +1474,9 @@ def main() -> int:
               k: main_err[k] for k in ("sptrsv_elastic_single", "sptrsv_elastic_mrhs")},
           **card})
 
+    # ------------------------------------------------------- validate
+    validated = validate_phase(mats, inputs, answers, bitwise_equal, card)
+
     # ------------------------------------------------ main_path_spmv
     spmv.reset_launches()  # the SpMV path's launches start here
     rows = []
@@ -1375,6 +1504,8 @@ def main() -> int:
           "bitwise_vs_cpu_plain": True, "max_abs_err": main_err["spmv"], **card})
     path_launches = {**main_launches, **{k: elastic_launches[k] for k in (
         "elastic_single", "elastic_mrhs")}, **spmv_launches}
+    for key, v in validated["launches"].items():  # the validated paths'
+        path_launches[key] = path_launches.get(key, 0) + v
 
     # --------------------------------------------- strategies, auto
     refs = scipy_refs(mats, inputs)

@@ -12,6 +12,8 @@
   * ``compile_plan`` — schedule -> padded ExecPlan for the executors
   * ``elastic_transform`` — the bounded-slack certificate of
     ``mode="elastic"`` (``ElasticPlan``, ``DEFAULT_SLACK``)
+  * ``partition_plan`` — the host-side row-shard partition with its halo
+    exchange tables (``RowShardPlan``, ``HaloRound``)
 
 Copies of the JAX package's ``repro.core`` modules of the same names. The
 front door for solving is ``repro_torch.pipeline.TriangularSolver``.
@@ -36,6 +38,7 @@ from repro_torch.core.growlocal import grow_local
 from repro_torch.core.hdagg import hdagg_schedule
 from repro_torch.core.plan import ExecPlan, compile_plan, plans_bitwise_equal
 from repro_torch.core.reorder import Reordering, apply_reordering, schedule_order
+from repro_torch.core.rowshard import HaloRound, RowShardPlan, partition_plan
 from repro_torch.core.schedule import (
     DEFAULT_L,
     DEFAULT_L_STEP,
@@ -87,4 +90,7 @@ __all__ = [
     "schedule_step_count",
     "step_cost",
     "elastic_cost",
+    "partition_plan",
+    "RowShardPlan",
+    "HaloRound",
 ]

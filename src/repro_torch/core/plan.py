@@ -27,11 +27,15 @@ executes), so it must be O(nnz), not O(n) Python iterations:
 ``compile_plan`` is pure NumPy array passes — virtual-row expansion via
 ``repeat``/``cumsum`` segment arithmetic and one bulk scatter per plan
 tensor. This is a copy of the JAX package's inspector;
-``tests/test_torch_inspector.py`` holds the two bitwise-equal.
+``tests/test_torch_inspector.py`` holds the two bitwise-equal. The
+original per-row compiler is kept as ``_reference_compile_plan``, the
+oracle ``tests/test_torch_check.py`` holds the vectorized one to.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import List
+
 import numpy as np
 
 from repro_torch import obs
@@ -260,6 +264,87 @@ def compile_plan(
         step_bounds=step_bounds.astype(np.int32),
         val_src=val_src.reshape(T, k, W),
         diag_src=diag_src.reshape(T, k),
+    )
+
+
+def _reference_compile_plan(
+    L: CSRMatrix,
+    sched: Schedule,
+    *,
+    width: int | None = None,
+    dtype=np.float32,
+) -> ExecPlan:
+    """The original per-row plan compiler (superstep x core x virtual row
+    Python loops). Kept solely as the equivalence oracle for the
+    vectorized ``compile_plan`` — do not call it on large matrices."""
+    n, k = L.n_rows, sched.k
+    row_nnz_off = L.row_nnz() - 1  # off-diagonal count (diag always present)
+    assert (row_nnz_off >= 0).all(), "matrix must have a full diagonal"
+    W = _resolve_width(row_nnz_off, n, width)
+
+    chains = sched.chains()
+    diag_vals = L.diagonal()
+
+    # per (superstep, core): expand each row into ceil(off_nnz / W) virtual
+    # rows; chain length = sum of virtual rows; superstep step count = max
+    # chain length over cores.
+    step_bounds = [0]
+    vrows: List[List[List[tuple]]] = []  # superstep -> core -> [(row, seg)]
+    for s in range(sched.n_supersteps):
+        per_core: List[List[tuple]] = []
+        for p in range(k):
+            chain = chains.get((s, p), np.empty(0, dtype=np.int64))
+            vr: List[tuple] = []
+            for v in chain:
+                v = int(v)
+                segs = max(1, -(-int(row_nnz_off[v]) // W))
+                for g in range(segs):
+                    vr.append((v, g, g == segs - 1))
+            per_core.append(vr)
+        vrows.append(per_core)
+        step_bounds.append(step_bounds[-1] + max(len(c) for c in per_core))
+
+    T = step_bounds[-1]
+    row_ids = np.full((T, k), n, dtype=np.int32)
+    col_idx = np.zeros((T, k, W), dtype=np.int32)
+    vals = np.zeros((T, k, W), dtype=dtype)
+    diag = np.ones((T, k), dtype=dtype)
+    accum = np.zeros((T, k), dtype=bool)
+    val_src = np.full((T, k, W), -1, dtype=np.int32)
+    diag_src = np.full((T, k), -1, dtype=np.int32)
+    col_idx[:] = n
+
+    for s in range(sched.n_supersteps):
+        base = step_bounds[s]
+        for p in range(k):
+            for t, (v, g, last) in enumerate(vrows[s][p]):
+                cols, values = L.row(v)
+                e0 = int(L.indptr[v])  # entry index of this row's first slot
+                off = cols != v
+                off_src = e0 + np.nonzero(off)[0]
+                cols, values = cols[off], values[off]
+                lo, hi = g * W, min((g + 1) * W, len(cols))
+                row_ids[base + t, p] = v
+                col_idx[base + t, p, : hi - lo] = cols[lo:hi]
+                vals[base + t, p, : hi - lo] = values[lo:hi]
+                val_src[base + t, p, : hi - lo] = off_src[lo:hi]
+                diag[base + t, p] = diag_vals[v]
+                dpos = np.nonzero(~off)[0]
+                if len(dpos):
+                    diag_src[base + t, p] = e0 + int(dpos[0])
+                accum[base + t, p] = not last
+    return ExecPlan(
+        n=n,
+        k=k,
+        W=W,
+        row_ids=row_ids,
+        col_idx=col_idx,
+        vals=vals,
+        diag=diag,
+        accum=accum,
+        step_bounds=np.asarray(step_bounds, dtype=np.int32),
+        val_src=val_src,
+        diag_src=diag_src,
     )
 
 

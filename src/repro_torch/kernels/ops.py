@@ -73,6 +73,9 @@ class LevelArrays(NamedTuple):
     level_ptr: torch.Tensor  # int32[L+1]
     perm: torch.Tensor  # int64[P]: each lane-step's flat (step * k + lane) plan index
     n: int
+    # the host level order these tensors were gathered by: what the
+    # verifier (``analysis.level_check``) audits after a bind
+    order: LevelOrder | None = None
 
 
 def level_plan_arrays(
@@ -101,6 +104,7 @@ def level_plan_arrays(
         level_ptr=put(order.level_ptr, torch.int32),
         perm=put(perm, torch.int64),
         n=plan.n,
+        order=order,
     )
 
 

@@ -90,6 +90,8 @@ def ell_from_csr(m: CSRMatrix, *, width: int | None = None, dtype=np.float32):
     nnz_row = m.row_nnz()
     pieces = np.maximum(1, -(-nnz_row // W))
     first = np.cumsum(pieces) - pieces  # first ELL row of each row
+    # repro: blessed-reduction — an integer count of ELL rows: exact in
+    # any order, and no value of the product depends on it
     R = int(pieces.sum())
     pos = np.arange(m.nnz, dtype=np.int64) - np.repeat(m.indptr[:-1], nnz_row)
     dest = (np.repeat(first, nnz_row) + pos // W) * W + pos % W
@@ -119,6 +121,8 @@ class SlicedEll(NamedTuple):
         """Stored slots that are not entries, over all stored slots: the
         share of a warp's lanes idle at a slot (they load nothing)."""
         total = int(self.slice_ptr[-1])
+        # repro: blessed-reduction — an integer count of stored entries:
+        # exact in any order, read by the report only, never by the product
         return 1.0 - int(self.row_len.sum()) / total if total else 0.0
 
 

@@ -56,7 +56,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import analysis, obs
 from repro_torch.backends import get_backend
 from repro_torch.backends.base import numpy_dtype
 from repro_torch.core import (
@@ -341,6 +341,7 @@ class TriangularSolver:
         timed: bool = False,
         sched=None,
         tune: bool = False,
+        validate: Optional[str] = None,
         **opts,
     ) -> "TriangularSolver":
         """Plan a solver for triangular ``a`` (lower, or upper with
@@ -378,11 +379,27 @@ class TriangularSolver:
         resolved *concrete* key — so repeated auto plans on one pattern
         skip both selection and scheduling.
 
+        ``validate`` runs the independent static verifier
+        (``repro_torch.analysis``) over the freshly built artifacts —
+        schedule, reorder permutation, plan tensors and elastic
+        certificate, against the matrix the plan was compiled from — and,
+        on the ``kernel`` backend, over the level order the bind built,
+        the one the CUDA kernels walk (``analysis.level_check``):
+        ``"fast"`` is the vectorized invariant set, ``"full"`` adds value
+        provenance and the read-before-write proofs, ``"off"`` (default)
+        skips. ``None`` defers to the ``REPRO_VALIDATE`` env var. A finding
+        raises ``analysis.VerificationError`` with the findings table,
+        before any solve. Build-time only, and not part of the cache key:
+        cache hits return the already-verified entry without re-checking.
+
         ``timed=True`` turns on per-step timed execution: every ``solve``
         routes through ``solve_timed``. It is NOT part of the plan identity
         (the cache key): a cache hit returns the same solver with the
         toggle set to THIS call's value."""
         strategy = strategy.lower()
+        # resolve (and reject) the validation level before any scheduling
+        # work; "off" keeps the verifier entirely off the build path
+        check_level = analysis.resolve_level(validate)
         # fail fast on an unknown backend, with the registry naming options
         backend_caps = get_backend(backend).capabilities()
         np_dtype = numpy_dtype(dtype)
@@ -478,6 +495,19 @@ class TriangularSolver:
                 with obs.span("inspector.elastic", cat="inspector", n=n):
                     plan.elastic = elastic_transform(plan, o.slack)
 
+            if check_level != "off":
+                # verify against m2 BEFORE the val_src rebase below —
+                # the provenance audit matches sources against the
+                # matrix the plan was actually compiled from
+                analysis.verify_artifacts(
+                    analysis.Artifacts(
+                        L=m2, sched=s2, plan=plan,
+                        perm=inner if o.reorder else None,
+                        sched_pre=s if o.reorder else None,
+                    ),
+                    level=check_level,
+                ).raise_if_failed()
+
             # rebase the plan's value-source maps onto a's entry order so
             # numeric_update() consumes a.data directly
             entry_map = _entry_permutation(m0, inner)  # m2 entry -> m0 entry
@@ -506,6 +536,14 @@ class TriangularSolver:
             # selection is recorded at build time only — cached solvers are
             # never mutated after being handed out (see the property doc)
             solver._selection = selection
+            if check_level != "off":
+                # the level order is built at bind time: audit the one the
+                # bound kernels will walk, before any launch
+                order = getattr(getattr(solver.bound, "_la", None), "order", None)
+                if order is not None:
+                    analysis.verify_levels_report(
+                        plan, order, level=check_level, slack=max(o.slack, 1)
+                    ).raise_if_failed()
             return solver
 
         # the tuned winner was built and warmed during the measured trials

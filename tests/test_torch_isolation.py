@@ -51,7 +51,8 @@ def test_no_jax_or_repro_imports_in_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
     scanned = {f.relative_to(PKG).parts[0] for f in files}
-    assert {"serve", "launch"} <= scanned  # the serve layer and its CLI too
+    assert {"serve", "launch", "analysis"} <= scanned  # serve, CLIs, the verifier too
+    assert len([f for f in files if f.parent.name == "analysis"]) >= 9
     assert len([f for f in files if f.parent.name == "serve"]) >= 7
     bad = [
         (str(f.relative_to(REPO)), mod)
@@ -97,6 +98,13 @@ with SolveService(mode="continuous", strategy="wavefront", device="cpu") as svc:
     assert np.array_equal(y, direct_reference(t.served_by, np.ones(96), t.batch_width,
                                               t.batch_position))
     assert svc.stats()["slots"]["passes"] == 1
+import repro_torch.analysis.mutate, repro_torch.launch.check, repro_torch.launch.check_overhead
+from repro_torch.core import partition_plan
+for mode in ("bsp", "elastic"):
+    sv = repro_torch.TriangularSolver.plan(L, device="cpu", validate="full", mode=mode)
+    assert np.array_equal(sv.solve(np.ones(300)).numpy(), x)
+assert repro_torch.launch.check.main(["--smoke", "--no-lint"]) == 0
+assert partition_plan(sv.exec_plan, 4).n_shards == 4
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert loaded == [], loaded
 print("ok")
