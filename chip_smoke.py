@@ -13,7 +13,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              level walks of the bulk order (k in {8, 32}, width in {None,
              2}, single RHS and m in {5, 64, 300}, the latter a block per
              column; the largest ulp gap to the plain version run on the
-             card is reported), the elastic kernels (the level walk over
+             card is reported; and range launches over the bulk order cut
+             at each superstep, one and m RHS, bitwise one full launch), the elastic kernels (the level walk over
              runs of slack supersteps; k in {8, 32}, slack in {1, 8},
              single RHS and m in {5, 64}; also bitwise-equal to the bulk
              plain version) and the SpMV kernel (ER, NB and a matrix with
@@ -102,10 +103,32 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              beside the cols kernel on one of those plans and the library
              (torch.triangular_solve on the clones' block diagonal as
              sparse CSR, B [8n, 4]: the same x)
+  distributed  the distributed backend on meshes of card positions, every
+             position on cuda:0 (repro_torch.mesh.make_mesh): the main
+             path's ER and NB plans (growlocal, k=8, n=100,000, after its
+             numeric_update) bound straight through
+             get_backend("distributed").bind: shard="rows" on mesh (1, 8)
+             at slack 0 and 8 with b f[n], and on (2, 4) with B f[n, 32];
+             shard="model" on (1, 8) with b and with B. Each answer bitwise
+             the kernel backend's on the same plan and the same binding on
+             a CPU mesh (the plain version); describe()["exchange"] equal
+             to the CPU binding's; solve_timed one step per round, bitwise
+             solve; update_values bitwise a fresh bind (slack 0, b, one per
+             shard mode). Reports the range launches per solve (equal to
+             describe()["launches_per_solve"]: rounds x positions with
+             work), ms per solve (CUDA events, 3 warm-ups, median of 10)
+             beside the kernel backend's, the per-round µs, halo_ratio and
+             halo bytes, bind seconds. Then one front-door
+             TriangularSolver.plan(ER, backend="distributed", mesh (2, 4),
+             shard="rows", validate="fast") (answers bitwise the main
+             path's initial ones) and SolveService on its PlanCache with
+             the same mesh: 4 clients x 10 requests, batch_align 2, every
+             result bitwise its direct_reference
              Each main-path phase sets the launch counters to 0 just before
              it and reads them just after; its kernels must have launched.
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
-             of 20), plain version on the card (SpTRSV once, SpMV median of
+             of 20; the range kernels: the launches over the bulk order cut
+             at each superstep, the same function as one full launch), plain version on the card (SpTRSV once, SpMV median of
              5), the library yardstick (torch.triangular_solve on a
              sparse-CSR L for SpTRSV, the sparse-CSR matvec for SpMV; never
              called by the port), and the byte/operation bound of the H100
@@ -160,6 +183,12 @@ KERNELS = {
     # the m-RHS kernel's banked launch: the serve layer's width-class grouping
     "sptrsv_bank": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "bank",
                     "level.cuh::sptrsv_level_bank_kernel"),
+    # the bulk entries launched over a range of levels: the distributed
+    # backend's exchange rounds, one launch per position and round
+    "sptrsv_range_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "range_single",
+                            _LEVEL_1),
+    "sptrsv_range_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "range_mrhs",
+                          _LEVEL_M),
 }
 KERNEL_REPLACES = {name: k[0] for name, k in KERNELS.items()}
 MAIN_M = 32
@@ -178,6 +207,15 @@ SERVE_REQUESTS = 25
 SERVE_SAMPLE = 64  # served results per mode held against the CPU plain version
 SERVE_FAMILY = 6  # shifted_coupling_lower shifts: one width class, a bank of 8 lanes
 SERVE_SLOTS = 32
+# the distributed phase: (shard, mesh shape, slack, m) on cuda:0 positions
+DIST_CONFIGS = (
+    ("rows", (1, 8), 0, None),
+    ("rows", (1, 8), 8, None),
+    ("rows", (2, 4), 0, MAIN_M),
+    ("model", (1, 8), 0, None),
+    ("model", (1, 8), 0, MAIN_M),
+)
+DIST_CLIENTS, DIST_REQUESTS = 4, 10
 T_START = time.perf_counter()
 
 
@@ -210,13 +248,28 @@ def device_events(prof) -> list:
     return sorted(events, key=lambda e: -e["ms"])
 
 
+def busy_union_ms(prof) -> float:
+    """The device's busy time in a ``torch.profiler`` run: the union of its
+    events' intervals, so that work on streams that overlap counts once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")
+                   and not e.name.startswith("ProfilerStep"))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def profile_iterations(run, n_iter=20) -> dict:
     """``run(n_iter)`` (that many CG iterations) under ``torch.profiler``:
-    the device time of each kernel, summed by name, against the elapsed
-    time of CUDA events around the run, whence the device's idle share.
-    The profiler slows the host, so the profiled iteration is slower than
-    an unprofiled one; a profiler that records no device time gives
-    ``device_busy_ms`` 0 (then read only ``ms_per_iter``)."""
+    the device time of each kernel, summed by name, and the device's busy
+    time (``busy_union_ms``: the union of its events' intervals) against
+    the elapsed time of CUDA events around the run, whence the device's
+    idle share. The profiler slows the host, so the profiled iteration is
+    slower than an unprofiled one; a profiler that records no device time
+    gives ``device_busy_ms`` 0 (then read only ``ms_per_iter``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,9 +282,10 @@ def profile_iterations(run, n_iter=20) -> dict:
         e1.synchronize()
     elapsed = e0.elapsed_time(e1)
     kernels = device_events(prof)
-    busy = sum(k["ms"] for k in kernels)
+    busy = busy_union_ms(prof)
     return {"iters": n_iter, "elapsed_ms": elapsed, "ms_per_iter": elapsed / n_iter,
-            "device_busy_ms": busy, "idle_share": 1.0 - busy / elapsed,
+            "device_busy_ms": busy, "kernel_ms_sum": sum(k["ms"] for k in kernels),
+            "idle_share": 1.0 - busy / elapsed,
             "kernels": len(kernels), "launches": sum(k["count"] for k in kernels),
             "top": kernels[:10]}
 
@@ -282,7 +336,8 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
         # z0 = M(b), then one M(r) per iteration: two solves each; one
         # matvec per iteration
         want = {"single": 2 * (iters + 1), "mrhs": 0, "elastic_single": 0,
-                "elastic_mrhs": 0, "bank": 0, "spmv": iters}
+                "elastic_mrhs": 0, "bank": 0, "range_single": 0, "range_mrhs": 0,
+                "spmv": iters}
         require(launches == want, f"pcg launches {launches}, want {want}")
         require(x.device.type == dev.type and x.dtype == torch.float32 and x.shape == (n,)
                 and bool(torch.isfinite(x).all()), "pcg output")
@@ -814,6 +869,208 @@ def validate_phase(mats, inputs, answers, bitwise_equal, card) -> dict:
     return rec
 
 
+def superstep_ranges(order):
+    """The level ranges of the bulk order cut at each superstep: the range
+    launches of one position of a mesh whose rounds are the supersteps."""
+    import numpy as np
+
+    from repro_torch.kernels.levels import round_ranges
+
+    return [int(v) for v in round_ranges(order, np.arange(int(order.level_run.max()) + 2))]
+
+
+def distributed_phase(solvers, mats, inputs, cuda_times, bitwise_equal, max_abs, main_err,
+                      card, dev) -> dict:
+    """The distributed backend on meshes of cuda:0 positions (see the
+    module docstring); returns the phase's record, which it has emitted,
+    with the launches of its path: those of the checked solves (one per
+    configuration, the front door's two and the served requests), not of
+    the timing, profiling and update checks' solves."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.backends import get_backend
+    from repro_torch.kernels import sptrsv
+    from repro_torch.mesh import make_mesh
+    from repro_torch.pipeline import PlanCache
+    from repro_torch.serve import SolveService, direct_reference
+
+    t_phase = time.perf_counter()
+    be = get_backend("distributed")
+    sptrsv.reset_launches()  # the distributed path's launches start here
+    path = {"range_single": 0, "range_mrhs": 0}
+
+    def tally(before):
+        for k in path:
+            path[k] += sptrsv.launches[k] - before[k]
+
+    rows = []
+    for name, solver in solvers.items():
+        plan = solver.exec_plan  # after the main path's numeric_update
+        b, B, _ = inputs[name]
+        # plan row order on the card: what a bound solve takes
+        rhs = {m: torch.as_tensor(v, dtype=torch.float32, device=dev)[solver._perm]
+               for m, v in ((None, b), (MAIN_M, B))}
+        ref = {m: solver.bound.solve(r) for m, r in rhs.items()}  # the kernel backend
+        kernel_ms = {m: statistics.median(cuda_times(lambda r=r: solver.bound.solve(r), 3, 10))
+                     for m, r in rhs.items()}
+        data2 = solver.source_values * 0.75  # the same pattern, new values
+        for shard, shape, slack, m in DIST_CONFIGS:
+            cfg = f"{name} shard={shard} mesh={shape} slack={slack} m={m}"
+            t0 = time.perf_counter()
+            gpu = be.bind(plan, mesh=make_mesh(shape, devices=dev), shard=shard, slack=slack)
+            torch.cuda.synchronize()
+            bind_s = time.perf_counter() - t0
+            cpu = be.bind(plan, device="cpu", mesh=make_mesh(shape, devices="cpu"),
+                          shard=shard, slack=slack)
+            kind = "range_single" if m is None else "range_mrhs"
+            d = gpu.describe()
+            ex = d["exchange"]
+            want = d["launches_per_solve"]["single" if m is None else "mrhs"]
+            before = dict(sptrsv.launches)
+            x = gpu.solve(rhs[m])
+            torch.cuda.synchronize()
+            made = {k: sptrsv.launches[k] - before[k] for k in before}
+            tally(before)
+            require(made[kind] == want and sum(made.values()) == want,
+                    f"{cfg}: launches {made}, expected {want} {kind}")
+            require(x.device == rhs[m].device and x.shape == rhs[m].shape
+                    and bool(torch.isfinite(x).all()), f"{cfg}: x")
+            require(bitwise_equal(x, ref[m]), f"{cfg}: != the kernel backend's answer")
+            t0 = time.perf_counter()
+            x_cpu = cpu.solve(rhs[m].cpu())
+            cpu_s = time.perf_counter() - t0
+            require(bitwise_equal(x, x_cpu), f"{cfg}: != the CPU mesh (plain version)")
+            require(ex == cpu.describe()["exchange"], f"{cfg}: exchange != the CPU binding's")
+            xt, steps = gpu.solve_timed(rhs[m])
+            torch.cuda.synchronize()
+            require(len(steps) == ex["rounds"] and bitwise_equal(xt, x),
+                    f"{cfg}: solve_timed, {len(steps)} steps for {ex['rounds']} rounds")
+            ms = statistics.median(cuda_times(lambda: gpu.solve(rhs[m]), 3, 10))
+            rec = {"matrix": name, "shard": shard, "mesh": list(shape), "slack": slack,
+                   "m": 1 if m is None else m, "rounds": ex["rounds"],
+                   "n_supersteps": ex["n_supersteps"], "kernel": kind,
+                   "launches_per_solve": made[kind],
+                   "rounds_x_positions_with_work": want,
+                   "n_levels": d["n_levels"], "ms": ms, "kernel_backend_ms": kernel_ms[m],
+                   "ms_over_kernel_backend": ms / kernel_ms[m],
+                   "round_us": [st["us"] for st in steps],
+                   "round_launches": [st["launches"] for st in steps],
+                   "comm_values_per_solve": ex["comm_values_per_solve"],
+                   "comm_bytes_per_solve": ex["comm_bytes_per_solve"] * (
+                       1 if m is None else m),
+                   "bind_s": bind_s, "cpu_mesh_solve_s": cpu_s,
+                   "bitwise_vs_kernel_backend": True, "bitwise_vs_cpu_mesh": True}
+            if shard == "rows":
+                rec.update(halo_ratio=ex["halo_ratio"],
+                           halo_bytes_per_solve=ex["halo_bytes_per_solve"] * (
+                               1 if m is None else m),
+                           halo_values_max_round=ex["halo_values_max_round"],
+                           n_loc=d["n_loc"], n_halo=d["n_halo"])
+            if slack:
+                rec.update(predicted_rounds=ex["predicted_rounds"],
+                           executed_fusion=ex["executed_fusion"])
+            if shape == (1, 8) and slack == 0 and m is None:
+                # where a solve's time goes: the device's busy time, the
+                # union over the positions' streams, against the elapsed
+                prof = profile_iterations(lambda k: [gpu.solve(rhs[m]) for _ in range(k)], 10)
+                rec["profile_10_solves"] = {key: prof[key] for key in (
+                    "elapsed_ms", "ms_per_iter", "device_busy_ms", "kernel_ms_sum",
+                    "idle_share", "kernels", "launches", "top")}
+            if slack == 0 and m is None:
+                fresh_plan = dataclasses.replace(plan, vals=plan.vals.copy(),
+                                                 diag=plan.diag.copy())
+                fresh_plan.numeric_update(data2)
+                fresh = be.bind(fresh_plan, mesh=make_mesh(shape, devices=dev), shard=shard)
+                t0 = time.perf_counter()
+                upd = gpu.update_values(data2)
+                torch.cuda.synchronize()
+                rec["update_values_s"] = time.perf_counter() - t0
+                require(bitwise_equal(upd.solve(rhs[m]), fresh.solve(rhs[m])),
+                        f"{cfg}: update_values != a fresh bind")
+                rec["update_values_bitwise_fresh_bind"] = True
+            main_err[f"sptrsv_{kind}"] = max(main_err.get(f"sptrsv_{kind}", 0.0),
+                                             max_abs(x, x_cpu))
+            rows.append(rec)
+            emit({"phase": "distributed", "row": rec})
+
+    # the front door once, and the service on its PlanCache: ER, (2, 4), rows
+    b, B, _ = inputs["er"]
+    mesh = make_mesh((2, 4), devices=dev)
+    cache = PlanCache()
+    t0 = time.perf_counter()
+    fd = repro_torch.TriangularSolver.plan(mats["er"], backend="distributed", mesh=mesh,
+                                           shard="rows", validate="fast", cache=cache)
+    fd_s = time.perf_counter() - t0
+    require(fd.info()["shard"] == "rows" and fd.device.type == dev.type, "front door binding")
+    before = dict(sptrsv.launches)
+    x, X = fd.solve(b), fd.solve(B)
+    torch.cuda.synchronize()
+    tally(before)
+    initial = solvers["er"].clone_with_values(mats["er"])  # the kernel backend
+    require(bitwise_equal(x, initial.solve(b)) and bitwise_equal(X, initial.solve(B)),
+            "front door: != the kernel backend's answers")
+    svc = SolveService(max_batch=8, max_wait_us=2000, strategy="growlocal", cache=cache,
+                       backend="distributed", mesh=mesh, shard="rows")
+    try:
+        fp = svc.register(mats["er"])
+        require(cache.stats.hits >= 1, "the service planned again")
+        require(svc.stats()["serving"]["batch_align"] == 2, "batch_align")
+        rng = np.random.default_rng(31)
+        reqs = [[rng.standard_normal(mats["er"].n_rows).astype(np.float32)
+                 for _ in range(DIST_REQUESTS)] for _ in range(DIST_CLIENTS)]
+        served, errors = [], []
+
+        def client(bs):
+            try:
+                for bb in bs:
+                    t = svc.submit(fp, bb)
+                    served.append((t, bb, t.result(300)))
+            except Exception as e:  # reported below, after the join
+                errors.append(repr(e))
+
+        before = dict(sptrsv.launches)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(bs,)) for bs in reqs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        tally(before)
+        require(not errors and not any(t.is_alive() for t in threads), f"serve: {errors}")
+        require(len(served) == DIST_CLIENTS * DIST_REQUESTS, "serve: requests lost")
+        for t, bb, xx in served:
+            require(t.batch_width % 2 == 0, f"serve: width {t.batch_width}")
+            ref = direct_reference(t.served_by, bb, t.batch_width, t.batch_position)
+            require(np.array_equal(xx.view(np.uint32), ref.view(np.uint32)),
+                    "serve: a result != its direct_reference")
+        snap = svc.stats()
+    finally:
+        report = svc.close(timeout=120)
+    require(report["workers_alive"] == [], "serve: workers alive after close")
+    # the range launches of the path's checked solves (the kernel
+    # backend's reference and timing solves launch the bulk kernels)
+    launches = dict(path)
+    for k in launches:
+        require(launches[k] > 0, f"{k} was not launched on the distributed path")
+    rec = {"phase": "distributed", "rows": rows, "launches": launches,
+           "front_door": {"plan_s": fd_s, "mesh": [2, 4], "shard": "rows",
+                          "validate": "fast", "bitwise_vs_kernel_backend": True},
+           "serve": {"clients": DIST_CLIENTS, "requests": len(served), "wall_s": wall,
+                     "req_per_s": len(served) / wall, "batch_align": 2,
+                     "batch_sizes": dict(snap.get("batch_size_hist", {})),
+                     "latency_us": snap.get("latency_us"),
+                     "bitwise_vs_direct_reference": True},
+           "phase_s": time.perf_counter() - t_phase, **card}
+    emit(rec)
+    return rec
+
+
 def plan_work(plan, esize) -> dict:
     """What this run's data needs of a solve, padding left out: the plan's
     real entries (index and value), real lane steps (row, diagonal, accum
@@ -961,8 +1218,9 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
 
     def device_window(svc, pool):
         """The same requests again, in a second closed loop under
-        ``torch.profiler``: the device's time (its kernels and copies,
-        summed) against the loop's elapsed time, whence its idle share
+        ``torch.profiler``: the device's busy time (``busy_union_ms`` of
+        its kernels and copies) against the loop's elapsed time, whence its
+        idle share
         while serving. The profiler slows the host, so this loop is
         slower than the measured one; its launches are not counted."""
         drawn = itertools.count()
@@ -972,7 +1230,7 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
         require(report["errors"] == 0 and report["metrics"]["completed"] > 0,
                 "serve: the profiled loop failed")
         events = device_events(prof)
-        busy = sum(e["ms"] for e in events)
+        busy = busy_union_ms(prof)
         elapsed_ms = report["elapsed_seconds"] * 1e3
         return {"elapsed_ms": elapsed_ms, "req_s": report["solves_per_sec"],
                 "device_busy_ms": busy,
@@ -1268,7 +1526,19 @@ def main() -> int:
                                   "levels": int(la_gpu.level_ptr.numel() - 1),
                                   "ulp_vs_plain_on_card": ulp_gap(x_gpu, x_plain_gpu)})
                     require(same, f"kernel != CPU plain version at {cells[-1]}")
-    emit({"phase": "kernels", "names": ["sptrsv_single", "sptrsv_mrhs"],
+                    if m in (None, 5):  # range launches, one a superstep
+                        b_r = (b_pad if m is None else b_pad.T.contiguous()).to(dev)
+                        x_r = torch.zeros_like(b_r)
+                        cuts = superstep_ranges(la_gpu.order)
+                        for lo, hi in zip(cuts[:-1], cuts[1:]):
+                            sptrsv.sptrsv_level_range_cuda(*la_gpu[:7], lo, hi, b_r, x_r)
+                        torch.cuda.synchronize()
+                        cells[-1]["range_launches_bitwise_full"] = bitwise_equal(
+                            x_r if m is None else x_r.T, x_gpu)
+                        require(cells[-1]["range_launches_bitwise_full"],
+                                f"range launches != one full launch at {cells[-1]}")
+    emit({"phase": "kernels", "names": ["sptrsv_single", "sptrsv_mrhs", "sptrsv_range_single",
+                                        "sptrsv_range_mrhs"],
           "launches": dict(sptrsv.launches), "cells": len(cells),
           "all_bitwise_vs_cpu_plain": all(c["bitwise"] for c in cells),
           "max_ulp_vs_plain_on_card": max(c["ulp_vs_plain_on_card"] for c in cells),
@@ -1532,6 +1802,12 @@ def main() -> int:
         for key, v in row["launches"].items():
             path_launches[key] += v
 
+    # ---------------------------------------------------- distributed
+    dist = distributed_phase(solvers, mats, inputs, cuda_times, bitwise_equal, max_abs,
+                             main_err, card, dev)
+    for key, v in dist["launches"].items():
+        path_launches[key] = path_launches.get(key, 0) + v
+
     # --------------------------------------------------------- timing
     def graph_ms(fn, reps):
         """Median ms of replaying a CUDA graph that holds ``fn``'s launches:
@@ -1633,6 +1909,44 @@ def main() -> int:
             else:  # the wrapper's column-major copy of b, part of ms
                 copy_in = cuda_times(lambda: b_pad.T.contiguous(), 3, 20)
                 rec.update(blocks=cols, copy_in_ms=statistics.median(copy_in))
+            timing[(name, kname)] = rec
+            emit({"phase": "timing", **rec})
+        # the range kernels: the bulk order cut at each superstep, walked by
+        # one range launch a superstep into one x — the same function as
+        # one full launch, so the bulk line's bound and library apply
+        from repro_torch.kernels.ref import sptrsv_level_range_ref
+
+        cuts = superstep_ranges(order)
+        for kname, m in (("sptrsv_range_single", None), ("sptrsv_range_mrhs", MAIN_M)):
+            b_pad = rhs_pad(gpu.n, m)
+            b_r = b_pad if m is None else b_pad.T.contiguous()  # column-major for m
+
+            def ranged(walk, x):
+                for lo, hi in zip(cuts[:-1], cuts[1:]):
+                    walk(*la[:7], lo, hi, b_r, x)
+                return x
+
+            ms = statistics.median(cuda_times(
+                lambda: ranged(sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r)), 3, 20))
+            x = ranged(sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r))
+            full = sptrsv.sptrsv_level_cuda(*la[:7], b_pad)
+            require(bitwise_equal(x if m is None else x.T, full),
+                    f"{name} {kname}: range launches != one full launch")
+            x_plain = []
+            plain = cuda_times(lambda: x_plain.append(
+                ranged(sptrsv_level_range_ref, torch.zeros_like(b_r))), 0, 1)
+            require(bitwise_equal(x, x_plain[0]), f"{name} {kname}: timed kernel != plain")
+            bulk = timing[(name, kname.replace("range_", ""))]
+            rec = {"matrix": name, "kernel": kname, "m": 1 if m is None else m, "ms": ms,
+                   "launches_per_solve": sum(1 for lo, hi in zip(cuts[:-1], cuts[1:])
+                                             if hi > lo),
+                   "ranges": "the bulk order cut at each superstep",
+                   "bound_us": bulk["bound_us"], "bound_by": bulk["bound_by"],
+                   "levels": order.n_levels, "supersteps": plan.n_supersteps,
+                   "full_launch_ms": bulk["ms"], "ms_over_full_launch": ms / bulk["ms"],
+                   "plain_ms": statistics.median(plain), "plain_reps": len(plain),
+                   "library_ms": bulk["library_ms"], "library": bulk["library"],
+                   "library_error": bulk["library_error"], **card}
             timing[(name, kname)] = rec
             emit({"phase": "timing", **rec})
 

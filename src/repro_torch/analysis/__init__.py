@@ -31,7 +31,9 @@ double as the verifier's own false-negative test.
 Entry points: ``TriangularSolver.plan(validate="fast"|"full")`` (or the
 ``REPRO_VALIDATE`` env var, the same one the JAX package reads) verifies
 at build time, and on the ``kernel`` backend checks the bound level order
-after the bind; ``python -m repro_torch.launch.check`` sweeps the
+after the bind (on the ``distributed`` backend, every mesh position's
+order with its round ranges, and with ``shard="rows"`` the halo
+partition); ``python -m repro_torch.launch.check`` sweeps the
 corpus; ``python -m repro_torch.analysis.lint`` runs the source lint.
 
 Levels: ``"fast"`` is the O(n) structural screen that rides along on
@@ -59,7 +61,7 @@ from repro_torch.analysis.findings import (
     VerificationError,
     finding,
 )
-from repro_torch.analysis.level_check import verify_level_order
+from repro_torch.analysis.level_check import verify_level_order, verify_round_ranges
 from repro_torch.analysis.lint import lint_paths, lint_source
 from repro_torch.analysis.plan_check import (
     packed_writers,
@@ -88,9 +90,11 @@ __all__ = [
     "verify_lane_layout",
     "verify_level_order",
     "verify_levels_report",
+    "verify_mesh_levels_report",
     "verify_reorder",
     "verify_rowshard",
     "verify_rowshard_report",
+    "verify_round_ranges",
     "verify_schedule",
 ]
 
@@ -252,3 +256,21 @@ def verify_levels_report(
         "levels", level, int(plan.n),
         lambda lv: verify_level_order(plan, order, level=lv, slack=slack),
     )
+
+
+def verify_mesh_levels_report(audit, *, level: str = "fast") -> Report:
+    """Level-order report over a mesh bind's positions — the post-bind hook
+    of the ``distributed`` backend (``level_audit()``: one ``(plan, order,
+    rows, bounds, ranges)`` per position of a data row): each position's
+    bulk order against the plan it was built from and the rows it must
+    finish, and its exchange rounds' level ranges."""
+    audit = list(audit)
+
+    def run(lv):
+        out = []
+        for plan, order, rows, bounds, ranges in audit:
+            out += verify_level_order(plan, order, level=lv, slack=1, rows=rows)
+            out += verify_round_ranges(order, bounds, ranges)
+        return out
+
+    return _one_pass_report("levels", level, int(audit[0][0].n) if audit else 0, run)

@@ -28,6 +28,13 @@ fast level (O(lane-steps)):
     vertex of the level, and ``slack`` is the bind's (1 for the bulk
     kernels, the certificate's for the elastic ones).
 
+On a mesh (the distributed backend) each position binds its own plan —
+a lane of the plan, or a shard's local plan — which finishes only some
+rows (``rows=``), and walks it in exchange rounds, one range of levels a
+round. ``verify_round_ranges`` checks those ranges: they partition the
+levels in order, and round r's range holds exactly the levels whose run
+lies in the round's supersteps.
+
 full level (O(lane-steps x W)) adds:
 
   * no read before write — every real column a vertex of level l reads
@@ -49,12 +56,14 @@ CHECK = "levels"
 
 
 def verify_level_order(
-    plan, order, *, level: str = "fast", slack: Optional[int] = None
+    plan, order, *, level: str = "fast", slack: Optional[int] = None, rows=None
 ) -> List[Finding]:
     """Audit ``order`` (a level order of ``plan``) against the plan.
     ``slack`` is the run length the bind expects; ``None`` reads it from
     the plan: the certificate's slack where ``plan.elastic`` is attached
-    (the elastic bind), else 1 (the bulk bind)."""
+    (the elastic bind), else 1 (the bulk bind). ``rows`` are the rows the
+    plan must finish, each by exactly one vertex (``None``: every row
+    ``0..n-1``; a mesh position's plan finishes only its own)."""
     out: List[Finding] = []
     if slack is None:
         ep = getattr(plan, "elastic", None)
@@ -69,6 +78,9 @@ def verify_level_order(
     level_ptr = np.asarray(order.level_ptr, dtype=np.int64).reshape(-1)
     level_run = np.asarray(order.level_run, dtype=np.int64).reshape(-1)
     P = perm.size
+    owned = None if rows is None else np.asarray(rows, dtype=np.int64).reshape(-1)
+    if owned is not None and owned.size and (owned.min() < 0 or owned.max() >= n):
+        raise ValueError(f"rows must lie in [0, {n})")
 
     if int(order.slack) != int(slack):
         out.append(finding(
@@ -163,11 +175,16 @@ def verify_level_order(
         ))
     fin_rows = rows[fin_pos]
     per_row = np.bincount(fin_rows, minlength=n)[:n]
-    if (per_row != 1).any():
+    expect = np.ones(n, dtype=np.int64)
+    if owned is not None:
+        expect[:] = 0
+        expect[owned] = 1
+    if (per_row != expect).any():
         out.append(finding(
             CHECK, "LEVEL_ROW_FINISH",
-            f"{int((per_row != 1).sum())} rows finished by other than "
-            f"one vertex (rows {_ex(np.flatnonzero(per_row != 1))})",
+            f"{int((per_row != expect).sum())} rows finished by other than "
+            f"the expected one vertex (rows "
+            f"{_ex(np.flatnonzero(per_row != expect))})",
         ))
 
     # ---- runs: level_run is superstep // slack of every vertex ---------
@@ -216,6 +233,50 @@ def verify_level_order(
             f"earlier level (e.g. lane-step {int(perm[i])} at level "
             f"{int(r_lvl[i])} reads a row of level "
             f"{int(w_lvl[cols[i]].max())})",
+        ))
+    return out
+
+
+def verify_round_ranges(order, bounds, ranges) -> List[Finding]:
+    """Audit the exchange rounds' level ranges of a mesh position's order:
+    ``ranges`` (int[F+1]) rise from 0 to the level count, and round r's
+    range ``[ranges[r], ranges[r+1])`` holds exactly the levels whose run
+    (a superstep, in the bulk order) lies in ``[bounds[r], bounds[r+1])``
+    — ``bounds`` being the round's superstep bounds. A level walked in the
+    wrong round reads a halo or gathered row before its exchange, or
+    finishes a row after the exchange that should carry it."""
+    out: List[Finding] = []
+    level_run = np.asarray(order.level_run, dtype=np.int64).reshape(-1)
+    rng = np.asarray(ranges, dtype=np.int64).reshape(-1)
+    eb = np.asarray(bounds, dtype=np.int64).reshape(-1)
+    L = level_run.size
+    if int(order.slack) != 1:
+        out.append(finding(
+            CHECK, "LEVEL_ROUND_RANGE",
+            f"round ranges cut the bulk order (slack 1); this order is over "
+            f"runs of {int(order.slack)} supersteps",
+        ))
+        return out
+    if (
+        rng.size != eb.size or rng.size < 2 or rng[0] != 0 or rng[-1] != L
+        or (np.diff(rng) < 0).any()
+    ):
+        out.append(finding(
+            CHECK, "LEVEL_ROUND_RANGE",
+            f"round ranges {_ex(rng, 8)} do not rise from 0 to the {L} levels "
+            f"in {eb.size - 1} rounds",
+        ))
+        return out
+    round_of_level = np.repeat(np.arange(rng.size - 1, dtype=np.int64), np.diff(rng))
+    wrong = (level_run < eb[round_of_level]) | (level_run >= eb[round_of_level + 1])
+    if wrong.any():
+        lv = int(np.flatnonzero(wrong)[0])
+        out.append(finding(
+            CHECK, "LEVEL_ROUND_RANGE",
+            f"{int(wrong.sum())} levels walked in a round that does not hold "
+            f"their superstep (e.g. level {lv}: superstep {int(level_run[lv])}, "
+            f"round {int(round_of_level[lv])} covers supersteps "
+            f"[{int(eb[round_of_level[lv]])}, {int(eb[round_of_level[lv] + 1])}))",
         ))
     return out
 

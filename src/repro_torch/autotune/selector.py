@@ -74,7 +74,7 @@ shortlists and the elastic rule are the same word for word, so with
 
 * **The binding key.** Measured trials default to the port's
   ``backend="kernel"``, and a tuned pick is keyed on the port's
-  ``binding_fingerprint`` (backend, dtype, width, device). The device is
+  ``binding_fingerprint`` (backend, dtype, width, device, mesh, shard). The device is
   resolved first, so ``device=None`` and ``"cuda"`` share one memo entry
   and ``"cpu"`` has its own. The model-based path stays binding-free.
 * **Trial timing.** ``solve`` returns before the card has run the
@@ -310,6 +310,8 @@ def _binding_key(plan_kwargs: Optional[dict]) -> tuple:
         dtype=pk.get("dtype", torch.float32),
         width=pk.get("width"),
         device=resolve_device(pk.get("device")),
+        mesh=pk.get("mesh"),
+        shard=pk.get("shard", "model"),
     )
 
 

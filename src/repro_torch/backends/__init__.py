@@ -2,7 +2,10 @@
 
 Built in: ``kernel`` (the CUDA kernels; their plain version on CPU
 tensors) and ``scan`` (the plain PyTorch executor), both with the
-``"grouped"``, ``"elastic"`` and ``"slots"`` capabilities. See ``base`` for the protocol and ``registry``
+``"grouped"``, ``"elastic"`` and ``"slots"`` capabilities, and
+``distributed`` (a mesh of card positions, ``repro_torch.mesh``; the level
+kernels one range a position and round; ``"elastic"`` and
+``"shard-rows"``). See ``base`` for the protocol and ``registry``
 for registration.
 """
 from repro_torch.backends.base import (
@@ -31,14 +34,22 @@ from repro_torch.backends.scan import (  # noqa: E402
     ScanBackend,
     ScanBoundSolve,
 )
+from repro_torch.backends.distributed import (  # noqa: E402
+    DistributedBackend,
+    DistributedBoundSolve,
+    RowShardedBoundSolve,
+)
 
 __all__ = [
     "Backend",
     "BoundSolve",
+    "DistributedBackend",
+    "DistributedBoundSolve",
     "ElasticKernelBoundSolve",
     "ElasticScanBoundSolve",
     "KernelBackend",
     "KernelBoundSolve",
+    "RowShardedBoundSolve",
     "ScanBackend",
     "ScanBoundSolve",
     "available_backends",

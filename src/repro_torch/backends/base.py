@@ -216,6 +216,12 @@ class Backend(abc.ABC):
         ``"elastic"`` capability must raise rather than silently fall back
         to bulk-synchronous."""
 
+    def requires(self) -> Tuple[str, ...]:
+        """Binding parameters this backend cannot run without: ``("mesh",)``
+        for the distributed backend, which ``TriangularSolver.plan`` then
+        hands ``mesh=`` and ``shard=``."""
+        return ()
+
     def capabilities(self) -> Tuple[str, ...]:
         """Optional features this backend's bounds implement beyond the
         core contract: ``"grouped"`` — the bulk bound solves one rhs per
@@ -227,5 +233,6 @@ class Backend(abc.ABC):
         resident RHS slots on the stacked bank (``blank_rhs`` /
         ``insert_lane`` / ``extract_lane`` / ``solve_resident``; the
         continuous-batching serve engine, ``repro_torch.serve.slots``,
-        requires it)."""
+        requires it); ``"shard-rows"`` — ``bind(shard="rows")`` partitions
+        the plan's rows across a mesh (the distributed backend)."""
         return ()

@@ -1,5 +1,5 @@
 """Backend registry of the port — the single source of truth for its
-execution backends (``kernel`` and ``scan`` built in). Separate from the
+execution backends (``kernel``, ``scan`` and ``distributed`` built in). Separate from the
 JAX package's registry, which it never touches."""
 from __future__ import annotations
 

@@ -3,10 +3,11 @@ static *halo exchange plan* instead of an O(n) all-gather.
 
 A NumPy copy of the JAX package's ``core/rowshard.py``;
 ``tests/test_torch_rowshard.py`` holds every ``RowShardPlan`` array equal
-to the original's, in value and dtype. It is the host-side partition only:
-the port has no sharded executor yet, so nothing here touches a device or
-``torch.distributed``. The verifier (``analysis.rowshard_check``) audits
-the partition.
+to the original's, in value and dtype. It is the host-side partition: the
+``distributed`` backend's ``shard="rows"`` executor
+(``solver.rowsharded``) binds each shard's local plan on a mesh position
+and runs the exchange tables, and the verifier
+(``analysis.rowshard_check``) audits the partition after that bind.
 
 The partition rides the paper's own machinery instead of a graph
 partitioner:

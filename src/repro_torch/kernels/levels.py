@@ -142,6 +142,20 @@ def level_order(plan: ExecPlan, slack: int = 1) -> LevelOrder:
     )
 
 
+def round_ranges(order: LevelOrder, bounds) -> np.ndarray:
+    """int64[F+1]: the level range of each exchange round of a distributed
+    solve. ``bounds`` (int[F+1], superstep indices rising from 0 to S) cut
+    the supersteps into rounds; round r walks levels ``[out[r], out[r+1])``
+    of ``order``, exactly the levels whose run lies in ``[bounds[r],
+    bounds[r+1])``. The order must be the bulk one (``slack=1``, a run per
+    superstep): its levels are sorted by run, so each round's levels are
+    contiguous. That holds for the per-superstep bounds and for the elastic
+    certificate's fused ones (``core.elastic``, ``fused_bounds``)."""
+    if order.slack != 1:
+        raise ValueError(f"round ranges need the bulk order (slack 1), got slack {order.slack}")
+    return np.searchsorted(order.level_run, np.asarray(bounds, np.int64), side="left")
+
+
 def _run_starts(a: np.ndarray) -> np.ndarray:
     """Indices where a run of equal values of ``a`` begins."""
     if a.size == 0:

@@ -12,7 +12,10 @@ the elastic kernels take the order over runs of the certificate's
 block barrier per level. A bank of plans of one width class
 (``LevelBank``, ``stack_level_bank``) takes the serve layer's grouped and
 resident-slot solves, each column on its own plan, in one launch of the
-banked kernel (``solve_with_level_bank``).
+banked kernel (``solve_with_level_bank``). A distributed solve binds each position's
+plan (a lane of the plan, or a shard of its rows) in the bulk level order
+with the level range of each exchange round (``round_level_arrays``), and
+walks one range per round (``kernels.sptrsv.sptrsv_level_range_cuda``).
 
 This module is the device half of the ``kernel`` entry in
 ``repro_torch.backends`` — bind through the registry
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
-from repro_torch.kernels.levels import LevelOrder, level_order
+from repro_torch.kernels.levels import LevelOrder, level_order, round_ranges
 from repro_torch.kernels.sptrsv import (
     sptrsv_elastic_cuda,
     sptrsv_level_bank_cuda,
@@ -105,6 +108,41 @@ def level_plan_arrays(
         perm=put(perm, torch.int64),
         n=plan.n,
         order=order,
+    )
+
+
+class RoundLevels(NamedTuple):
+    """One position's share of a distributed solve: its plan in the bulk
+    level order on the position's device, the level range of each exchange
+    round (round r walks levels ``[ranges[r], ranges[r+1])``), and the
+    plan's value sources gathered into the same order (int32, -1 marks
+    padding), from which a value refresh gathers new entry data."""
+
+    la: LevelArrays
+    ranges: tuple  # F+1 ints
+    val_src: torch.Tensor  # int32[P, W]
+    diag_src: torch.Tensor  # int32[P]
+
+
+def round_level_arrays(plan: ExecPlan, bounds, *, dtype=torch.float32,
+                       device=None) -> RoundLevels:
+    """``plan`` in the bulk level order on ``device`` (``None``: the card,
+    raising without CUDA) with the level ranges of the exchange rounds cut
+    at ``bounds`` (superstep indices, ``kernels.levels.round_ranges``) and
+    its level-ordered value sources."""
+    order = level_order(plan)
+    la = level_plan_arrays(plan, dtype=dtype, device=device, order=order)
+    W, perm = plan.W, order.perm
+
+    def src(a, shape):
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(a, np.int32).reshape(shape)[perm])).to(la.vals.device)
+
+    return RoundLevels(
+        la=la,
+        ranges=tuple(int(v) for v in round_ranges(order, bounds)),
+        val_src=src(plan.val_src, (-1, W)),
+        diag_src=src(plan.diag_src, (-1,)),
     )
 
 

@@ -5,7 +5,8 @@ the scan executor's step bodies run as a loop of eager PyTorch operations
 (it is not a second implementation), and the function every SpTRSV kernel
 computes bit for bit. ``sptrsv_level_ref`` is the plain version of the
 level-ordered kernels (the bulk and the elastic ones, one and m right-hand
-sides), ``sptrsv_level_bank_ref`` that of the banked one (each column on
+sides), ``sptrsv_level_range_ref`` that of a launch over a range of levels
+(the distributed backend's rounds), ``sptrsv_level_bank_ref`` that of the banked one (each column on
 its own plan of a bank), and ``spmv_sliced_ref`` that of the SpMV kernel, y = A x on the
 sliced layout. ``spmv_ell_ref`` is the plain version of the JAX package's
 per-ELL-row TPU kernel, and ``spmv_ell_rows_ref`` adds the split rows to
@@ -48,11 +49,32 @@ def sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b
     accumulator, as the bulk step does; a finishing step writes x.
     Bitwise-equal to ``sptrsv_ref`` on the plan.
     """
+    x = torch.zeros_like(b_pad)
+    _walk_levels(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr.tolist(), b_pad, x)
+    return x
+
+
+def sptrsv_level_range_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, lo, hi,
+                           b, x):
+    """Plain version of ``kernels.sptrsv.sptrsv_level_range_cuda``: walks
+    levels ``[lo, hi)`` of the level tensors into ``x`` in place, which
+    keeps whatever earlier ranges (or exchanges) wrote. ``b`` and ``x`` are
+    f[rows] or column-major f[m, rows] (a column's rows contiguous).
+    Returns ``x``. A walk of ranges that partition ``[0, L)``, in order, is
+    bitwise ``sptrsv_level_ref``."""
+    view = (lambda t: t) if b.dim() == 1 else (lambda t: t.T)  # noqa: E731
+    _walk_levels(row_ids, col_idx, vals, diag, accum, vert_ptr,
+                 level_ptr[lo : hi + 1].tolist(), view(b), view(x))
+    return x
+
+
+def _walk_levels(row_ids, col_idx, vals, diag, accum, vert_ptr, levels, b_pad, x):
+    """The walk of ``sptrsv_level_ref`` over the levels whose vertex bounds
+    are ``levels`` (a list of L'+1 absolute bounds) into ``x`` (f[rows] or
+    a [rows, m] view), in place."""
     cols = b_pad.shape[1:]
     lift = (lambda t: t) if not cols else (lambda t: t[..., None])  # noqa: E731
-    x = torch.zeros_like(b_pad)
     vert_ptr = vert_ptr.long()
-    levels = level_ptr.tolist()
     for v0, v1 in zip(levels[:-1], levels[1:]):
         start = vert_ptr[v0:v1]
         length = vert_ptr[v0 + 1 : v1 + 1] - start
@@ -67,7 +89,6 @@ def sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b
             fin = ~accum[p]
             rows = row_ids[p][fin]
             x[rows] = (b_pad[rows] - a[fin]) / lift(diag[p][fin])
-    return x
 
 
 def bank_lane(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, level_off, n_levels,

@@ -24,6 +24,14 @@ plans of one width class, each column on its own plan (the serve layer's
 grouped and resident-slot solves; the JAX package vmaps its scan over the
 lanes instead).
 
+``sptrsv_level_range_cuda`` launches the bulk entries over a range of
+levels, ``[lo, hi)``, of a bound level order into the caller's x, which
+keeps what earlier ranges wrote: the distributed backend's rounds, one
+launch per position and round, with an exchange between rounds. It needs
+no kernel of its own: the level walk reads absolute vertex bounds from
+``level_ptr[0]`` on and keeps no state across launches, so the range is
+the walk started at ``level_ptr + lo`` with ``hi - lo`` levels.
+
 ``launches`` counts the kernel launches per entry point, under a lock (the
 serve layer launches from several threads), so a run can show that its
 solves went through the kernels.
@@ -32,14 +40,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 import threading
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import sptrsv_level_bank_ref, sptrsv_level_ref
+from repro_torch.kernels.ref import (
+    sptrsv_level_bank_ref,
+    sptrsv_level_range_ref,
+    sptrsv_level_ref,
+)
 
-launches = {"single": 0, "mrhs": 0, "elastic_single": 0, "elastic_mrhs": 0, "bank": 0}
+launches = {"single": 0, "mrhs": 0, "elastic_single": 0, "elastic_mrhs": 0, "bank": 0,
+            "range_single": 0, "range_mrhs": 0}
 # the serve layer launches from worker threads and its slot dispatcher at
 # once; a count is a read-modify-write, so it takes the lock
 _COUNT_LOCK = threading.Lock()
@@ -53,6 +67,9 @@ _COLS = [_P] * 7 + [_I, _I, _I, _I64, _P, _P, _P]
 _BANK = [_P] * 10 + [_I, _I, _I64, _P, _P, _P]
 _ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "elastic_single": _SINGLE, "elastic_mrhs": _COLS,
              "bank": _BANK}
+# a range launch runs the bulk entry point of its layout; it is counted
+# under its own kind
+_ENTRY_OF = {"range_single": "single", "range_mrhs": "mrhs"}
 
 
 def reset_launches() -> None:
@@ -70,6 +87,7 @@ def _count(kind: str) -> None:
 @functools.lru_cache(maxsize=None)
 def _entry(kind: str, dtype: torch.dtype):
     """The C entry point of ``kind`` for ``dtype``, typed once per process."""
+    kind = _ENTRY_OF.get(kind, kind)
     lib = build.load("sptrsv_elastic" if kind.startswith("elastic") else "sptrsv")
     fn = getattr(lib, f"sptrsv_{kind}_{_SUFFIX[dtype]}")
     fn.argtypes = _ARGTYPES[kind]
@@ -187,6 +205,55 @@ def sptrsv_elastic_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr
     if b_pad.device.type == "cpu":
         return sptrsv_level_ref(*level, b_pad)
     return _launch_level("elastic_single", "elastic_mrhs", level, b_pad)
+
+
+def _check_range(level, lo, hi, b, x):
+    """``_check_level``'s checks of the level tensors and of ``b`` (f[rows]
+    or column-major f[m, rows]), plus ``0 <= lo <= hi <= L`` and ``x``
+    shaped, typed, laid out and placed as ``b``."""
+    _check_level(*level, b)
+    if not isinstance(x, torch.Tensor):
+        raise TypeError("x must be a torch.Tensor")
+    if x.device != b.device or x.dtype != b.dtype or x.shape != b.shape:
+        raise ValueError(
+            f"x must match b: got {x.dtype}{tuple(x.shape)} on {x.device}, "
+            f"b {b.dtype}{tuple(b.shape)} on {b.device}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (f[rows] or column-major f[m, rows])")
+    L = level[6].shape[0] - 1
+    lo, hi = operator.index(lo), operator.index(hi)
+    if not 0 <= lo <= hi <= L:
+        raise ValueError(f"level range [{lo}, {hi}) is not inside [0, {L}]")
+    return lo, hi
+
+
+def sptrsv_level_range_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, lo, hi,
+                            b, x):
+    """Walk levels ``[lo, hi)`` of a bound level order (the tensors of
+    ``sptrsv_level_cuda``) into ``x``, in place: b and x f[rows] (one
+    block, the ``single`` entry) or column-major f[m, rows] (a block per
+    column, the ``mrhs`` entry), rows = n + 1 with the scratch row last.
+    ``x`` keeps what earlier ranges and the caller wrote; a walk of ranges
+    that partition ``[0, L)``, in order, is bitwise one full
+    ``sptrsv_level_cuda``. An empty range launches nothing. Returns
+    ``x``. CPU tensors take ``kernels.ref.sptrsv_level_range_ref``."""
+    level = (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr)
+    lo, hi = _check_range(level, lo, hi, b, x)
+    if b.device.type == "cpu":
+        return sptrsv_level_range_ref(*level, lo, hi, b, x)
+    if hi == lo or b.numel() == 0:
+        return x
+    ptrs = _level_args(*level)[:6]
+    # the walk reads absolute vertex bounds from its level_ptr on
+    lp = level_ptr.data_ptr() + lo * level_ptr.element_size()
+    if b.dim() == 1:
+        _launch("range_single", vals, b, *ptrs, lp, hi - lo, col_idx.shape[1], b.data_ptr(),
+                x.data_ptr())
+    else:
+        _launch("range_mrhs", vals, b, *ptrs, lp, hi - lo, col_idx.shape[1], b.shape[0],
+                b.shape[1], b.data_ptr(), x.data_ptr())
+    return x
 
 
 def _check_bank(level_off, n_levels, lane_idx, b_col, level):

@@ -16,14 +16,21 @@ optionally dumps the full report as JSON (same shape as
       --mix hot --open-loop 400 --n-requests 800 --json report.json
   PYTHONPATH=src python -m repro_torch.launch.solver_serve \\
       --mix width --strategy wavefront --mode continuous --slots 32
+  PYTHONPATH=src python -m repro_torch.launch.solver_serve \\
+      --backend distributed --mesh 2x4 --device cuda:0
 
-Distributed serving (``--backend distributed --mesh``) is not ported.
+``--backend distributed`` serves across a mesh of ``--mesh DATAxMODEL``
+positions (``repro_torch.mesh``), with one schedule core per model
+position. With ``--device`` every position sits on that device (one card,
+or the CPU); without it, one position per visible card, and a mesh larger
+than the visible cards is refused.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
+from repro_torch.mesh import make_mesh
 from repro_torch.serve import (
     MIXES,
     SolveService,
@@ -32,6 +39,19 @@ from repro_torch.serve import (
     run_closed_loop,
     run_open_loop,
 )
+
+
+def _make_mesh(spec: str, device):
+    """``"DATAxMODEL"`` -> a mesh over ("data", "model"): every position on
+    ``device`` where one is named, else one per visible CUDA device."""
+    try:
+        data_ax, model_ax = (int(p) for p in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh expects DATAxMODEL (e.g. 2x4); got {spec!r}")
+    try:
+        return make_mesh((data_ax, model_ax), devices=device)
+    except RuntimeError as e:
+        raise SystemExit(f"--mesh {spec}: {e}")
 
 
 def main(argv=None) -> None:
@@ -72,7 +92,11 @@ def main(argv=None) -> None:
         "(default: max_batch, rounded up to a power of two)",
     )
     ap.add_argument("--strategy", default="auto")
-    ap.add_argument("--backend", choices=("kernel", "scan"), default="kernel")
+    ap.add_argument("--backend", choices=("kernel", "scan", "distributed"), default="kernel")
+    ap.add_argument(
+        "--mesh", metavar="DATAxMODEL", default="2x4",
+        help="mesh shape for --backend distributed (default 2x4)",
+    )
     ap.add_argument(
         "--device", default=None,
         help="where to serve (default: the CUDA device; 'cpu' runs the "
@@ -94,6 +118,13 @@ def main(argv=None) -> None:
     ap.add_argument("--json", metavar="PATH", default=None)
     args = ap.parse_args(argv)
 
+    plan_kw = {}
+    if args.backend == "distributed":
+        mesh = _make_mesh(args.mesh, args.device)
+        plan_kw["mesh"] = mesh
+        # one schedule core per model position: model mode refuses plans
+        # with more cores, and the auto selector respects a fixed k
+        plan_kw["k"] = int(mesh.shape["model"])
     svc = SolveService(
         max_batch=args.max_batch,
         max_wait_us=args.max_wait_us,
@@ -104,6 +135,7 @@ def main(argv=None) -> None:
         strategy=args.strategy,
         backend=args.backend,
         device=args.device,
+        **plan_kw,
     )
     try:
         patterns, sampler = patterns_for_mix(

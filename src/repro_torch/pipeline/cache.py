@@ -6,7 +6,7 @@ pattern across hundreds of solves; iterative methods even reuse it across
 keys on everything that determines the compiled plan and its binding:
 
     (pattern fingerprint, strategy, options, lower, backend, dtype, W,
-     device)
+     device, slack, mesh, shard)
 
 On a hit the whole DAG-build -> schedule -> reorder -> compile chain is
 skipped; only the numeric values are refreshed (``numeric_update`` via the

@@ -40,6 +40,14 @@ outcome is memoized in the ``PlanCache`` and recorded on
 with per-step timings (``BoundSolve.solve_timed``) kept on
 ``last_step_timings`` and, when tracing is on, spans in the active buffer.
 
+``backend="distributed"`` with ``mesh=`` (``repro_torch.mesh.make_mesh``)
+runs the plan across a mesh of card positions: ``shard="model"`` puts a
+lane of the plan on each position of the mesh's ``model`` axis,
+``shard="rows"`` a shard of its rows (``core.rowshard``) with halo
+exchange; either way each position walks its share of each exchange round
+with one range launch of the level kernel, bitwise the single-device
+solve.
+
 Solvers of one ``width_class`` (equal plan shapes, one binding) solve one
 right-hand side each in a single dispatch: ``grouped_solve`` stacks them
 per call, a ``GroupBank`` once (the serve layer's cross-pattern batching;
@@ -67,6 +75,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
+from repro_torch.mesh import Mesh, mesh_fingerprint
 from repro_torch.pipeline.cache import PlanCache
 from repro_torch.pipeline.registry import ScheduleOptions, get_scheduler
 from repro_torch.sparse.csr import (
@@ -78,11 +87,15 @@ from repro_torch.sparse.csr import (
 from repro_torch.sparse.dag import dag_from_lower_csr
 
 
-def binding_fingerprint(*, backend, dtype, width, device, slack=0) -> tuple:
+def binding_fingerprint(*, backend, dtype, width, device, slack=0, mesh=None,
+                        shard="model") -> tuple:
     """The backend-binding part of a plan's identity — everything beyond
     (pattern, strategy, options, orientation) that changes the bound
     solver. ``slack > 0`` marks an elastic binding, a different execution
-    from the bulk one even though the plan tensors match.
+    from the bulk one even though the plan tensors match. ``mesh`` keys by
+    structure (``mesh_fingerprint``: axes, sizes, devices) and ``shard``
+    by decomposition: ``"rows"`` row-partitions the plan across the mesh,
+    a different execution from the default ``"model"``.
     ``steps_per_tile`` is not part of it: no kernel of the port reads it."""
     return (
         backend,
@@ -90,6 +103,8 @@ def binding_fingerprint(*, backend, dtype, width, device, slack=0) -> tuple:
         width if width is not None else "auto",
         str(device),
         slack,
+        mesh_fingerprint(mesh),
+        shard,
     )
 
 
@@ -152,6 +167,8 @@ class TriangularSolver:
         inspector_seconds: float,
         steps_per_tile: int = 8,
         slack: int = 0,
+        mesh=None,
+        shard: str = "model",
     ):
         self.exec_plan = exec_plan
         self.backend = backend
@@ -163,6 +180,8 @@ class TriangularSolver:
         self.inspector_seconds = inspector_seconds
         self._steps_per_tile = steps_per_tile
         self._slack = slack  # > 0: elastic execution mode
+        self._mesh = mesh  # repro_torch.mesh.Mesh (distributed backend)
+        self._shard = shard  # mesh decomposition ("model" | "rows")
         # per-step timed execution: an observability toggle, not part of
         # the plan's identity (results are the same bits)
         self.timed = False  # set by plan()
@@ -176,9 +195,9 @@ class TriangularSolver:
         self._inv = torch.as_tensor(total_inv, dtype=torch.int64).to(device)
         # bind once; numeric refreshes go through the bound solve's
         # device-side update_values gather, never back here
-        self._bound = get_backend(backend).bind(
-            exec_plan, dtype=dtype, device=device, slack=slack
-        )
+        be = get_backend(backend)
+        mesh_kw = dict(mesh=mesh, shard=shard) if "mesh" in be.requires() else {}
+        self._bound = be.bind(exec_plan, dtype=dtype, device=device, slack=slack, **mesh_kw)
 
     @property
     def bound(self):
@@ -198,7 +217,8 @@ class TriangularSolver:
         p = self.exec_plan
         return (p.n, p.n_steps, p.k, p.W, tuple(int(x) for x in p.step_bounds)) + (
             binding_fingerprint(backend=self.backend, dtype=self.dtype, width=p.W,
-                                device=self.device, slack=self._slack))
+                                device=self.device, slack=self._slack, mesh=self._mesh,
+                                shard=self._shard))
 
     @property
     def supports_grouping(self) -> bool:
@@ -297,6 +317,7 @@ class TriangularSolver:
             # what one unit of slack is to the backend: "plan_steps" (scan)
             # or "supersteps" (kernel); None in mode="bsp"
             "slack_unit": binding.get("slack_unit"),
+            "shard": self._shard,
             "device": str(self.device),
             "timed": self.timed,
             "lower": self.lower,
@@ -342,6 +363,8 @@ class TriangularSolver:
         sched=None,
         tune: bool = False,
         validate: Optional[str] = None,
+        mesh=None,
+        shard: str = "model",
         **opts,
     ) -> "TriangularSolver":
         """Plan a solver for triangular ``a`` (lower, or upper with
@@ -395,15 +418,46 @@ class TriangularSolver:
         ``timed=True`` turns on per-step timed execution: every ``solve``
         routes through ``solve_timed``. It is NOT part of the plan identity
         (the cache key): a cache hit returns the same solver with the
-        toggle set to THIS call's value."""
+        toggle set to THIS call's value.
+
+        ``mesh`` (``repro_torch.mesh.make_mesh``) and ``shard`` bind a
+        backend that requires a mesh (``"distributed"``): ``shard="model"``
+        (default) puts lane p of the plan on model position p (k must not
+        exceed the model axis); ``shard="rows"`` partitions the plan's rows
+        across the model axis (``core.rowshard``) with halo exchange, and
+        needs the backend's ``"shard-rows"`` capability. The right-hand
+        sides split over the mesh's ``data`` axis. With a mesh and no
+        ``device``, b arrives and x returns on the mesh's first position's
+        device. Under ``validate``, ``shard="rows"`` also audits the halo
+        partition (``analysis.verify_rowshard_report``), and every
+        position's bound level order is checked with its round ranges."""
         strategy = strategy.lower()
         # resolve (and reject) the validation level before any scheduling
         # work; "off" keeps the verifier entirely off the build path
         check_level = analysis.resolve_level(validate)
         # fail fast on an unknown backend, with the registry naming options
-        backend_caps = get_backend(backend).capabilities()
+        be = get_backend(backend)
+        backend_caps = be.capabilities()
         np_dtype = numpy_dtype(dtype)
-        dev = resolve_device(device)
+        if "mesh" in be.requires():
+            if mesh is None:
+                raise ValueError(f"backend={backend!r} requires a mesh")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.mesh.Mesh; got {type(mesh).__name__}")
+        elif mesh is not None:
+            # not dropped: a mesh on a one-device backend would solve
+            # somewhere the caller did not ask for
+            raise ValueError(
+                f"backend {backend!r} runs on one device and takes no mesh "
+                "(mesh= is for backend='distributed')"
+            )
+        if shard != "model" and f"shard-{shard}" not in backend_caps:
+            raise ValueError(
+                f"backend {backend!r} does not support shard={shard!r} "
+                f"(no 'shard-{shard}' capability)"
+            )
+        dev = mesh.devices.flat[0] if mesh is not None and device is None else resolve_device(
+            device)
         if tune and (strategy != "auto" or sched is not None):
             raise ValueError(
                 "tune=True runs measured trials to refine an auto "
@@ -453,7 +507,7 @@ class TriangularSolver:
                 allow_elastic=elastic_ok,
                 plan_kwargs=dict(
                     backend=backend, dtype=dtype, width=width, device=dev,
-                    steps_per_tile=steps_per_tile,
+                    steps_per_tile=steps_per_tile, mesh=mesh, shard=shard,
                 ),
             )
             strategy, o = selection.strategy, selection.options
@@ -462,7 +516,8 @@ class TriangularSolver:
         # o (a frozen dataclass) covers every scheduling knob incl. k,
         # reorder and the elastic slack; the binding keys too
         key = (fp, strategy, o, lower) + binding_fingerprint(
-            backend=backend, dtype=dtype, width=width, device=dev, slack=o.slack
+            backend=backend, dtype=dtype, width=width, device=dev, slack=o.slack,
+            mesh=mesh, shard=shard,
         )
 
         def build() -> "TriangularSolver":
@@ -531,6 +586,8 @@ class TriangularSolver:
                 inspector_seconds=time.perf_counter() - t0,
                 steps_per_tile=steps_per_tile,
                 slack=o.slack,
+                mesh=mesh,
+                shard=shard,
             )
             solver._source_data = np.array(a.data)
             # selection is recorded at build time only — cached solvers are
@@ -543,6 +600,18 @@ class TriangularSolver:
                 if order is not None:
                     analysis.verify_levels_report(
                         plan, order, level=check_level, slack=max(o.slack, 1)
+                    ).raise_if_failed()
+                rsp = getattr(solver.bound, "_rsp", None)
+                if rsp is not None:
+                    # the halo partition is cut at bind time: audit it
+                    # against the plan it was cut from
+                    analysis.verify_rowshard_report(
+                        plan, rsp, level=check_level
+                    ).raise_if_failed()
+                if hasattr(solver.bound, "level_audit"):
+                    # every position's level order and round ranges
+                    analysis.verify_mesh_levels_report(
+                        solver.bound.level_audit(), level=check_level
                     ).raise_if_failed()
             return solver
 

@@ -11,7 +11,9 @@ identical* patterns (one ``TriangularSolver.width_class``): columns from
 different patterns/versions ride one grouped dispatch — on the
 ``kernel`` backend one launch of the banked level walk — each solved
 against its own plan tensors. ``n_workers>1`` executes distinct routes
-concurrently. Distributed serving (``mesh=``) is not ported and raises.
+concurrently. With ``backend="distributed"`` and ``mesh=`` the plans run
+across a mesh of card positions (``repro_torch.mesh``), and dispatch widths
+are aligned to the mesh's ``data`` axis.
 
     from repro_torch.serve import SolveService
 

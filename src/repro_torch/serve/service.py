@@ -48,8 +48,11 @@ kernel — ``solve`` returns before the kernel has run, so latencies and
 ``ServeMetrics`` include the solve on the device. The default backend is
 the port's (``kernel``): microbatches launch the m-RHS kernels (bulk or
 elastic), width-class batches and continuous passes the banked kernel.
-Distributed serving (``mesh=``, ``backend="distributed"``) is not part of
-the port yet and raises.
+With ``backend="distributed"`` and ``mesh=`` (``repro_torch.mesh``) each
+microbatch runs across the mesh's positions, the columns split over its
+``data`` axis: the worker loop rounds each dispatch width up to a
+multiple of that axis, so batches split evenly instead of padding inside
+the backend.
 """
 from __future__ import annotations
 
@@ -178,16 +181,6 @@ class GroupReplay:
         return grouped_solve([self.solver] * B.shape[1], B)
 
 
-def _reject_distributed(plan_kwargs) -> None:
-    """Distributed serving is not ported: say so rather than drop the
-    request's mesh or bind another backend."""
-    if "mesh" in plan_kwargs or plan_kwargs.get("backend") == "distributed":
-        raise ValueError(
-            "distributed serving (mesh=, backend='distributed') is not "
-            "ported yet; the port serves on one device"
-        )
-
-
 def _width_class_label(wc) -> str:
     """Stable short handle for a width-class tuple — JSON dict keys in
     ``stats()`` (the raw tuple is neither a string nor hash-stable
@@ -228,8 +221,10 @@ class SolveService:
     its own pattern/values and its bitwise (width, position) contract
     via ``GroupReplay``); everything in ``plan_defaults`` (strategy,
     backend, dtype, device, k, ...) flows to ``TriangularSolver.plan`` at
-    registration. ``mesh`` and ``backend="distributed"`` raise: the port
-    has no distributed backend yet.
+    registration. With ``backend="distributed"`` and a ``mesh`` the worker
+    loop additionally rounds each dispatch width up to a multiple of the
+    mesh's ``data`` axis, so batches shard cleanly instead of padding
+    inside the backend.
 
     ``mode`` selects the serving engine: ``"microbatch"`` (default,
     everything above) or ``"continuous"`` — persistent device-resident
@@ -271,7 +266,6 @@ class SolveService:
         self.n_slots = self.max_batch if n_slots is None else int(n_slots)
         if self.n_slots < 1:
             raise ValueError("n_slots must be >= 1")
-        _reject_distributed(plan_defaults)
         if mode == "continuous":
             # the port's own default backend ("kernel"), not the JAX one
             backend = plan_defaults.get(
@@ -299,6 +293,16 @@ class SolveService:
         )
         self.cache = cache if cache is not None else PlanCache()
         self._plan_defaults = dict(strategy=strategy, **plan_defaults)
+        # mesh-sharded serving: batches shard over the mesh's 'data' axis,
+        # so the worker loop aligns dispatch widths to it up front
+        mesh = plan_defaults.get("mesh")
+        self._mesh = mesh
+        self._batch_align = (
+            int(dict(mesh.shape).get("data", 1))
+            if mesh is not None
+            and plan_defaults.get("backend") == "distributed"
+            else 1
+        )
         self._patterns: Dict[str, VersionedPlans] = {}
         self._width_classes: Dict[tuple, set] = {}  # wc -> fingerprints
         self._banks: Dict[tuple, GroupBank] = {}  # wc -> device bank
@@ -333,7 +337,6 @@ class SolveService:
             # a post-close registration would pin a cache key that no
             # close() will ever release
             raise RuntimeError("service is closed")
-        _reject_distributed(plan_kwargs)
         fp = pattern_fingerprint(a)
         vp = self._patterns.get(fp)
         if vp is not None and vp.lower != lower:
@@ -574,9 +577,14 @@ class SolveService:
 
     def _dispatch_width(self, m: int) -> int:
         """The batch width actually dispatched for ``m`` requests: pow2
-        quantization (``pad_width``), at most log2(max_batch) distinct
-        widths."""
-        return pad_width(m, self.max_batch)
+        quantization (``pad_width``) then — mesh-sharded serving — round
+        UP to a multiple of the mesh's ``data`` axis, so the distributed
+        backend splits the batch instead of padding it internally. Still
+        at most log2(max_batch) distinct widths."""
+        w = pad_width(m, self.max_batch)
+        if self._batch_align > 1:
+            w = -(-w // self._batch_align) * self._batch_align
+        return w
 
     def _serve_plain(self, fp: str, version: int, reqs) -> None:
         """One (pattern, version) microbatch — the classic multi-RHS
@@ -843,7 +851,11 @@ class SolveService:
                     ),
                     "max_batch": self.max_batch,
                     "n_slots": self.n_slots,
+                    "batch_align": self._batch_align,
                     "width_class_batching": self.width_class_batching,
+                    "mesh": dict(self._mesh.shape)
+                    if self._mesh is not None
+                    else None,
                 },
                 "plan_cache": {
                     **cs.as_dict(),

@@ -199,6 +199,18 @@ def _serve_register(plan):
         return svc.register(erdos_renyi_lower(plan.n, 0.05, seed=0))
 
 
+def _make_mesh(plan):
+    from repro_torch.mesh import make_mesh
+
+    return make_mesh((1, 2))
+
+
+def _bind_distributed_on_card_mesh(plan):
+    from repro_torch.mesh import make_mesh
+
+    return get_backend("distributed").bind(plan, mesh=make_mesh((1, 1), devices="cuda"))
+
+
 def _serve_cli(plan):
     from repro_torch.launch import solver_serve
 
@@ -210,7 +222,8 @@ def _serve_cli(plan):
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
      _kernel_plan_arrays, _level_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
      _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv,
-     _ell_operator, _cg_solve, _pcg_ichol, _serve_register, _serve_cli],
+     _ell_operator, _cg_solve, _pcg_ichol, _serve_register, _serve_cli, _make_mesh,
+     _bind_distributed_on_card_mesh],
 )
 def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     # every entry point that places tensors defaults to the card
@@ -239,7 +252,11 @@ def test_sptrsv_cuda_on_cpu_takes_plain_path():
     bank = ops.stack_level_bank([la, la], [solver._perm] * 2, [solver._inv] * 2)
     xb = sptrsv.sptrsv_level_bank_cuda(*bank[:9], torch.tensor([1, 0]), bm.T[:2].contiguous())
     assert torch.equal(xb, xm.T[:2])
-    assert set(sptrsv.launches) == {"single", "mrhs", "elastic_single", "elastic_mrhs", "bank"}
+    xr = torch.zeros_like(b1)
+    sptrsv.sptrsv_level_range_cuda(*la[:7], 0, la.level_ptr.numel() - 1, b1, xr)
+    assert torch.equal(xr, x1)
+    assert set(sptrsv.launches) == {"single", "mrhs", "elastic_single", "elastic_mrhs", "bank",
+                                    "range_single", "range_mrhs"}
     assert not any(sptrsv.launches.values()) and spmv.launches == {"spmv": 0}
     assert torch.equal(xm[:, 0], x1)
     pa = plan_arrays(solver.exec_plan, device="cpu")
@@ -335,6 +352,6 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_entry_points_use_their_own_registry():
     from repro_torch.backends import available_backends
 
-    assert set(available_backends()) == {"kernel", "scan"}
+    assert set(available_backends()) == {"kernel", "scan", "distributed"}
     assert repro_torch.TriangularSolver.plan.__kwdefaults__["backend"] == "kernel"
     assert repro_torch.TriangularSolver.plan.__kwdefaults__["device"] is None

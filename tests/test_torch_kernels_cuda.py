@@ -328,7 +328,8 @@ def test_pcg_on_card_matches_cpu_plain(cuda, dtype):
                                        maxiter=2000, dtype=dtype)
     torch.cuda.synchronize()
     assert dict(sptrsv.launches) == {"single": 2 * (iters + 1), "mrhs": 0,
-                                     "elastic_single": 0, "elastic_mrhs": 0, "bank": 0}
+                                     "elastic_single": 0, "elastic_mrhs": 0, "bank": 0,
+                                     "range_single": 0, "range_mrhs": 0}
     assert spmv.launches == {"spmv": iters}
     # the CPU plain PCG: the kernels' plain versions (bitwise the scan's)
     xc, ic, rc, info_c = pcg_ichol(A, b, k=8, strategy="growlocal", tol=1e-6,

@@ -32,6 +32,7 @@ import repro.sparse as jsparse
 from repro.pipeline import TriangularSolver as JSolver
 from repro.serve import direct_reference as jdirect_reference
 from repro_torch.kernels import spmv, sptrsv
+from repro_torch.mesh import make_mesh
 from repro_torch.pipeline import PlanCache, TriangularSolver
 from repro_torch.serve import (
     LatencyReservoir,
@@ -234,13 +235,17 @@ def test_closed_service_rejects_submissions(mats):
 
 
 def test_distributed_serving_is_refused(mats):
-    with pytest.raises(ValueError, match="distributed"):
-        SolveService(device="cpu", backend="distributed")
-    with pytest.raises(ValueError, match="distributed"):
-        SolveService(device="cpu", mesh=object())
+    # distributed serving runs (tests/test_torch_serve_distributed.py);
+    # what stays refused: the distributed backend without a mesh, a mesh
+    # that is not a repro_torch Mesh, and a mesh on a one-device backend
+    with _serving("distributed") as svc:
+        with pytest.raises(ValueError, match="distributed"):
+            svc.register(mats[0])
+        with pytest.raises(TypeError, match="Mesh"):
+            svc.register(mats[0], mesh=object())
     with _serving() as svc:
         with pytest.raises(ValueError, match="distributed"):
-            svc.register(mats[0], mesh=object())
+            svc.register(mats[0], mesh=make_mesh((1, 2), devices="cpu"))
 
 
 # ----------------------------------------- acceptance: concurrent clients
