@@ -126,6 +126,25 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              result bitwise its direct_reference
              Each main-path phase sets the launch counters to 0 just before
              it and reads them just after; its kernels must have launched.
+  lm_serve   the LM stack's serving path (repro_torch.launch.serve.serve) at
+             full width: granite-3-2b, 40 layers, d_model 2,048, vocab 49,155
+             padded to 51,200, float32 weights from --seed, batch 4, prompt
+             64, 32 new tokens (one prefill, 31 greedy decode steps) on the
+             card: every logit finite, every token in [0, 49155); the
+             decode step at position 64 against a fresh prefill over the
+             prompt and that token (max |gap| <= 1e-3 max |logit|); the
+             first 2 layers at full width (each leaf's std as in the 40-layer
+             stack), made on the CPU and carried to the card with
+             lm_params_from_numpy, prefill and 4 teacher-forced decode steps
+             on both (the same bound; greedy tokens equal where the CPU's
+             top-2 margin exceeds it; TF32 off). Reports prefill ms (first
+             call and warm, median of 5) and decode ms per token (median of
+             31 steps) beside their bounds (prefill: operations at fp32's
+             67 TFLOP/s; decode: every weight but the embedding and the KV
+             read once at 3.35 TB/s), peak memory, parameter and cache
+             bytes, and a torch.profiler window of 8 decode steps (the
+             device's idle share by the union of its events, kernel launch
+             calls and device events per step, the top 5 device operations)
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
              of 20; the range kernels: the launches over the bulk order cut
              at each superstep, the same function as one full launch), plain version on the card (SpTRSV once, SpMV median of
@@ -157,6 +176,7 @@ printing no result, without CUDA or outside a checkout of the repository.
 """
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -216,6 +236,15 @@ DIST_CONFIGS = (
     ("model", (1, 8), 0, MAIN_M),
 )
 DIST_CLIENTS, DIST_REQUESTS = 4, 10
+# the lm_serve phase: granite-3-2b at full width through launch.serve.serve
+LM_ARCH = "granite_3_2b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 64, 32
+LM_REL = 1e-3  # logits: max |gap| <= LM_REL * max |logit|
+LM_CHECK_LAYERS, LM_CHECK_STEPS = 2, 4  # the card against the CPU
+LM_PROFILE_STEPS = 8
+# the runtime calls that launch a kernel, as torch.profiler names them
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx"}
 T_START = time.perf_counter()
 
 
@@ -1393,6 +1422,182 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
     return rec, timing
 
 
+def first_layers_specs(cfg, specs, n):
+    """``specs`` of ``cfg`` cut to its first ``n`` stacked layers, each leaf
+    keeping the std ``init_params`` gives it in the whole stack (its
+    ``fan_in`` is the layer count, ``cfg.n_layers``)."""
+    from repro_torch.models.common import ParamSpec, tree_map
+
+    cut = tree_map(lambda s: ParamSpec((n, *s.shape[1:]), s.logical, s.init,
+                                       s.scale * (n / cfg.n_layers) ** 0.5), specs["layers"])
+    return {**specs, "layers": cut}
+
+
+def lm_work(cfg, batch, prompt, pos) -> dict:
+    """What this run's data needs of a prefill (``pos`` None) or of a decode
+    step at ``pos``, float32: every weight but the embedding read once, the
+    rows of the embedding the tokens use, the KV cache the step attends to
+    read once, the cache and the logits written once; operations: two a
+    multiply-add of the projections, of the causal attention (the pairs
+    the mask keeps) and of the last position's unembedding."""
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import tree_leaves
+
+    D, L, H, Hkv, Dh = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    V = cfg.padded_vocab
+    specs = param_specs(cfg)
+    weights = cfg.param_count(specs) - V * D
+    # a layer's matrices (its stacked leaves of rank 3 and more)
+    per_layer = sum(math.prod(s.shape) for s in tree_leaves(specs["layers"])
+                    if len(s.shape) > 2) // L
+    tokens, pairs = (batch * prompt, batch * prompt * (prompt + 1) // 2) if pos is None \
+        else (batch, batch * (pos + 1))
+    kv_row = Hkv * Dh * 2 * 4  # one position's k and v of one layer
+    kv_read = 0 if pos is None else L * batch * (pos + 1) * kv_row
+    nbytes = (weights * 4 + tokens * D * 4 + kv_read + L * tokens * kv_row
+              + batch * V * 4)
+    ops = 2 * tokens * L * per_layer + 2 * 2 * L * H * Dh * pairs + 2 * batch * D * V
+    return bound(nbytes, ops)
+
+
+def lm_serve_phase(args, dev, cuda_times, card) -> dict:
+    """The LM stack's serving path at full width on the card (see the
+    module docstring); returns the phase's record, which it has emitted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_params, param_specs, prefill
+    from repro_torch.models.common import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(LM_ARCH)
+    V, B, P, N = cfg.vocab_size, LM_BATCH, LM_PROMPT, LM_NEW
+
+    # 1. the entry point at full width
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve(cfg, batch=B, prompt_len=P, new_tokens=N, device=dev, seed=args.seed)
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    require(res["logits_finite"], "lm_serve: a logit of the served run is not finite")
+    require(tuple(toks.shape) == (B, N) and int(toks.min()) >= 0 and int(toks.max()) < V,
+            f"lm_serve: served tokens {tuple(toks.shape)} outside [0, {V})")
+    n_params = cfg.param_count(param_specs(cfg))
+    require(res["param_bytes"] == 4 * n_params, "lm_serve: parameter bytes")
+
+    # 2. decode against prefill, full depth
+    params = init_params(param_specs(cfg), torch.Generator(device=dev).manual_seed(args.seed),
+                         device=dev)
+    batch = make_train_batch(cfg, batch=B, seq_len=P, seed=args.seed, device=dev)
+    logits0, cache, pos = prefill(cfg, params, batch, max_len=P + N)
+    t = logits0[:, :V].argmax(-1)
+    dec, cache = decode_step(cfg, params, cache, pos, t)
+    full = {"tokens": torch.cat([batch["tokens"], t[:, None]], dim=1)}
+    ref, _, _ = prefill(cfg, params, full, max_len=P + 1)
+    gap, scale = float((dec - ref).abs().max()), float(ref.abs().max())
+    dec_vs_prefill = {"pos": pos, "max_abs_gap": gap, "max_abs_logit": scale,
+                      "rel_gap": gap / scale, "bound": LM_REL,
+                      "greedy_equal": bool(torch.equal(dec[:, :V].argmax(-1),
+                                                       ref[:, :V].argmax(-1))),
+                      "serve_first_tokens_equal": bool(torch.equal(t.cpu(), toks[:, 0]))}
+    require(torch.isfinite(dec).all() and gap <= LM_REL * scale,
+            f"lm_serve: decode at position {pos} against a fresh prefill: max |gap| {gap} > "
+            f"{LM_REL} * {scale}")
+
+    # 4. where the time goes: prefill warm, decode under the profiler
+    prefill_warm = cuda_times(lambda: prefill(cfg, params, batch, max_len=P + N), 1, 5)
+    logits, cache, pos = prefill(cfg, params, batch, max_len=P + N)
+    tok = logits[:, :V].argmax(-1)
+    for i in range(2):  # warm-up outside the window
+        logits, cache = decode_step(cfg, params, cache, pos + i, tok)
+        tok = logits[:, :V].argmax(-1)
+    start = pos + 2
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for i in range(LM_PROFILE_STEPS):
+            logits, cache = decode_step(cfg, params, cache, start + i, tok)
+            tok = logits[:, :V].argmax(-1)
+        e1.record()
+        e1.synchronize()
+    elapsed = e0.elapsed_time(e1)
+    busy = busy_union_ms(prof)
+    launch_calls = sum(1 for e in prof.events() if e.name in LAUNCH_CALLS)
+    kernels = device_events(prof)
+    profile_rec = {"steps": LM_PROFILE_STEPS, "elapsed_ms": elapsed,
+                   "ms_per_step": elapsed / LM_PROFILE_STEPS, "device_busy_ms": busy,
+                   "idle_share": 1.0 - busy / elapsed if elapsed else None,
+                   "launch_calls_per_step": launch_calls / LM_PROFILE_STEPS,
+                   "device_events_per_step": sum(k["count"] for k in kernels)
+                   / LM_PROFILE_STEPS, "top": kernels[:5]}
+    del params, cache, logits, logits0, dec, ref
+    torch.cuda.empty_cache()
+    decode_bound = lm_work(cfg, B, P, P + N // 2)
+    prefill_bound = lm_work(cfg, B, P, None)
+    prefill_ms = statistics.median(prefill_warm)
+
+    # 3. the card against the CPU: full width, the first layers
+    cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    specs = first_layers_specs(cfg, param_specs(cut), LM_CHECK_LAYERS)
+    cpu_params = init_params(specs, torch.Generator().manual_seed(args.seed), device="cpu")
+    gpu_params = lm_params_from_numpy(cut, tree_map(lambda x: x.numpy(), cpu_params),
+                                      device=dev)
+    cpu_batch = make_train_batch(cut, batch=B, seq_len=P, seed=args.seed, device="cpu")
+    gpu_batch = make_train_batch(cut, batch=B, seq_len=P, seed=args.seed, device=dev)
+    c_logits, c_cache, c_pos = prefill(cut, cpu_params, cpu_batch, max_len=P + LM_CHECK_STEPS)
+    g_logits, g_cache, _ = prefill(cut, gpu_params, gpu_batch, max_len=P + LM_CHECK_STEPS)
+    rows = []
+    for i in range(LM_CHECK_STEPS + 1):
+        g = g_logits.cpu()
+        gap, scale = float((g - c_logits).abs().max()), float(c_logits.abs().max())
+        top2 = c_logits[:, :V].topk(2).values
+        clear = (top2[:, 0] - top2[:, 1]) > LM_REL * scale
+        rows.append({"step": i, "max_abs_gap": gap, "max_abs_logit": scale,
+                     "rel_gap": gap / scale, "clear_margins": int(clear.sum()),
+                     "tokens_equal_where_clear": bool(torch.equal(
+                         g[:, :V].argmax(-1)[clear], c_logits[:, :V].argmax(-1)[clear]))})
+        require(gap <= LM_REL * scale and rows[-1]["tokens_equal_where_clear"],
+                f"lm_serve: card against CPU at step {i}: {rows[-1]}")
+        if i == LM_CHECK_STEPS:
+            break
+        tok = c_logits[:, :V].argmax(-1)  # teacher forcing: the CPU run's tokens
+        c_logits, c_cache = decode_step(cut, cpu_params, c_cache, c_pos + i, tok)
+        g_logits, g_cache = decode_step(cut, gpu_params, g_cache, c_pos + i, tok.to(dev))
+    del gpu_params, g_cache
+    torch.cuda.empty_cache()
+
+    decode_ms = res["decode_ms_per_token"]
+    rec = {"phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "padded_vocab": cfg.padded_vocab, "batch": B,
+           "prompt": P, "new_tokens": N, "dtype": "float32", "seed": args.seed,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "params": n_params, "param_bytes": res["param_bytes"],
+           "cache_bytes": res["cache_bytes"], "max_memory_allocated": peak,
+           "serve_s": serve_s, "prefill_ms_first": res["prefill_ms"],
+           "prefill_ms": prefill_ms, "prefill_ms_runs": prefill_warm,
+           "prefill_bound_ms": prefill_bound["bound_us"] / 1e3,
+           "prefill_bound_by": prefill_bound["bound_by"],
+           "prefill_bound_share": prefill_bound["bound_us"] / 1e3 / prefill_ms,
+           "prefill_ops": prefill_bound["ops"], "prefill_bytes": prefill_bound["bytes"],
+           "decode_ms_per_token": decode_ms, "decode_ms": res["decode_ms"],
+           "decode_bound_ms": decode_bound["bound_us"] / 1e3,
+           "decode_bound_by": decode_bound["bound_by"],
+           "decode_bound_share": decode_bound["bound_us"] / 1e3 / decode_ms,
+           "decode_bytes": decode_bound["bytes"], "decode_ops": decode_bound["ops"],
+           "first_tokens": toks[0, :12].tolist(), "decode_vs_prefill": dec_vs_prefill,
+           "card_vs_cpu": {"n_layers": LM_CHECK_LAYERS, "bound": LM_REL, "steps": rows},
+           "profile_decode": profile_rec,
+           "phase_s": time.perf_counter() - t_phase, **card}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import argparse
 
@@ -1807,6 +2012,9 @@ def main() -> int:
                              main_err, card, dev)
     for key, v in dist["launches"].items():
         path_launches[key] = path_launches.get(key, 0) + v
+
+    # ------------------------------------------------------- lm_serve
+    lm_serve_phase(args, dev, cuda_times, card)
 
     # --------------------------------------------------------- timing
     def graph_ms(fn, reps):

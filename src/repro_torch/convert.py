@@ -61,3 +61,42 @@ def schedule_from_numpy(n, k, pi, sigma, rank, n_supersteps) -> Schedule:
         rank=np.array(rank, dtype=np.int64),
         n_supersteps=int(n_supersteps),
     )
+
+
+def lm_params_from_numpy(cfg, tree, device=None, dtype=None):
+    """The port's parameter tree for ``cfg`` from a nested dict of numpy
+    arrays (for example the JAX package's parameters through
+    ``jax.tree_util.tree_map(np.asarray, params)``). Every key and shape is
+    checked against ``param_specs(cfg)``: a missing, extra or misshaped
+    leaf raises ``ValueError``. Arrays are copied, cast to ``dtype`` where
+    one is given, and placed on ``device`` (the card unless
+    ``device="cpu"``)."""
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models.common import tree_paths
+    from repro_torch.models.lm import param_specs
+
+    dev = resolve_device(device)
+    want = tree_paths(param_specs(cfg))
+    got = tree_paths(tree)
+    missing = sorted("/".join(p) for p in want.keys() - got.keys())
+    extra = sorted("/".join(p) for p in got.keys() - want.keys())
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: parameter leaves missing {missing}, extra {extra}")
+    bad = sorted(f"{'/'.join(p)}: {np.shape(got[p])} != {want[p].shape}"
+                 for p in want if tuple(np.shape(got[p])) != tuple(want[p].shape))
+    if bad:
+        raise ValueError(f"{cfg.name}: misshaped parameter leaves {bad}")
+
+    def leaf(path):
+        t = torch.from_numpy(np.array(got[path], copy=True))
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    out: dict = {}
+    for path in sorted(want):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf(path)
+    return out

@@ -1,0 +1,17 @@
+"""The LM stack of the port: the dense family's prefill and KV-cache
+decode, in PyTorch (``lm.py``, ``attention.py``, ``decode.py``)."""
+from repro_torch.models.common import abstract_params, init_params, logical_specs
+from repro_torch.models.decode import decode_step, init_decode_cache, prefill
+from repro_torch.models.lm import ModelConfig, forward, param_specs
+
+__all__ = [
+    "ModelConfig",
+    "forward",
+    "param_specs",
+    "abstract_params",
+    "init_params",
+    "logical_specs",
+    "decode_step",
+    "init_decode_cache",
+    "prefill",
+]

@@ -1,0 +1,226 @@
+"""The composable LM: one ModelConfig covers the ten architectures of the
+JAX package; the port runs the dense family so far.
+
+Families:
+  dense   — decoder-only transformer, GQA (+ optional SWA window, qk-norm)
+  moe     — dense attention + MoE FFN (mixtral, deepseek-moe)
+  rwkv6   — attention-free time-mix/channel-mix stack
+  hybrid  — RecurrentGemma: (rec, rec, local-attn) superblocks + MLP
+  encdec  — seamless: bidirectional encoder + causal decoder w/ cross-attn
+
+``ModelConfig`` carries every field of every family, so a config compares
+field for field with the JAX package's. ``param_specs`` and ``forward``
+take the dense family without a modality frontend; the others raise
+``NotImplementedError`` naming the slice of the port that brings them.
+Layers are stacked on a leading dimension, as in the JAX package, and a
+Python loop over layers takes the place of ``lax.scan``. The JAX package's
+``sharding_ctx.constrain`` is a no-op outside a mesh context; on one card
+there is none, so the port drops those calls.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.attention import AttnConfig, attn_param_specs, multi_head_attention
+from repro_torch.models.common import ParamSpec, rms_norm, swiglu, tree_leaves, tree_map
+
+Pytree = Any
+
+# the families and the frontends still to come, and the slice of the port
+# that brings each
+LATER_FAMILIES = {
+    "moe": "the MoE serving slice (models/moe.py)",
+    "rwkv6": "the recurrent slice (models/rwkv6.py)",
+    "hybrid": "the recurrent slice (models/rglru.py)",
+    "encdec": "the encoder-decoder slice (with the frontend stubs)",
+}
+LATER_FRONTEND = "the encoder-decoder slice (with the frontend stubs)"
+
+
+def _not_ported(cfg) -> NotImplementedError:
+    if cfg.family in LATER_FAMILIES:
+        what, slice_ = f"family {cfg.family!r}", LATER_FAMILIES[cfg.family]
+    else:
+        what, slice_ = f"frontend {cfg.frontend!r}", LATER_FRONTEND
+    return NotImplementedError(
+        f"{cfg.name}: the port runs the dense family without a frontend; "
+        f"{what} comes with {slice_}"
+    )
+
+
+def check_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family or frontend not ported."""
+    if cfg.family in LATER_FAMILIES or (cfg.family == "dense" and cfg.frontend):
+        raise _not_ported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"unknown family {cfg.family}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | rwkv6 | hybrid | encdec
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    window: Optional[int] = None  # sliding-window attention (mixtral)
+    local_window: Optional[int] = None  # hybrid local attention window
+    moe: Optional[Any] = None  # the MoE family's config (its slice is to come)
+    n_dec_layers: Optional[int] = None  # encdec decoder depth
+    frontend: Optional[str] = None  # None | "audio" | "vision" (stub)
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    remat: bool = True
+    vocab_pad_to: int = 2048
+    d_rnn: Optional[int] = None  # hybrid recurrent width
+    attn_kv_chunk: int = 1024
+    wkv_chunk: Optional[int] = None  # chunked-WKV block (rwkv6)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_to
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this config decode at 500k context? (constant/windowed state)"""
+        if self.family in ("rwkv6", "hybrid"):
+            return True
+        return self.window is not None
+
+    def attn_cfg(self, *, causal=True, window=None) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.hd,
+            qk_norm=self.qk_norm,
+            window=window if window is not None else self.window,
+            causal=causal,
+            rope_theta=self.rope_theta,
+        )
+
+    def param_count(self, params: Pytree) -> int:
+        """Elements over a tree of tensors or ParamSpecs (anything with a
+        ``shape``)."""
+        return sum(math.prod(p.shape) for p in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+def _mlp_specs(cfg: ModelConfig):
+    D, F = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": ParamSpec((D, F), ("fsdp", "tp")),
+        "w_up": ParamSpec((D, F), ("fsdp", "tp")),
+        "w_down": ParamSpec((F, D), ("tp", "fsdp")),
+    }
+
+
+def _norm(cfg: ModelConfig):
+    return ParamSpec((cfg.d_model,), (None,), init="ones")
+
+
+def _dense_layer_specs(cfg: ModelConfig):
+    return {
+        "attn": attn_param_specs(cfg.attn_cfg()),
+        "mlp": _mlp_specs(cfg),
+        "ln1": _norm(cfg),
+        "ln2": _norm(cfg),
+    }
+
+
+def _stack(specs: Pytree, n: int) -> Pytree:
+    """Prepend a stacked layer dimension to every ParamSpec."""
+    return tree_map(
+        lambda s: ParamSpec((n, *s.shape), (None, *s.logical), s.init, s.scale), specs
+    )
+
+
+def param_specs(cfg: ModelConfig) -> Pytree:
+    check_ported(cfg)
+    V, D = cfg.padded_vocab, cfg.d_model
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((V, D), ("tp", "fsdp"), init="embed", scale=1.0),
+        "unembed": ParamSpec((D, V), ("fsdp", "tp")),
+        "out_norm": _norm(cfg),
+    }
+    specs["layers"] = _stack(_dense_layer_specs(cfg), cfg.n_layers)
+    return specs
+
+
+def layer_params(params: Pytree, i: int) -> Pytree:
+    """Layer ``i``'s slice of a stacked tree (views, no copy)."""
+    return tree_map(lambda t: t[i], params)
+
+
+# ---------------------------------------------------------------------------
+# forward pass (prefill)
+# ---------------------------------------------------------------------------
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    half = cfg.hd // 2
+    inv = 1.0 / (
+        cfg.rope_theta
+        ** (torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    )
+    freqs = positions.float()[:, None] * inv[None, :]
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def _dense_block(cfg: ModelConfig, params, h, cos, sin):
+    a = multi_head_attention(
+        params["attn"],
+        cfg.attn_cfg(),
+        rms_norm(h, params["ln1"], cfg.norm_eps),
+        rope_cos=cos,
+        rope_sin=sin,
+        kv_chunk=cfg.attn_kv_chunk,
+    )
+    h = h + a
+    ff_in = rms_norm(h, params["ln2"], cfg.norm_eps)
+    ff = swiglu(ff_in, params["mlp"]["w_gate"], params["mlp"]["w_up"],
+                params["mlp"]["w_down"])
+    return h + ff
+
+
+def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows times sqrt(d_model), in the activations' dtype."""
+    h = params["embed"][tokens]
+    return h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Token embeddings; a frontend's embeddings come with its slice
+    (``check_ported`` refuses such configs)."""
+    return _embed_tokens(cfg, params, batch["tokens"])
+
+
+def forward(cfg: ModelConfig, params, batch, *, train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits [B,S,Vpad], aux_loss)."""
+    check_ported(cfg)
+    if train:
+        raise NotImplementedError(
+            "forward(train=True) (remat) comes with the port's training slice"
+        )
+    h = _embed_inputs(cfg, params, batch)
+    S = h.shape[1]
+    cos, sin = _rope_tables(cfg, torch.arange(S, device=h.device))
+    for i in range(cfg.n_layers):
+        h = _dense_block(cfg, layer_params(params["layers"], i), h, cos, sin)
+    h = rms_norm(h, params["out_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", h, params["unembed"])
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)

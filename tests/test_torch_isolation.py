@@ -51,7 +51,7 @@ def test_no_jax_or_repro_imports_in_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
     scanned = {f.relative_to(PKG).parts[0] for f in files}
-    assert {"serve", "launch", "analysis"} <= scanned  # serve, CLIs, the verifier too
+    assert {"serve", "launch", "analysis", "models", "configs"} <= scanned  # the LM stack too
     assert len([f for f in files if f.parent.name == "analysis"]) >= 9
     assert len([f for f in files if f.parent.name == "serve"]) >= 7
     bad = [
@@ -105,6 +105,17 @@ for mode in ("bsp", "elastic"):
     assert np.array_equal(sv.solve(np.ones(300)).numpy(), x)
 assert repro_torch.launch.check.main(["--smoke", "--no-lint"]) == 0
 assert partition_plan(sv.exec_plan, 4).n_shards == 4
+import torch
+import repro_torch.launch.serve
+from repro_torch.configs import get_reduced
+from repro_torch.launch.inputs import make_train_batch
+from repro_torch.models import decode_step, init_params, param_specs, prefill
+cfg = get_reduced("granite_3_2b")
+params = init_params(param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+logits, cache, pos = prefill(cfg, params, make_train_batch(cfg, batch=2, seq_len=16, device="cpu"),
+                             max_len=17)
+logits, cache = decode_step(cfg, params, cache, pos, logits[:, :cfg.vocab_size].argmax(-1))
+assert logits.shape == (2, cfg.padded_vocab) and torch.isfinite(logits).all()
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert loaded == [], loaded
 print("ok")
@@ -217,13 +228,51 @@ def _serve_cli(plan):
     return solver_serve.main(["--mix", "width", "--strategy", "wavefront", "--requests", "1"])
 
 
+def _lm_init_params(plan):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params, param_specs
+
+    return init_params(param_specs(get_reduced("granite_3_2b")), torch.Generator())
+
+
+def _lm_batch(plan):
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.inputs import make_train_batch
+
+    return make_train_batch(get_reduced("granite_3_2b"), batch=1, seq_len=4)
+
+
+def _lm_decode_cache(plan):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_decode_cache
+
+    return init_decode_cache(get_reduced("granite_3_2b"), 1, 4)
+
+
+def _lm_params_from_numpy(plan):
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import tree_map
+
+    cfg = get_reduced("granite_3_2b")
+    return lm_params_from_numpy(cfg, tree_map(lambda s: np.zeros(s.shape), param_specs(cfg)))
+
+
+def _lm_serve_cli(plan):
+    from repro_torch.launch import serve
+
+    return serve.main(["--arch", "granite_3_2b"])
+
+
 @pytest.mark.parametrize(
     "entry",
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
      _kernel_plan_arrays, _level_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
      _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv,
      _ell_operator, _cg_solve, _pcg_ichol, _serve_register, _serve_cli, _make_mesh,
-     _bind_distributed_on_card_mesh],
+     _bind_distributed_on_card_mesh, _lm_init_params, _lm_batch, _lm_decode_cache,
+     _lm_params_from_numpy, _lm_serve_cli],
 )
 def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     # every entry point that places tensors defaults to the card
@@ -295,6 +344,29 @@ def test_torch_quickstart_on_cpu_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert "n=4096" in out.stdout and "hdagg" in out.stdout
     assert "auto: regime=" in out.stdout and out.stdout.strip().endswith("OK")
+
+
+def test_torch_serve_lm_example_on_cpu_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    script = _QUICKSTART_BLOCKED.replace("torch_quickstart", "torch_serve_lm")
+    out = subprocess.run(
+        [sys.executable, "-c", script, "--device", "cpu"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "granite_3_2b" in out.stdout and out.stdout.strip().endswith("OK")
+
+
+def test_torch_serve_lm_example_without_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "examples/torch_serve_lm.py"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "OK" not in out.stdout
 
 
 def test_torch_quickstart_without_device_raises_without_cuda():
