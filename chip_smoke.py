@@ -145,6 +145,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              bytes, and a torch.profiler window of 8 decode steps (the
              device's idle share by the union of its events, kernel launch
              calls and device events per step, the top 5 device operations)
+  lm_families  the MoE, RWKV-6 and RG-LRU hybrid families the same way, one
+             model at a time, each at full width and depth through serve():
+             deepseek-moe-16b (28 layers, 64 routed experts top-6 and 2
+             shared; 16.88B parameters, 67.5 GB), rwkv6-7b (32 layers,
+             chunked WKV; 30.1 GB), recurrentgemma-2b (8 superblocks and 2
+             tail layers, local window 2,048; 14.2 GB). Before each, the
+             card is freed (gc, empty_cache) and must have room for the
+             parameters (mem_get_info); nothing cuts a depth. Decode at
+             position 64 against a fresh prefill (rwkv6, recurrentgemma;
+             max |gap| <= 1e-3 max |logit|); for deepseek, which routes a
+             prefill a group a sequence (capacity 7) and a decode step as
+             one group of the batch (capacity 4), so that the two are
+             different functions, each layer's dropped assignments and
+             distinct experts reached in prefill and in one decode step.
+             The card against the CPU on the cut (2 layers; the hybrid's
+             first superblock and 2 tail layers), for deepseek the routing
+             first: a sequence's logits are held while its top-6 experts
+             agree on every layer, and tokens whose 6th and 7th router
+             probabilities lie within 1e-5 are listed. Prefill and decode
+             ms beside their bounds (deepseek's decode: the all-expert
+             einsums' read and the experts one step's routing reaches),
+             peak memory, a profiled window of 8 decode steps
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
              of 20; the range kernels: the launches over the bulk order cut
              at each superstep, the same function as one full launch), plain version on the card (SpTRSV once, SpMV median of
@@ -242,6 +264,9 @@ LM_BATCH, LM_PROMPT, LM_NEW = 4, 64, 32
 LM_REL = 1e-3  # logits: max |gap| <= LM_REL * max |logit|
 LM_CHECK_LAYERS, LM_CHECK_STEPS = 2, 4  # the card against the CPU
 LM_PROFILE_STEPS = 8
+# the lm_families phase: one model of each other family at full width, in turn
+LM_FAMILIES = ("deepseek_moe_16b", "rwkv6_7b", "recurrentgemma_2b")
+MOE_NEAR_TIE = 1e-5  # a token's K-th and (K+1)-th router probabilities this close
 # the runtime calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx"}
@@ -1422,177 +1447,398 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
     return rec, timing
 
 
-def first_layers_specs(cfg, specs, n):
-    """``specs`` of ``cfg`` cut to its first ``n`` stacked layers, each leaf
-    keeping the std ``init_params`` gives it in the whole stack (its
-    ``fan_in`` is the layer count, ``cfg.n_layers``)."""
-    from repro_torch.models.common import ParamSpec, tree_map
-
-    cut = tree_map(lambda s: ParamSpec((n, *s.shape[1:]), s.logical, s.init,
-                                       s.scale * (n / cfg.n_layers) ** 0.5), specs["layers"])
-    return {**specs, "layers": cut}
-
-
-def lm_work(cfg, batch, prompt, pos) -> dict:
-    """What this run's data needs of a prefill (``pos`` None) or of a decode
-    step at ``pos``, float32: every weight but the embedding read once, the
-    rows of the embedding the tokens use, the KV cache the step attends to
-    read once, the cache and the logits written once; operations: two a
-    multiply-add of the projections, of the causal attention (the pairs
-    the mask keeps) and of the last position's unembedding."""
+def first_layers_specs(cfg, cut):
+    """``param_specs(cut)``, ``cut`` being ``cfg`` with fewer layers, each
+    stacked leaf keeping the std ``init_params`` gives it in ``cfg``'s whole
+    stack (its ``fan_in`` is the stack's depth: ``n_layers``, or the
+    hybrid's superblock and tail counts)."""
     from repro_torch.models import param_specs
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import ParamSpec, tree_map
+    from repro_torch.models.lm import stack_depth
 
-    D, L, H, Hkv, Dh = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    V = cfg.padded_vocab
-    specs = param_specs(cfg)
-    weights = cfg.param_count(specs) - V * D
-    # a layer's matrices (its stacked leaves of rank 3 and more)
-    per_layer = sum(math.prod(s.shape) for s in tree_leaves(specs["layers"])
-                    if len(s.shape) > 2) // L
-    tokens, pairs = (batch * prompt, batch * prompt * (prompt + 1) // 2) if pos is None \
-        else (batch, batch * (pos + 1))
-    kv_row = Hkv * Dh * 2 * 4  # one position's k and v of one layer
-    kv_read = 0 if pos is None else L * batch * (pos + 1) * kv_row
-    nbytes = (weights * 4 + tokens * D * 4 + kv_read + L * tokens * kv_row
-              + batch * V * 4)
-    ops = 2 * tokens * L * per_layer + 2 * 2 * L * H * Dh * pairs + 2 * batch * D * V
-    return bound(nbytes, ops)
+    full, specs = param_specs(cfg), param_specs(cut)
+    out = dict(specs)
+    for key in ("layers", "superblocks", "tail"):
+        if key in specs:
+            keep = (stack_depth(specs[key]) / stack_depth(full[key])) ** 0.5
+            out[key] = tree_map(lambda s, keep=keep: ParamSpec(
+                s.shape, s.logical, s.init, s.scale * keep), specs[key])
+    return out
+
+
+def check_cut(cfg):
+    """The card-against-CPU cut of ``cfg``: its first 2 layers, the
+    hybrid's first superblock and its 2 tail layers."""
+    return dataclasses.replace(cfg, n_layers=5 if cfg.family == "hybrid" else LM_CHECK_LAYERS)
+
+
+# the leaves that multiply the activations (every other one is elementwise)
+MATMUL_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router", "shared_gate",
+                 "shared_up", "shared_down", "wr", "wg", "decay_a", "decay_b", "w_in_gate",
+                 "w_in_rnn", "gate_a", "gate_x", "w_out"}
+
+
+def lm_work(cfg, batch, prompt, pos, experts=None) -> dict:
+    """What this run's data needs of a prefill (``pos`` None) or of a decode
+    step at ``pos``, float32. Bytes: every weight but the embedding read
+    once (of an MoE layer's routed experts, the ``experts[l]`` distinct
+    ones its routing reaches; all of them where ``experts`` is None), the
+    embedding rows of the tokens, the state the step reads (the KV it
+    attends to, the recurrent states) and writes, the logits. Operations:
+    two a multiply-add of the matmuls (an MoE token through its top K
+    experts and the shared ones), of the attention (the pairs the causal
+    window keeps), of the WKV state (three per state element a token) and
+    of the last position's unembedding; elementwise work left out."""
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import tree_paths
+
+    D, V, B = cfg.d_model, cfg.padded_vocab, batch
+    tokens = B * prompt if pos is None else B
+    weight_bytes = per_token = 0
+    for path, s in tree_paths(param_specs(cfg)).items():
+        n = math.prod(s.shape)
+        if path[0] in ("embed", "unembed"):
+            weight_bytes += 0 if path[0] == "embed" else n * 4
+            continue
+        if path[1:2] == ("moe",) and path[-1] in ("w_gate", "w_up", "w_down"):
+            E = cfg.moe.n_experts
+            reached = cfg.n_layers * E if experts is None else sum(experts)
+            weight_bytes += reached * (n // (cfg.n_layers * E)) * 4
+            per_token += cfg.moe.top_k * n // E
+            continue
+        weight_bytes += n * 4
+        if path[-1] in MATMUL_LEAVES:
+            per_token += n
+    n_super, n_tail = divmod(cfg.n_layers, 3)
+    attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers, "hybrid": n_super}.get(
+        cfg.family, 0)
+    window = cfg.local_window if cfg.family == "hybrid" else cfg.window
+    span = (lambda t: t + 1) if window is None else (lambda t: min(t + 1, window))
+    pairs = B * (sum(span(t) for t in range(prompt)) if pos is None else span(pos))
+    kv_row = cfg.n_kv_heads * cfg.hd * 2 * 4  # one position's k and v of one layer
+    state = attn_layers * (tokens * kv_row + (0 if pos is None else pairs * kv_row))
+    ops = 2 * tokens * per_token + 2 * 2 * attn_layers * cfg.n_heads * cfg.hd * pairs
+    if cfg.family == "rwkv6":
+        Dh = D // cfg.n_heads
+        layer = B * (cfg.n_heads * Dh * Dh + 2 * D) * 4
+        state += cfg.n_layers * layer * (1 if pos is None else 2)
+        ops += 2 * 3 * tokens * cfg.n_layers * D * Dh
+    elif cfg.family == "hybrid":
+        R = cfg.d_rnn or D
+        state += (2 * n_super + n_tail) * B * 4 * R * 4 * (1 if pos is None else 2)
+    nbytes = weight_bytes + tokens * D * 4 + state + B * V * 4
+    return bound(nbytes, ops + 2 * B * D * V)
+
+
+def profile_decode(cfg, params, cache, pos, tok, steps) -> dict:
+    """``steps`` decode steps from ``pos`` under ``torch.profiler``, CUDA
+    events around them: ms a step, the device's busy time (the union of
+    its events) and idle share, kernel launch calls and device events a
+    step, the top 5 device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step
+
+    V = cfg.vocab_size
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for i in range(steps):
+            logits, cache = decode_step(cfg, params, cache, pos + i, tok)
+            tok = logits[:, :V].argmax(-1)
+        e1.record()
+        e1.synchronize()
+    elapsed = e0.elapsed_time(e1)
+    busy = busy_union_ms(prof)
+    kernels = device_events(prof)
+    return {"steps": steps, "elapsed_ms": elapsed, "ms_per_step": elapsed / steps,
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / elapsed if elapsed else None,
+            "launch_calls_per_step": sum(1 for e in prof.events()
+                                         if e.name in LAUNCH_CALLS) / steps,
+            "device_events_per_step": sum(k["count"] for k in kernels) / steps,
+            "top": kernels[:5]}
+
+
+class RoutingLog:
+    """Wraps ``repro_torch.models.moe.route`` while open and keeps each
+    call's ``Routing`` (one a MoE layer a forward call), in order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = moe.route
+
+        def route(*a, **kw):
+            r = self._route(*a, **kw)
+            self.calls.append(r)
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+        return False
+
+
+def routing_stats(calls) -> list:
+    """A row a MoE layer: its groups and capacity, its assignments, the
+    dropped ones and the distinct experts it reaches."""
+    rows = []
+    for layer, r in enumerate(calls):
+        G, S, E, C = r.dispatch.shape
+        kept = r.in_cap.sum(dim=(0, 1, 2))  # [E]
+        rows.append({"layer": layer, "groups": G, "group_size": S, "capacity": C,
+                     "assignments": int(r.onehot.sum()),
+                     "dropped": int(r.onehot.sum() - r.in_cap.sum()),
+                     "experts_reached": int((kept > 0).sum())})
+    return rows
+
+
+def kth_gaps(r, K):
+    """Per token, the gap between its K-th and (K+1)-th expert probability."""
+    import torch
+
+    top = torch.sort(r.probs, dim=-1, descending=True, stable=True).values
+    return top[..., K - 1] - top[..., K]
+
+
+def lm_cut_run(cut, params, batch, tokens=None):
+    """Prefill over ``batch`` and ``LM_CHECK_STEPS`` decode steps, greedy
+    or teacher forced with ``tokens``: each step's logits (on the CPU), its
+    MoE routing calls, and the tokens fed."""
+    from repro_torch.models import decode_step, prefill
+
+    V = cut.vocab_size
+    with RoutingLog() as log:
+        logits, cache, pos = prefill(cut, params, batch, max_len=LM_PROMPT + LM_CHECK_STEPS)
+    out = {"logits": [logits.cpu()], "routing": [list(log.calls)], "tokens": []}
+    for i in range(LM_CHECK_STEPS):
+        tok = logits[:, :V].argmax(-1) if tokens is None else tokens[i].to(logits.device)
+        out["tokens"].append(tok.cpu())
+        log.calls.clear()
+        with log:
+            logits, cache = decode_step(cut, params, cache, pos + i, tok)
+        out["logits"].append(logits.cpu())
+        out["routing"].append(list(log.calls))
+    return out
+
+
+def lm_card_vs_cpu(cfg, seed, dev) -> dict:
+    """``check_cut(cfg)`` made on the CPU (each leaf at the full stack's
+    std), carried to the card with ``lm_params_from_numpy``: prefill and
+    ``LM_CHECK_STEPS`` decode steps, the card teacher forced with the CPU's
+    tokens; logits within ``LM_REL`` x max |logit|, greedy tokens equal
+    where the CPU's top-2 margin exceeds the bound. For the MoE family the
+    routing comes first: a sequence is held only while its top-K experts
+    agree on every layer, and each token whose K-th and (K+1)-th
+    probabilities are within ``MOE_NEAR_TIE`` is listed."""
+    import torch
+
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_map
+
+    cut = check_cut(cfg)
+    V, B, P = cfg.vocab_size, LM_BATCH, LM_PROMPT
+    moe = cfg.family == "moe"
+    cpu_params = init_params(first_layers_specs(cfg, cut), torch.Generator().manual_seed(seed),
+                             device="cpu")
+    gpu_params = lm_params_from_numpy(cut, tree_map(lambda x: x.numpy(), cpu_params),
+                                      device=dev)
+    cpu_batch = make_train_batch(cut, batch=B, seq_len=P, seed=seed, device="cpu")
+    ref = lm_cut_run(cut, cpu_params, cpu_batch)
+    got = lm_cut_run(cut, gpu_params, make_train_batch(cut, batch=B, seq_len=P, seed=seed,
+                                                       device=dev), ref["tokens"])
+    del gpu_params
+    agreed = torch.ones(B, dtype=torch.bool)
+    rows, near_ties, flips = [], [], []
+    for i, (c_logits, g) in enumerate(zip(ref["logits"], got["logits"])):
+        for layer, (cr, gr) in enumerate(zip(ref["routing"][i], got["routing"][i])):
+            # prefill routes [B, S] (a group a sequence), decode [1, B]
+            same = (cr.top_e == gr.top_e.cpu()).all(dim=-1)  # per token
+            agreed &= same.all(dim=1) if i == 0 else same[0]
+            gaps = kth_gaps(cr, cfg.moe.top_k)
+            for idx in torch.nonzero(gaps < MOE_NEAR_TIE).tolist():
+                near_ties.append({"step": i, "layer": layer, "token": idx,
+                                  "gap": float(gaps[tuple(idx)])})
+            for idx in torch.nonzero(~same).tolist():
+                flips.append({"step": i, "layer": layer, "token": idx,
+                              "gap": float(gaps[tuple(idx)])})
+        held = agreed if moe else torch.ones(B, dtype=torch.bool)
+        require(held.any(), f"lm card against CPU, {cfg.name} step {i}: no sequence's "
+                            f"routing agreed ({flips[:4]})")
+        gap = float((g[held] - c_logits[held]).abs().max())
+        scale = float(c_logits[held].abs().max())
+        top2 = c_logits[:, :V].topk(2).values
+        clear = ((top2[:, 0] - top2[:, 1]) > LM_REL * scale) & held
+        rows.append({"step": i, "sequences_held": int(held.sum()), "max_abs_gap": gap,
+                     "max_abs_logit": scale, "rel_gap": gap / scale,
+                     "clear_margins": int(clear.sum()),
+                     "tokens_equal_where_clear": bool(torch.equal(
+                         g[:, :V].argmax(-1)[clear], c_logits[:, :V].argmax(-1)[clear]))})
+        require(gap <= LM_REL * scale and rows[-1]["tokens_equal_where_clear"],
+                f"lm card against CPU, {cfg.name} step {i}: {rows[-1]}")
+    out = {"n_layers": cut.n_layers, "bound": LM_REL, "steps": rows}
+    if moe:
+        out.update(near_tie_bound=MOE_NEAR_TIE, near_ties=near_ties, routing_flips=flips,
+                   sequences_agreed=int(agreed.sum()))
+    return out
 
 
 def lm_serve_phase(args, dev, cuda_times, card) -> dict:
     """The LM stack's serving path at full width on the card (see the
     module docstring); returns the phase's record, which it has emitted."""
+    return lm_model_phase("lm_serve", LM_ARCH, args, dev, cuda_times, card)
+
+
+def lm_families_phase(args, dev, cuda_times, card) -> list:
+    """The MoE, RWKV-6 and hybrid families at full width, one model at a
+    time (see the module docstring); returns their records."""
+    return [lm_model_phase("lm_families", arch, args, dev, cuda_times, card)
+            for arch in LM_FAMILIES]
+
+
+def lm_model_phase(phase, arch, args, dev, cuda_times, card) -> dict:
+    """One model at full width and depth on the card: ``serve()``, then
+    decode against a fresh prefill (or, for the MoE family, each layer's
+    routing in prefill and in decode), prefill warm and a profiled window
+    of decode steps, and the card against the CPU on its cut. Emits the
+    record and returns it."""
+    import gc
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
-    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.launch.inputs import make_train_batch
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step, init_params, param_specs, prefill
-    from repro_torch.models.common import tree_map
 
     t_phase = time.perf_counter()
-    cfg = configs.get_config(LM_ARCH)
+    cfg = configs.get_config(arch)
     V, B, P, N = cfg.vocab_size, LM_BATCH, LM_PROMPT, LM_NEW
+    n_params = cfg.param_count(param_specs(cfg))
+    moe = cfg.family == "moe"
+
+    def room():
+        """Free what the card holds; the parameters must fit."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        require(free > 4 * n_params, f"{phase}: {cfg.name} needs {4 * n_params} bytes of "
+                                     f"parameters, the card has {free} of {total} free")
+        return free
 
     # 1. the entry point at full width
-    torch.cuda.empty_cache()
+    free_before = room()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = serve(cfg, batch=B, prompt_len=P, new_tokens=N, device=dev, seed=args.seed)
     serve_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
-    require(res["logits_finite"], "lm_serve: a logit of the served run is not finite")
+    require(res["logits_finite"], f"{phase}: a logit of {cfg.name}'s served run is not finite")
     require(tuple(toks.shape) == (B, N) and int(toks.min()) >= 0 and int(toks.max()) < V,
-            f"lm_serve: served tokens {tuple(toks.shape)} outside [0, {V})")
-    n_params = cfg.param_count(param_specs(cfg))
-    require(res["param_bytes"] == 4 * n_params, "lm_serve: parameter bytes")
+            f"{phase}: {cfg.name}'s served tokens {tuple(toks.shape)} outside [0, {V})")
+    require(res["param_bytes"] == 4 * n_params, f"{phase}: {cfg.name}'s parameter bytes")
 
-    # 2. decode against prefill, full depth
+    # 2. decode against a fresh prefill, full depth; MoE: the routing
+    room()
     params = init_params(param_specs(cfg), torch.Generator(device=dev).manual_seed(args.seed),
                          device=dev)
     batch = make_train_batch(cfg, batch=B, seq_len=P, seed=args.seed, device=dev)
-    logits0, cache, pos = prefill(cfg, params, batch, max_len=P + N)
+    with RoutingLog() as log:
+        logits0, cache, pos = prefill(cfg, params, batch, max_len=P + N)
+    prefill_routing = routing_stats(log.calls)
     t = logits0[:, :V].argmax(-1)
-    dec, cache = decode_step(cfg, params, cache, pos, t)
-    full = {"tokens": torch.cat([batch["tokens"], t[:, None]], dim=1)}
-    ref, _, _ = prefill(cfg, params, full, max_len=P + 1)
-    gap, scale = float((dec - ref).abs().max()), float(ref.abs().max())
-    dec_vs_prefill = {"pos": pos, "max_abs_gap": gap, "max_abs_logit": scale,
-                      "rel_gap": gap / scale, "bound": LM_REL,
-                      "greedy_equal": bool(torch.equal(dec[:, :V].argmax(-1),
-                                                       ref[:, :V].argmax(-1))),
-                      "serve_first_tokens_equal": bool(torch.equal(t.cpu(), toks[:, 0]))}
-    require(torch.isfinite(dec).all() and gap <= LM_REL * scale,
-            f"lm_serve: decode at position {pos} against a fresh prefill: max |gap| {gap} > "
-            f"{LM_REL} * {scale}")
+    log.calls.clear()
+    with log:
+        dec, cache = decode_step(cfg, params, cache, pos, t)
+    decode_routing = routing_stats(log.calls)
+    log.calls.clear()
+    first_equal = bool(torch.equal(t.cpu(), toks[:, 0]))
+    if moe:
+        # prefill routes a group a sequence (capacity C at S = P), decode one
+        # group of B tokens: two functions, in JAX as well
+        check = {"left_out": "MoE prefill routes each sequence as a group of "
+                             f"{P} tokens (capacity {prefill_routing[0]['capacity']}) and "
+                             f"drops assignments; decode routes the {B} tokens as one group "
+                             f"(capacity {decode_routing[0]['capacity']}), so a decode "
+                             "step and a fresh prefill compute different functions",
+                 "prefill_routing": prefill_routing, "decode_routing": decode_routing,
+                 "prefill_dropped": sum(r["dropped"] for r in prefill_routing),
+                 "decode_dropped": sum(r["dropped"] for r in decode_routing)}
+    else:
+        full = {"tokens": torch.cat([batch["tokens"], t[:, None]], dim=1)}
+        ref, _, _ = prefill(cfg, params, full, max_len=P + 1)
+        gap, scale = float((dec - ref).abs().max()), float(ref.abs().max())
+        check = {"pos": pos, "max_abs_gap": gap, "max_abs_logit": scale,
+                 "rel_gap": gap / scale, "bound": LM_REL,
+                 "greedy_equal": bool(torch.equal(dec[:, :V].argmax(-1),
+                                                  ref[:, :V].argmax(-1)))}
+        del ref
+        require(torch.isfinite(dec).all() and gap <= LM_REL * scale,
+                f"{phase}: {cfg.name}'s decode at position {pos} against a fresh prefill: "
+                f"max |gap| {gap} > {LM_REL} * {scale}")
+    check["serve_first_tokens_equal"] = first_equal
 
-    # 4. where the time goes: prefill warm, decode under the profiler
+    # 3. where the time goes: prefill warm, decode under the profiler
+    del cache, logits0, dec
     prefill_warm = cuda_times(lambda: prefill(cfg, params, batch, max_len=P + N), 1, 5)
     logits, cache, pos = prefill(cfg, params, batch, max_len=P + N)
     tok = logits[:, :V].argmax(-1)
     for i in range(2):  # warm-up outside the window
         logits, cache = decode_step(cfg, params, cache, pos + i, tok)
         tok = logits[:, :V].argmax(-1)
-    start = pos + 2
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        e0.record()
-        for i in range(LM_PROFILE_STEPS):
-            logits, cache = decode_step(cfg, params, cache, start + i, tok)
-            tok = logits[:, :V].argmax(-1)
-        e1.record()
-        e1.synchronize()
-    elapsed = e0.elapsed_time(e1)
-    busy = busy_union_ms(prof)
-    launch_calls = sum(1 for e in prof.events() if e.name in LAUNCH_CALLS)
-    kernels = device_events(prof)
-    profile_rec = {"steps": LM_PROFILE_STEPS, "elapsed_ms": elapsed,
-                   "ms_per_step": elapsed / LM_PROFILE_STEPS, "device_busy_ms": busy,
-                   "idle_share": 1.0 - busy / elapsed if elapsed else None,
-                   "launch_calls_per_step": launch_calls / LM_PROFILE_STEPS,
-                   "device_events_per_step": sum(k["count"] for k in kernels)
-                   / LM_PROFILE_STEPS, "top": kernels[:5]}
-    del params, cache, logits, logits0, dec, ref
-    torch.cuda.empty_cache()
-    decode_bound = lm_work(cfg, B, P, P + N // 2)
-    prefill_bound = lm_work(cfg, B, P, None)
+    profile_rec = profile_decode(cfg, params, cache, pos + 2, tok, LM_PROFILE_STEPS)
+    del params, cache, logits, batch
+    room()
     prefill_ms = statistics.median(prefill_warm)
-
-    # 3. the card against the CPU: full width, the first layers
-    cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
-    specs = first_layers_specs(cfg, param_specs(cut), LM_CHECK_LAYERS)
-    cpu_params = init_params(specs, torch.Generator().manual_seed(args.seed), device="cpu")
-    gpu_params = lm_params_from_numpy(cut, tree_map(lambda x: x.numpy(), cpu_params),
-                                      device=dev)
-    cpu_batch = make_train_batch(cut, batch=B, seq_len=P, seed=args.seed, device="cpu")
-    gpu_batch = make_train_batch(cut, batch=B, seq_len=P, seed=args.seed, device=dev)
-    c_logits, c_cache, c_pos = prefill(cut, cpu_params, cpu_batch, max_len=P + LM_CHECK_STEPS)
-    g_logits, g_cache, _ = prefill(cut, gpu_params, gpu_batch, max_len=P + LM_CHECK_STEPS)
-    rows = []
-    for i in range(LM_CHECK_STEPS + 1):
-        g = g_logits.cpu()
-        gap, scale = float((g - c_logits).abs().max()), float(c_logits.abs().max())
-        top2 = c_logits[:, :V].topk(2).values
-        clear = (top2[:, 0] - top2[:, 1]) > LM_REL * scale
-        rows.append({"step": i, "max_abs_gap": gap, "max_abs_logit": scale,
-                     "rel_gap": gap / scale, "clear_margins": int(clear.sum()),
-                     "tokens_equal_where_clear": bool(torch.equal(
-                         g[:, :V].argmax(-1)[clear], c_logits[:, :V].argmax(-1)[clear]))})
-        require(gap <= LM_REL * scale and rows[-1]["tokens_equal_where_clear"],
-                f"lm_serve: card against CPU at step {i}: {rows[-1]}")
-        if i == LM_CHECK_STEPS:
-            break
-        tok = c_logits[:, :V].argmax(-1)  # teacher forcing: the CPU run's tokens
-        c_logits, c_cache = decode_step(cut, cpu_params, c_cache, c_pos + i, tok)
-        g_logits, g_cache = decode_step(cut, gpu_params, g_cache, c_pos + i, tok.to(dev))
-    del gpu_params, g_cache
-    torch.cuda.empty_cache()
-
     decode_ms = res["decode_ms_per_token"]
-    rec = {"phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+    prefill_bound = lm_work(cfg, B, P, None)
+    decode_bound = lm_work(cfg, B, P, P + N // 2)
+    bounds = {"prefill_bound_ms": prefill_bound["bound_us"] / 1e3,
+              "prefill_bound_by": prefill_bound["bound_by"],
+              "prefill_bound_share": prefill_bound["bound_us"] / 1e3 / prefill_ms,
+              "prefill_ops": prefill_bound["ops"], "prefill_bytes": prefill_bound["bytes"],
+              "decode_bound_ms": decode_bound["bound_us"] / 1e3,
+              "decode_bound_by": decode_bound["bound_by"],
+              "decode_bound_share": decode_bound["bound_us"] / 1e3 / decode_ms,
+              "decode_bytes": decode_bound["bytes"], "decode_ops": decode_bound["ops"]}
+    if moe:
+        # the weights the step's routing reaches, beside the all-expert read
+        reached = lm_work(cfg, B, P, P, [r["experts_reached"] for r in decode_routing])
+        bounds.update(decode_bound_reached_ms=reached["bound_us"] / 1e3,
+                      decode_bytes_reached=reached["bytes"],
+                      decode_bound_all_experts_ms=lm_work(cfg, B, P, P)["bound_us"] / 1e3,
+                      prefill_bound_reached_ms=lm_work(
+                          cfg, B, P, None, [r["experts_reached"] for r in prefill_routing]
+                      )["bound_us"] / 1e3)
+
+    # 4. the card against the CPU on the cut
+    card_vs_cpu = lm_card_vs_cpu(cfg, args.seed, dev)
+    room()
+
+    rec = {"phase": phase, "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "padded_vocab": cfg.padded_vocab, "batch": B,
            "prompt": P, "new_tokens": N, "dtype": "float32", "seed": args.seed,
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "params": n_params, "param_bytes": res["param_bytes"],
+           "card_free_bytes_before": free_before,
            "cache_bytes": res["cache_bytes"], "max_memory_allocated": peak,
            "serve_s": serve_s, "prefill_ms_first": res["prefill_ms"],
            "prefill_ms": prefill_ms, "prefill_ms_runs": prefill_warm,
-           "prefill_bound_ms": prefill_bound["bound_us"] / 1e3,
-           "prefill_bound_by": prefill_bound["bound_by"],
-           "prefill_bound_share": prefill_bound["bound_us"] / 1e3 / prefill_ms,
-           "prefill_ops": prefill_bound["ops"], "prefill_bytes": prefill_bound["bytes"],
-           "decode_ms_per_token": decode_ms, "decode_ms": res["decode_ms"],
-           "decode_bound_ms": decode_bound["bound_us"] / 1e3,
-           "decode_bound_by": decode_bound["bound_by"],
-           "decode_bound_share": decode_bound["bound_us"] / 1e3 / decode_ms,
-           "decode_bytes": decode_bound["bytes"], "decode_ops": decode_bound["ops"],
-           "first_tokens": toks[0, :12].tolist(), "decode_vs_prefill": dec_vs_prefill,
-           "card_vs_cpu": {"n_layers": LM_CHECK_LAYERS, "bound": LM_REL, "steps": rows},
-           "profile_decode": profile_rec,
+           "decode_ms_per_token": decode_ms, "decode_ms": res["decode_ms"], **bounds,
+           "first_tokens": toks[0, :12].tolist(),
+           ("moe_routing" if moe else "decode_vs_prefill"): check,
+           "card_vs_cpu": card_vs_cpu, "profile_decode": profile_rec,
            "phase_s": time.perf_counter() - t_phase, **card}
     emit(rec)
     return rec
@@ -2015,6 +2261,9 @@ def main() -> int:
 
     # ------------------------------------------------------- lm_serve
     lm_serve_phase(args, dev, cuda_times, card)
+
+    # --------------------------------------------------- lm_families
+    lm_families_phase(args, dev, cuda_times, card)
 
     # --------------------------------------------------------- timing
     def graph_ms(fn, reps):

@@ -1,13 +1,14 @@
-"""Serve a small LM with batched requests on the PyTorch port: prefill a
-batch of prompts, then decode tokens greedily through the stacked KV cache
-(the dense family: granite-3-2b's reduced config).
+"""Serve small LMs with batched requests on the PyTorch port: prefill a
+batch of prompts, then decode tokens greedily through the stacked decode
+cache, for the four families of the JAX example (``examples/serve_lm.py``):
+dense granite, MoE mixtral, RWKV-6 and the RG-LRU hybrid, each at its
+reduced config.
 
     PYTHONPATH=src python examples/torch_serve_lm.py              # the card
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu
 
 It runs on the card unless ``--device cpu`` is given, and raises where CUDA
-is missing. The other families of the JAX example (MoE, RWKV-6, the RG-LRU
-hybrid) come with their slices of the port.
+is missing.
 """
 import argparse
 import time
@@ -19,7 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.inputs import make_train_batch
 from repro_torch.models import decode_step, init_params, param_specs, prefill
 
-ARCHS = ["granite_3_2b"]
+ARCHS = ["granite_3_2b", "mixtral_8x7b", "rwkv6_7b", "recurrentgemma_2b"]
 B, PROMPT, NEW = 4, 64, 16
 
 ap = argparse.ArgumentParser(description=__doc__)

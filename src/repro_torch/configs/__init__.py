@@ -9,8 +9,10 @@ Shapes (assigned to every LM arch):
   decode_32k   kv 32768,   global batch 128  (decode_step)
   long_500k    kv 524288,  global batch 1    (decode_step; sub-quadratic only)
 
-The port runs the dense family: granite_3_2b, phi3_mini_3_8b, qwen3_32b
-and mistral_large_123b. Asking for another arch raises
+The port runs the dense family (granite_3_2b, phi3_mini_3_8b, qwen3_32b,
+mistral_large_123b), the MoE family (deepseek_moe_16b, mixtral_8x7b),
+RWKV-6 (rwkv6_7b) and the RG-LRU hybrid (recurrentgemma_2b). Asking for
+seamless_m4t_large_v2 or llava_next_mistral_7b raises
 ``NotImplementedError`` naming the slice of the port that brings it.
 """
 from __future__ import annotations
@@ -36,11 +38,7 @@ ARCH_IDS = [
 
 # arch -> the slice of the port that brings its config
 _LATER = {
-    "rwkv6_7b": LATER_FAMILIES["rwkv6"],
-    "deepseek_moe_16b": LATER_FAMILIES["moe"],
-    "mixtral_8x7b": LATER_FAMILIES["moe"],
     "seamless_m4t_large_v2": LATER_FAMILIES["encdec"],
-    "recurrentgemma_2b": LATER_FAMILIES["hybrid"],
     "llava_next_mistral_7b": LATER_FRONTEND,
 }
 

@@ -1,5 +1,6 @@
 """Serving launcher for the LM stack: prefill a batch of prompts, then
-decode N tokens greedily through the stacked KV cache.
+decode N tokens greedily through the stacked decode cache (KV for
+attention, the recurrent state for RWKV-6 and the RG-LRU hybrid).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
         [--reduced | --full] [--batch 4] [--prompt-len 64] [--new-tokens 32] \\
@@ -65,7 +66,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int,
         "decode_ms_per_token": statistics.median(decode_ms) if decode_ms else None,
         "logits_finite": bool(finite),
         "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
-        "cache_bytes": sum(t.numel() * t.element_size() for t in cache.values()),
+        "cache_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(cache)),
     }
 
 

@@ -1,5 +1,6 @@
-"""The LM stack of the port: the dense family's prefill and KV-cache
-decode, in PyTorch (``lm.py``, ``attention.py``, ``decode.py``)."""
+"""The LM stack of the port: prefill and decode of the dense, MoE, RWKV-6
+and RG-LRU hybrid families, in PyTorch (``lm.py``, ``attention.py``,
+``moe.py``, ``rwkv6.py``, ``rglru.py``, ``decode.py``)."""
 from repro_torch.models.common import abstract_params, init_params, logical_specs
 from repro_torch.models.decode import decode_step, init_decode_cache, prefill
 from repro_torch.models.lm import ModelConfig, forward, param_specs

@@ -1,5 +1,5 @@
 """The composable LM: one ModelConfig covers the ten architectures of the
-JAX package; the port runs the dense family so far.
+JAX package; the port runs the dense, MoE, RWKV-6 and hybrid families.
 
 Families:
   dense   — decoder-only transformer, GQA (+ optional SWA window, qk-norm)
@@ -10,10 +10,12 @@ Families:
 
 ``ModelConfig`` carries every field of every family, so a config compares
 field for field with the JAX package's. ``param_specs`` and ``forward``
-take the dense family without a modality frontend; the others raise
-``NotImplementedError`` naming the slice of the port that brings them.
-Layers are stacked on a leading dimension, as in the JAX package, and a
-Python loop over layers takes the place of ``lax.scan``. The JAX package's
+take the four decoder-only families without a modality frontend; the
+encoder-decoder family and the frontends raise ``NotImplementedError``
+naming the slice of the port that brings them. Layers are stacked on a
+leading dimension, as in the JAX package (the hybrid's in ``superblocks``
+of (rec, rec, local-attn) and a recurrent ``tail``), and a Python loop
+over layers takes the place of ``lax.scan``. The JAX package's
 ``sharding_ctx.constrain`` is a no-op outside a mesh context; on one card
 there is none, so the port drops those calls.
 """
@@ -27,17 +29,16 @@ import torch
 
 from repro_torch.models.attention import AttnConfig, attn_param_specs, multi_head_attention
 from repro_torch.models.common import ParamSpec, rms_norm, swiglu, tree_leaves, tree_map
+from repro_torch.models.moe import MoEConfig, moe_ffn, moe_param_specs
+from repro_torch.models.rglru import RGLRUConfig, rglru_block, rglru_param_specs
+from repro_torch.models.rwkv6 import RWKVConfig, channel_mix, rwkv_param_specs, time_mix
 
 Pytree = Any
 
-# the families and the frontends still to come, and the slice of the port
-# that brings each
-LATER_FAMILIES = {
-    "moe": "the MoE serving slice (models/moe.py)",
-    "rwkv6": "the recurrent slice (models/rwkv6.py)",
-    "hybrid": "the recurrent slice (models/rglru.py)",
-    "encdec": "the encoder-decoder slice (with the frontend stubs)",
-}
+PORTED_FAMILIES = ("dense", "moe", "rwkv6", "hybrid")
+# the family and the frontends still to come, and the slice of the port
+# that brings them
+LATER_FAMILIES = {"encdec": "the encoder-decoder slice (with the frontend stubs)"}
 LATER_FRONTEND = "the encoder-decoder slice (with the frontend stubs)"
 
 
@@ -47,16 +48,16 @@ def _not_ported(cfg) -> NotImplementedError:
     else:
         what, slice_ = f"frontend {cfg.frontend!r}", LATER_FRONTEND
     return NotImplementedError(
-        f"{cfg.name}: the port runs the dense family without a frontend; "
-        f"{what} comes with {slice_}"
+        f"{cfg.name}: the port runs the {', '.join(PORTED_FAMILIES)} families without a "
+        f"frontend; {what} comes with {slice_}"
     )
 
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a family or frontend not ported."""
-    if cfg.family in LATER_FAMILIES or (cfg.family == "dense" and cfg.frontend):
+    if cfg.family in LATER_FAMILIES or (cfg.family in PORTED_FAMILIES and cfg.frontend):
         raise _not_ported(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -74,7 +75,7 @@ class ModelConfig:
     qk_norm: bool = False
     window: Optional[int] = None  # sliding-window attention (mixtral)
     local_window: Optional[int] = None  # hybrid local attention window
-    moe: Optional[Any] = None  # the MoE family's config (its slice is to come)
+    moe: Optional[MoEConfig] = None
     n_dec_layers: Optional[int] = None  # encdec decoder depth
     frontend: Optional[str] = None  # None | "audio" | "vision" (stub)
     rope_theta: float = 10000.0
@@ -113,6 +114,12 @@ class ModelConfig:
             rope_theta=self.rope_theta,
         )
 
+    def rwkv_cfg(self) -> RWKVConfig:
+        return RWKVConfig(d_model=self.d_model, n_heads=self.n_heads, d_ff=self.d_ff)
+
+    def rglru_cfg(self) -> RGLRUConfig:
+        return RGLRUConfig(d_model=self.d_model, d_rnn=self.d_rnn or self.d_model)
+
     def param_count(self, params: Pytree) -> int:
         """Elements over a tree of tensors or ParamSpecs (anything with a
         ``shape``)."""
@@ -144,6 +151,37 @@ def _dense_layer_specs(cfg: ModelConfig):
     }
 
 
+def _moe_layer_specs(cfg: ModelConfig):
+    return {
+        "attn": attn_param_specs(cfg.attn_cfg()),
+        "moe": moe_param_specs(cfg.moe),
+        "ln1": _norm(cfg),
+        "ln2": _norm(cfg),
+    }
+
+
+def _rwkv_layer_specs(cfg: ModelConfig):
+    specs = rwkv_param_specs(cfg.rwkv_cfg())
+    specs["ln1"] = _norm(cfg)
+    specs["ln2"] = _norm(cfg)
+    return specs
+
+
+def _hybrid_superblock_specs(cfg: ModelConfig):
+    """One (rec, rec, local-attn) superblock, each with its own MLP."""
+    local = cfg.attn_cfg(window=cfg.local_window)
+
+    def blk(temporal):
+        return {"temporal": temporal, "mlp": _mlp_specs(cfg), "ln1": _norm(cfg),
+                "ln2": _norm(cfg)}
+
+    return {
+        "rec1": blk(rglru_param_specs(cfg.rglru_cfg())),
+        "rec2": blk(rglru_param_specs(cfg.rglru_cfg())),
+        "attn": blk(attn_param_specs(local)),
+    }
+
+
 def _stack(specs: Pytree, n: int) -> Pytree:
     """Prepend a stacked layer dimension to every ParamSpec."""
     return tree_map(
@@ -159,13 +197,30 @@ def param_specs(cfg: ModelConfig) -> Pytree:
         "unembed": ParamSpec((D, V), ("fsdp", "tp")),
         "out_norm": _norm(cfg),
     }
-    specs["layers"] = _stack(_dense_layer_specs(cfg), cfg.n_layers)
+    if cfg.family == "dense":
+        specs["layers"] = _stack(_dense_layer_specs(cfg), cfg.n_layers)
+    elif cfg.family == "moe":
+        specs["layers"] = _stack(_moe_layer_specs(cfg), cfg.n_layers)
+    elif cfg.family == "rwkv6":
+        specs["layers"] = _stack(_rwkv_layer_specs(cfg), cfg.n_layers)
+    else:  # hybrid
+        n_super, n_tail = divmod(cfg.n_layers, 3)
+        specs["superblocks"] = _stack(_hybrid_superblock_specs(cfg), n_super)
+        if n_tail:
+            # tail layers are recurrent blocks (Griffin starts each triple
+            # with recurrence; 26 = 8*3 + 2 leaves two rec blocks)
+            specs["tail"] = _stack(_hybrid_superblock_specs(cfg)["rec1"], n_tail)
     return specs
 
 
 def layer_params(params: Pytree, i: int) -> Pytree:
     """Layer ``i``'s slice of a stacked tree (views, no copy)."""
     return tree_map(lambda t: t[i], params)
+
+
+def stack_depth(stacked: Optional[Pytree]) -> int:
+    """The leading (layer) dimension of a stacked tree; 0 for ``None``."""
+    return 0 if stacked is None else tree_leaves(stacked)[0].shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +237,7 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _dense_block(cfg: ModelConfig, params, h, cos, sin):
+    """A dense or MoE layer: (h, its aux loss)."""
     a = multi_head_attention(
         params["attn"],
         cfg.attn_cfg(),
@@ -191,6 +247,39 @@ def _dense_block(cfg: ModelConfig, params, h, cos, sin):
         kv_chunk=cfg.attn_kv_chunk,
     )
     h = h + a
+    ff_in = rms_norm(h, params["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        ff, aux = moe_ffn(params["moe"], cfg.moe, ff_in)
+    else:
+        ff = swiglu(ff_in, params["mlp"]["w_gate"], params["mlp"]["w_up"],
+                    params["mlp"]["w_down"])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ff, aux
+
+
+def _rwkv_block(cfg: ModelConfig, params, h):
+    y, _ = time_mix(params["time_mix"], cfg.rwkv_cfg(),
+                    rms_norm(h, params["ln1"], cfg.norm_eps), chunk=cfg.wkv_chunk)
+    h = h + y
+    y, _ = channel_mix(params["channel_mix"], cfg.rwkv_cfg(),
+                       rms_norm(h, params["ln2"], cfg.norm_eps))
+    return h + y
+
+
+def _hybrid_block(cfg: ModelConfig, params, h, cos, sin, kind: str):
+    x = rms_norm(h, params["ln1"], cfg.norm_eps)
+    if kind == "rec":
+        y, _ = rglru_block(params["temporal"], cfg.rglru_cfg(), x)
+    else:
+        y = multi_head_attention(
+            params["temporal"],
+            cfg.attn_cfg(window=cfg.local_window),
+            x,
+            rope_cos=cos,
+            rope_sin=sin,
+            kv_chunk=cfg.attn_kv_chunk,
+        )
+    h = h + y
     ff_in = rms_norm(h, params["ln2"], cfg.norm_eps)
     ff = swiglu(ff_in, params["mlp"]["w_gate"], params["mlp"]["w_up"],
                 params["mlp"]["w_down"])
@@ -219,8 +308,24 @@ def forward(cfg: ModelConfig, params, batch, *, train: bool) -> Tuple[torch.Tens
     h = _embed_inputs(cfg, params, batch)
     S = h.shape[1]
     cos, sin = _rope_tables(cfg, torch.arange(S, device=h.device))
-    for i in range(cfg.n_layers):
-        h = _dense_block(cfg, layer_params(params["layers"], i), h, cos, sin)
+    auxes = []
+    if cfg.family in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            h, aux = _dense_block(cfg, layer_params(params["layers"], i), h, cos, sin)
+            auxes.append(aux)
+    elif cfg.family == "rwkv6":
+        for i in range(cfg.n_layers):
+            h = _rwkv_block(cfg, layer_params(params["layers"], i), h)
+    else:  # hybrid
+        for i in range(stack_depth(params["superblocks"])):
+            lp = layer_params(params["superblocks"], i)
+            h = _hybrid_block(cfg, lp["rec1"], h, cos, sin, "rec")
+            h = _hybrid_block(cfg, lp["rec2"], h, cos, sin, "rec")
+            h = _hybrid_block(cfg, lp["attn"], h, cos, sin, "attn")
+        for i in range(stack_depth(params.get("tail"))):
+            h = _hybrid_block(cfg, layer_params(params["tail"], i), h, cos, sin, "rec")
     h = rms_norm(h, params["out_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", h, params["unembed"])
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    aux_total = torch.stack(auxes).sum() if auxes else torch.zeros(
+        (), dtype=torch.float32, device=h.device)
+    return logits, aux_total

@@ -354,7 +354,11 @@ def test_torch_serve_lm_example_on_cpu_with_jax_blocked():
         env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert "granite_3_2b" in out.stdout and out.stdout.strip().endswith("OK")
+    for arch, family in (("granite_3_2b", "dense"), ("mixtral_8x7b", "moe"),
+                         ("rwkv6_7b", "rwkv6"), ("recurrentgemma_2b", "hybrid")):
+        assert any(ln.startswith(arch) and f"family={family}" in ln
+                   for ln in out.stdout.splitlines()), arch
+    assert out.stdout.strip().endswith("OK")
 
 
 def test_torch_serve_lm_example_without_device_raises_without_cuda():

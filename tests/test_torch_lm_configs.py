@@ -1,7 +1,8 @@
 """The port's LM configs and parameter trees against the JAX package's: the
-four dense configs field for field, the registry, the full-size parameter
-specs leaf for leaf (no allocation), the per-leaf init scale, and the
-checks of ``convert.lm_params_from_numpy``."""
+four dense and the four MoE / RWKV-6 / hybrid configs field for field, the
+registry, the full-size parameter specs leaf for leaf (no allocation), the
+per-leaf init scale, and ``convert.lm_params_from_numpy`` (its checks, and
+each family's REDUCED tree carried over from JAX's ``init_params``)."""
 import dataclasses
 
 import jax
@@ -20,8 +21,9 @@ from repro_torch.models import common as TC
 from repro_torch.models.lm import ModelConfig
 
 DENSE = ["granite_3_2b", "phi3_mini_3_8b", "qwen3_32b", "mistral_large_123b"]
-LATER = ["rwkv6_7b", "deepseek_moe_16b", "mixtral_8x7b", "seamless_m4t_large_v2",
-         "recurrentgemma_2b", "llava_next_mistral_7b"]
+FAMILIES = ["deepseek_moe_16b", "mixtral_8x7b", "rwkv6_7b", "recurrentgemma_2b"]
+PORTED = DENSE + FAMILIES
+LATER = ["seamless_m4t_large_v2", "llava_next_mistral_7b"]
 
 
 def _jax_specs(cfg):
@@ -45,6 +47,25 @@ def test_dense_configs_equal_jax(arch):
         JCFG.get_reduced(arch))
 
 
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_moe_and_recurrent_configs_equal_jax(arch):
+    for which in ("MODEL", "REDUCED"):
+        j = getattr(__import__(f"repro.configs.{arch}", fromlist=[which]), which)
+        t = getattr(__import__(f"repro_torch.configs.{arch}", fromlist=[which]), which)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+        for prop in ("hd", "padded_vocab", "sub_quadratic"):
+            assert getattr(t, prop) == getattr(j, prop)
+        if t.moe is not None:
+            assert type(t.moe).__module__ == "repro_torch.models.moe"
+            assert [f.name for f in dataclasses.fields(t.moe)] == [
+                f.name for f in dataclasses.fields(j.moe)]
+        for sub in ("rwkv_cfg", "rglru_cfg"):
+            assert dataclasses.asdict(getattr(t, sub)()) == dataclasses.asdict(getattr(j, sub)())
+        assert t.rwkv_cfg().head_dim == j.rwkv_cfg().head_dim
+    assert dataclasses.asdict(TCFG.get_config(arch)) == dataclasses.asdict(JCFG.get_config(arch))
+
+
 def test_registry_equal_jax():
     assert TCFG.ARCH_IDS == JCFG.ARCH_IDS
     assert {k: dataclasses.asdict(v) for k, v in TCFG.SHAPES.items()} == {
@@ -53,7 +74,7 @@ def test_registry_equal_jax():
     assert TCFG.canonical("granite-3.2b") == JCFG.canonical("granite-3.2b")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_full_size_param_specs_equal_jax(arch):
     cfg = TCFG.get_config(arch)
     jspecs = _jax_specs(JCFG.get_config(arch))
@@ -70,13 +91,35 @@ def test_full_size_param_specs_equal_jax(arch):
     n = cfg.param_count(meta)
     assert n == cfg.param_count(param_specs(cfg)) == sum(
         int(np.prod(s.shape)) for s in jspecs.values())
-    if arch == "granite_3_2b":
-        assert n == 2_642_577_408
+    if arch in FULL_PARAMS:
+        assert n == FULL_PARAMS[arch]
 
 
-@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_32b"])
+# the full-size parameter counts (the float32 bytes are four times these)
+FULL_PARAMS = {
+    "granite_3_2b": 2_642_577_408,
+    "deepseek_moe_16b": 16_879_568_896,
+    "mixtral_8x7b": 46_709_084_160,
+    "rwkv6_7b": 7_534_546_944,
+    "recurrentgemma_2b": 3_549_841_920,
+}
+
+
+def test_hybrid_specs_split_superblocks_and_tail():
+    specs = param_specs(TCFG.get_config("recurrentgemma_2b"))
+    assert set(specs) == {"embed", "unembed", "out_norm", "superblocks", "tail"}
+    assert specs["superblocks"]["rec1"]["temporal"]["gate_a"].shape == (8, 2560, 2560)
+    assert specs["superblocks"]["attn"]["temporal"]["wk"].shape == (8, 2560, 1, 256)
+    assert specs["tail"]["temporal"]["w_out"].shape == (2, 2560, 2560)
+    even = param_specs(dataclasses.replace(TCFG.get_reduced("recurrentgemma_2b"), n_layers=6))
+    assert "tail" not in even
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_32b", "deepseek_moe_16b",
+                                  "rwkv6_7b", "recurrentgemma_2b"])
 def test_init_params_std_follows_the_jax_rule(arch):
-    # fan_in = shape[0]: the layer count for the stacked layer weights
+    # fan_in = shape[0]: the layer count for the stacked layer weights (the
+    # superblock count for the hybrid's: one here)
     cfg = dataclasses.replace(TCFG.get_reduced(arch), n_layers=3)
     specs = param_specs(cfg)
     params = init_params(specs, torch.Generator().manual_seed(0), device="cpu")
@@ -153,7 +196,20 @@ def test_unknown_arch_and_family():
         param_specs(cfg)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_lm_params_from_numpy_carries_each_family(arch):
+    cfg = TCFG.get_reduced(arch)
+    tree = _jax_tree(JCFG.get_reduced(arch))
+    params = lm_params_from_numpy(cfg, tree, device="cpu")
+    got, want = TC.tree_paths(params), TC.tree_paths(tree)
+    assert got.keys() == want.keys() == TC.tree_paths(param_specs(cfg)).keys()
+    for path, a in want.items():
+        assert np.array_equal(got[path].numpy(), a) and got[path].dtype == torch.float32, path
+    with pytest.raises(ValueError, match="missing"):  # another family's tree
+        lm_params_from_numpy(dataclasses.replace(cfg, family="dense"), tree, device="cpu")
+
+
+@pytest.mark.parametrize("arch", PORTED)
 def test_make_train_batch_tokens_equal_jax(arch):
     from repro.launch.inputs import make_train_batch, token_split
 

@@ -14,6 +14,11 @@ and the JAX float32 cache itself is up to 1.4 times the elementwise
 ``atol = 1e-4`` away from a float64 evaluation of the same model, so
 elementwise ``atol = 1e-4`` sits below the reference's own rounding.
 Greedy tokens are equal wherever JAX's top-2 margin exceeds 1e-3.
+
+The serving entry points (``launch.serve``'s ``serve()`` and CLI) are
+driven here for every ported family; the MoE, RWKV-6 and hybrid models
+are held to JAX in ``tests/test_torch_lm_moe.py`` and
+``tests/test_torch_lm_recurrent.py``.
 """
 import dataclasses
 
@@ -204,6 +209,62 @@ def test_serve_cli_on_cpu(capsys):
     cfg = get_reduced("granite_3_2b")
     assert res["cache_bytes"] == 2 * 2 * 4 * 70 * 2 * 16 * 4
     assert res["param_bytes"] == 4 * cfg.param_count(param_specs(cfg))
+
+
+# arch -> (family, the reduced cache's bytes at batch 4 and max_len 70)
+SERVED = {
+    "deepseek_moe_16b": ("moe", 2 * 2 * 4 * 70 * 4 * 16 * 4),
+    "mixtral_8x7b": ("moe", 2 * 2 * 4 * 32 * 2 * 16 * 4),  # the window's ring
+    "rwkv6_7b": ("rwkv6", 2 * 4 * (2 * 64 + 4 * 16 * 16) * 4),
+    "recurrentgemma_2b": ("hybrid", 4 * ((2 + 2) * (3 * 64 + 64) + 2 * 32 * 16) * 4),
+}
+
+
+@pytest.mark.parametrize("arch", list(SERVED))
+def test_serve_cli_on_cpu_each_family(capsys, arch):
+    family, cache_bytes = SERVED[arch]
+    res = serve_mod.main(["--arch", arch, "--device", "cpu", "--new-tokens", "6"])
+    out = capsys.readouterr().out.splitlines()
+    cfg = get_reduced(arch)
+    assert out[0].startswith(f"[serve] arch={cfg.name} family={family} batch=4")
+    assert out[1].startswith("[serve] prefill ") and out[1].endswith(" ms/token")
+    assert res["family"] == family and res["tokens"].shape == (4, 6) and res["logits_finite"]
+    assert ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab_size)).all()
+    assert len(res["decode_ms"]) == 5
+    assert res["cache_bytes"] == cache_bytes
+    assert res["param_bytes"] == 4 * cfg.param_count(param_specs(cfg))
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "rwkv6_7b", "recurrentgemma_2b"])
+def test_serve_loop_of_each_family_matches_a_hand_driven_one(arch):
+    cfg = get_reduced(arch)
+    res = serve_mod.serve(cfg, batch=2, prompt_len=16, new_tokens=5, device="cpu", seed=4)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(4), device="cpu")
+    batch = make_train_batch(cfg, batch=2, seq_len=16, seed=4, device="cpu")
+    logits, cache, pos = prefill(cfg, params, batch, max_len=21)
+    toks = [logits[:, :cfg.vocab_size].argmax(-1)]
+    for i in range(4):
+        logits, cache = decode_step(cfg, params, cache, pos + i, toks[-1])
+        toks.append(logits[:, :cfg.vocab_size].argmax(-1))
+    assert torch.equal(res["tokens"], torch.stack(toks, 1))
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "rwkv6_7b", "recurrentgemma_2b"])
+def test_init_decode_cache_matches_prefill_each_family(arch):
+    cfg = get_reduced(arch)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+    batch = make_train_batch(cfg, batch=B, seq_len=24, seed=3, device="cpu")
+    _, cache, _ = prefill(cfg, params, batch, max_len=40)
+    blank = init_decode_cache(cfg, B, 40, device="cpu")
+    assert tree_paths(cache).keys() == tree_paths(blank).keys()
+    for path, leaf in tree_paths(cache).items():
+        other = tree_paths(blank)[path]
+        assert leaf.shape == other.shape and leaf.dtype == other.dtype, path
+        assert not other.any()
+    wide = init_decode_cache(cfg, B, 40, dtype=torch.float64, device="cpu")
+    for path, leaf in tree_paths(wide).items():  # the recurrent states stay float32
+        want = torch.float32 if path[-1] in ("wkv", "h") else torch.float64
+        assert leaf.dtype == want, path
 
 
 def test_serve_greedy_loop_matches_a_hand_driven_one():
