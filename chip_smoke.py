@@ -167,6 +167,26 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              ms beside their bounds (deepseek's decode: the all-expert
              einsums' read and the experts one step's routing reaches),
              peak memory, a profiled window of 8 decode steps
+  lm_frontends  the encoder-decoder family and the frontend stubs the same
+             way, one model at a time at full width and depth through
+             serve(): seamless-m4t-large-v2 (24 encoder layers over the
+             16 projected audio frames of a 64-token prompt, 24 decoder
+             layers with cross-attention, vocab 256,206 padded to 258,048;
+             2.04B parameters, 8.16 GB) and llava-next-mistral-7b (32
+             layers, 32 projected patches ahead of 32 tokens; 7.26B, 29.06
+             GB). Decode at position 64 against a fresh prefill over the
+             same frames or patches and the tokens with that token appended;
+             the card against the CPU on the cut (2 layers; seamless's 2
+             encoder and 2 decoder layers). Bounds count what each step
+             reads: a decode step neither the encoder, nor frontend_proj,
+             nor the cross-attention's wk / wv (it reads their cached k / v).
+             Then llava at the published anyres size, batch 1 and 5,760
+             positions (2,880 patches, 2,880 tokens): a first prefill, 3
+             warm (median), 4 greedy decode steps, the first against a
+             fresh prefill of 5,761 positions; its attention chunk is the
+             largest divisor of the positions up to attn_kv_chunk (960 and
+             823: the chunked attention takes whole chunks, in JAX as
+             well). Prefill ms beside its bound, peak memory
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
              of 20; the range kernels: the launches over the bulk order cut
              at each superstep, the same function as one full launch), plain version on the card (SpTRSV once, SpMV median of
@@ -266,6 +286,10 @@ LM_CHECK_LAYERS, LM_CHECK_STEPS = 2, 4  # the card against the CPU
 LM_PROFILE_STEPS = 8
 # the lm_families phase: one model of each other family at full width, in turn
 LM_FAMILIES = ("deepseek_moe_16b", "rwkv6_7b", "recurrentgemma_2b")
+# the lm_frontends phase: the encoder-decoder family and the vision frontend,
+# then llava at the published anyres size (batch 1; 2,880 patches, 2,880 tokens)
+LM_FRONTENDS = ("seamless_m4t_large_v2", "llava_next_mistral_7b")
+ANYRES_ARCH, ANYRES_BATCH, ANYRES_STEPS = "llava_next_mistral_7b", 1, 4
 MOE_NEAR_TIE = 1e-5  # a token's K-th and (K+1)-th router probabilities this close
 # the runtime calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -1450,15 +1474,15 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
 def first_layers_specs(cfg, cut):
     """``param_specs(cut)``, ``cut`` being ``cfg`` with fewer layers, each
     stacked leaf keeping the std ``init_params`` gives it in ``cfg``'s whole
-    stack (its ``fan_in`` is the stack's depth: ``n_layers``, or the
-    hybrid's superblock and tail counts)."""
+    stack (its ``fan_in`` is the stack's depth: ``n_layers``, the hybrid's
+    superblock and tail counts, or the encoder's and the decoder's)."""
     from repro_torch.models import param_specs
     from repro_torch.models.common import ParamSpec, tree_map
     from repro_torch.models.lm import stack_depth
 
     full, specs = param_specs(cfg), param_specs(cut)
     out = dict(specs)
-    for key in ("layers", "superblocks", "tail"):
+    for key in ("layers", "superblocks", "tail", "enc_layers", "dec_layers"):
         if key in specs:
             keep = (stack_depth(specs[key]) / stack_depth(full[key])) ** 0.5
             out[key] = tree_map(lambda s, keep=keep: ParamSpec(
@@ -1468,37 +1492,64 @@ def first_layers_specs(cfg, cut):
 
 def check_cut(cfg):
     """The card-against-CPU cut of ``cfg``: its first 2 layers, the
-    hybrid's first superblock and its 2 tail layers."""
+    hybrid's first superblock and its 2 tail layers, the encoder-decoder's
+    first 2 encoder and 2 decoder layers."""
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, n_dec_layers=LM_CHECK_LAYERS)
     return dataclasses.replace(cfg, n_layers=5 if cfg.family == "hybrid" else LM_CHECK_LAYERS)
 
 
 # the leaves that multiply the activations (every other one is elementwise)
 MATMUL_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router", "shared_gate",
                  "shared_up", "shared_down", "wr", "wg", "decay_a", "decay_b", "w_in_gate",
-                 "w_in_rnn", "gate_a", "gate_x", "w_out"}
+                 "w_in_rnn", "gate_a", "gate_x", "w_out", "frontend_proj"}
+
+
+def frame_side(path) -> bool:
+    """A leaf that works on the frontend's frames or patches alone: the
+    encoder, ``frontend_proj``, the cross-attention's k / v projections of
+    the encoder output. Prefill reads them; a decode step does not (the
+    cross caches hold what it needs)."""
+    return (path[0] in ("enc_layers", "enc_norm", "frontend_proj")
+            or (path[1:2] == ("cross_attn",) and path[-1] in ("wk", "wv")))
 
 
 def lm_work(cfg, batch, prompt, pos, experts=None) -> dict:
-    """What this run's data needs of a prefill (``pos`` None) or of a decode
-    step at ``pos``, float32. Bytes: every weight but the embedding read
-    once (of an MoE layer's routed experts, the ``experts[l]`` distinct
-    ones its routing reaches; all of them where ``experts`` is None), the
-    embedding rows of the tokens, the state the step reads (the KV it
-    attends to, the recurrent states) and writes, the logits. Operations:
-    two a multiply-add of the matmuls (an MoE token through its top K
-    experts and the shared ones), of the attention (the pairs the causal
-    window keeps), of the WKV state (three per state element a token) and
-    of the last position's unembedding; elementwise work left out."""
+    """What this run's data needs of a prefill (``pos`` None) over
+    ``make_train_batch(seq_len=prompt)`` or of a decode step at ``pos``,
+    float32. Bytes: every weight the step uses read once (not the
+    embedding; of an MoE layer's routed experts, the ``experts[l]``
+    distinct ones its routing reaches, all of them where ``experts`` is
+    None; a decode step reads no ``frame_side`` leaf), the embedding rows
+    of the tokens and the frontend's embeddings, the state the step reads
+    (the KV it attends to, the cross caches, the recurrent states) and
+    writes, the logits. Operations: two a multiply-add of the matmuls (an
+    MoE token through its top K experts and the shared ones; the frames
+    through the frame-side leaves), of the attention (the pairs the causal
+    window keeps; the encoder's every pair of frames; the cross-attention's
+    every pair of decoder position and frame), of the WKV state (three per
+    state element a token) and of the last position's unembedding;
+    elementwise work left out."""
+    from repro_torch.launch.inputs import token_split
     from repro_torch.models import param_specs
     from repro_torch.models.common import tree_paths
 
     D, V, B = cfg.d_model, cfg.padded_vocab, batch
+    frames = token_split(cfg, prompt)[0]
+    # the positions through the (decoder) layers: an encoder-decoder's
+    # prompt is its tokens, a frontend's positions come ahead of a decoder-only
+    # model's tokens
     tokens = B * prompt if pos is None else B
-    weight_bytes = per_token = 0
+    weight_bytes = per_token = per_frame = 0
     for path, s in tree_paths(param_specs(cfg)).items():
         n = math.prod(s.shape)
         if path[0] in ("embed", "unembed"):
             weight_bytes += 0 if path[0] == "embed" else n * 4
+            continue
+        if frame_side(path):
+            if pos is None:
+                weight_bytes += n * 4
+                per_frame += n if path[-1] in MATMUL_LEAVES else 0
             continue
         if path[1:2] == ("moe",) and path[-1] in ("w_gate", "w_up", "w_down"):
             E = cfg.moe.n_experts
@@ -1510,15 +1561,27 @@ def lm_work(cfg, batch, prompt, pos, experts=None) -> dict:
         if path[-1] in MATMUL_LEAVES:
             per_token += n
     n_super, n_tail = divmod(cfg.n_layers, 3)
-    attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers, "hybrid": n_super}.get(
-        cfg.family, 0)
+    n_dec = cfg.n_dec_layers or cfg.n_layers
+    attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers, "hybrid": n_super,
+                   "encdec": n_dec}.get(cfg.family, 0)
     window = cfg.local_window if cfg.family == "hybrid" else cfg.window
     span = (lambda t: t + 1) if window is None else (lambda t: min(t + 1, window))
     pairs = B * (sum(span(t) for t in range(prompt)) if pos is None else span(pos))
     kv_row = cfg.n_kv_heads * cfg.hd * 2 * 4  # one position's k and v of one layer
     state = attn_layers * (tokens * kv_row + (0 if pos is None else pairs * kv_row))
     ops = 2 * tokens * per_token + 2 * 2 * attn_layers * cfg.n_heads * cfg.hd * pairs
-    if cfg.family == "rwkv6":
+    embeds = tokens * D * 4  # the tokens' rows (and a decoder-only model's frontend's)
+    if pos is None and cfg.frontend:  # the frames through the frame-side leaves
+        ops += 2 * B * frames * per_frame
+        if cfg.family == "encdec":
+            embeds += B * frames * D * 4
+    if cfg.family == "encdec":
+        # the encoder's pairs (prefill) and the decoder positions against every
+        # frame; the cross caches written by prefill, read by a decode step
+        enc_pairs = cfg.n_layers * B * frames * frames if pos is None else 0
+        ops += 2 * 2 * cfg.n_heads * cfg.hd * (enc_pairs + n_dec * tokens * frames)
+        state += n_dec * B * frames * kv_row
+    elif cfg.family == "rwkv6":
         Dh = D // cfg.n_heads
         layer = B * (cfg.n_heads * Dh * Dh + 2 * D) * 4
         state += cfg.n_layers * layer * (1 if pos is None else 2)
@@ -1526,7 +1589,7 @@ def lm_work(cfg, batch, prompt, pos, experts=None) -> dict:
     elif cfg.family == "hybrid":
         R = cfg.d_rnn or D
         state += (2 * n_super + n_tail) * B * 4 * R * 4 * (1 if pos is None else 2)
-    nbytes = weight_bytes + tokens * D * 4 + state + B * V * 4
+    nbytes = weight_bytes + embeds + state + B * V * 4
     return bound(nbytes, ops + 2 * B * D * V)
 
 
@@ -1706,6 +1769,117 @@ def lm_families_phase(args, dev, cuda_times, card) -> list:
             for arch in LM_FAMILIES]
 
 
+def lm_frontends_phase(args, dev, cuda_times, card) -> list:
+    """The encoder-decoder family and the frontend stubs at full width, one
+    model at a time, then llava's anyres prefill (see the module
+    docstring); returns their records."""
+    recs = [lm_model_phase("lm_frontends", arch, args, dev, cuda_times, card)
+            for arch in LM_FRONTENDS]
+    return recs + [lm_anyres_run(args, dev, cuda_times, card)]
+
+
+def whole_chunks(cfg, positions):
+    """``cfg`` with the attention chunk the largest divisor of
+    ``positions`` up to its ``attn_kv_chunk``: the chunked attention takes
+    a key length that is a multiple of its chunk."""
+    chunk = max(c for c in range(1, min(cfg.attn_kv_chunk, positions) + 1)
+                if positions % c == 0)
+    return dataclasses.replace(cfg, attn_kv_chunk=chunk)
+
+
+def lm_anyres_run(args, dev, cuda_times, card) -> dict:
+    """llava-next at the published anyres size: batch 1, 2,880 patches
+    ahead of 2,880 tokens. A first prefill, 3 warm (median), 4 greedy
+    decode steps, the first against a fresh prefill over the same patches
+    and the tokens with its token appended; every logit finite; prefill
+    and decode ms beside their bounds, peak memory. Emits the record and
+    returns it."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.llava_next_mistral_7b import N_PATCHES as n_patches
+    from repro_torch.launch.inputs import make_train_batch, token_split
+    from repro_torch.models import decode_step, init_params, param_specs, prefill
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(ANYRES_ARCH)
+    S, B, V = 2 * n_patches, ANYRES_BATCH, cfg.vocab_size
+    patches, text = token_split(cfg, S)
+    require(patches == text == n_patches, f"anyres: token_split gives {(patches, text)}")
+    run_cfg, fresh_cfg = whole_chunks(cfg, S), whole_chunks(cfg, S + 1)
+    n_params = cfg.param_count(param_specs(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    require(free > 4 * n_params, f"anyres: {cfg.name} needs {4 * n_params} bytes, {free} free")
+    params = init_params(param_specs(cfg), torch.Generator(device=dev).manual_seed(args.seed),
+                         device=dev)
+    batch = make_train_batch(cfg, batch=B, seq_len=S, seed=args.seed, device=dev)
+    max_len = S + ANYRES_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    def run_prefill():
+        out["prefill"] = prefill(run_cfg, params, batch, max_len=max_len)
+
+    first_ms = cuda_times(run_prefill, 0, 1)[0]
+    warm = cuda_times(run_prefill, 0, 3)
+    logits, cache, pos = out.pop("prefill")
+    require(pos == S, f"anyres: prefill's position {pos} != {S}")
+    finite = bool(torch.isfinite(logits).all())
+    tok = logits[:, :V].argmax(-1)
+    first_tok, step_ms, steps = tok, [], []
+    for i in range(ANYRES_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        logits, cache = decode_step(run_cfg, params, cache, pos + i, tok)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        finite &= bool(torch.isfinite(logits).all())
+        if i == 0:
+            dec = logits.clone()
+        tok = logits[:, :V].argmax(-1)
+        steps.append(tok)
+    del cache
+    full = dict(batch, tokens=torch.cat([batch["tokens"], first_tok[:, None]], dim=1))
+    ref, ref_cache, ref_pos = prefill(fresh_cfg, params, full, max_len=S + 1)
+    del ref_cache
+    peak = torch.cuda.max_memory_allocated()
+    gap, scale = float((dec - ref).abs().max()), float(ref.abs().max())
+    require(finite and bool(torch.isfinite(ref).all()),
+            f"anyres: a logit of {cfg.name} is not finite")
+    require(ref_pos == S + 1 and gap <= LM_REL * scale,
+            f"anyres: decode at position {S} against a fresh prefill: max |gap| {gap} > "
+            f"{LM_REL} * {scale}")
+    del params, batch, full, ref, dec, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_ms, decode_ms = statistics.median(warm), statistics.median(step_ms)
+    pb, db = lm_work(cfg, B, S, None), lm_work(cfg, B, S, S + ANYRES_STEPS // 2)
+    rec = {"phase": "lm_frontends", "run": "anyres", "arch": cfg.name, "batch": B,
+           "seq_len": S, "patches": patches, "text_tokens": text, "dtype": "float32",
+           "seed": args.seed, "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "attn_kv_chunk": run_cfg.attn_kv_chunk,
+           "fresh_prefill_attn_kv_chunk": fresh_cfg.attn_kv_chunk,
+           "prefill_ms_first": first_ms, "prefill_ms": prefill_ms, "prefill_ms_runs": warm,
+           "prefill_bound_ms": pb["bound_us"] / 1e3, "prefill_bound_by": pb["bound_by"],
+           "prefill_bound_share": pb["bound_us"] / 1e3 / prefill_ms,
+           "prefill_ops": pb["ops"], "prefill_bytes": pb["bytes"],
+           "decode_ms": step_ms, "decode_ms_per_token": decode_ms,
+           "decode_bound_ms": db["bound_us"] / 1e3, "decode_bound_by": db["bound_by"],
+           "decode_bytes": db["bytes"],
+           "decode_vs_prefill": {"pos": S, "max_abs_gap": gap, "max_abs_logit": scale,
+                                 "rel_gap": gap / scale, "bound": LM_REL},
+           "logits_finite": finite, "tokens": [t.tolist() for t in steps],
+           "max_memory_allocated": peak, "card_free_bytes_before": free,
+           "phase_s": time.perf_counter() - t_phase, **card}
+    emit(rec)
+    return rec
+
+
 def lm_model_phase(phase, arch, args, dev, cuda_times, card) -> dict:
     """One model at full width and depth on the card: ``serve()``, then
     decode against a fresh prefill (or, for the MoE family, each layer's
@@ -1717,7 +1891,7 @@ def lm_model_phase(phase, arch, args, dev, cuda_times, card) -> dict:
     import torch
 
     from repro_torch import configs
-    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.launch.inputs import make_train_batch, token_split
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step, init_params, param_specs, prefill
 
@@ -1776,7 +1950,8 @@ def lm_model_phase(phase, arch, args, dev, cuda_times, card) -> dict:
                  "prefill_dropped": sum(r["dropped"] for r in prefill_routing),
                  "decode_dropped": sum(r["dropped"] for r in decode_routing)}
     else:
-        full = {"tokens": torch.cat([batch["tokens"], t[:, None]], dim=1)}
+        # the same frames or patches, the prompt's tokens and the new one
+        full = dict(batch, tokens=torch.cat([batch["tokens"], t[:, None]], dim=1))
         ref, _, _ = prefill(cfg, params, full, max_len=P + 1)
         gap, scale = float((dec - ref).abs().max()), float(ref.abs().max())
         check = {"pos": pos, "max_abs_gap": gap, "max_abs_logit": scale,
@@ -1826,7 +2001,10 @@ def lm_model_phase(phase, arch, args, dev, cuda_times, card) -> dict:
     card_vs_cpu = lm_card_vs_cpu(cfg, args.seed, dev)
     room()
 
+    frames, text = token_split(cfg, P)
     rec = {"phase": phase, "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "n_dec_layers": cfg.n_dec_layers, "frontend": cfg.frontend,
+           "frontend_positions": frames, "text_positions": text,
            "d_model": cfg.d_model, "padded_vocab": cfg.padded_vocab, "batch": B,
            "prompt": P, "new_tokens": N, "dtype": "float32", "seed": args.seed,
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -2264,6 +2442,9 @@ def main() -> int:
 
     # --------------------------------------------------- lm_families
     lm_families_phase(args, dev, cuda_times, card)
+
+    # -------------------------------------------------- lm_frontends
+    lm_frontends_phase(args, dev, cuda_times, card)
 
     # --------------------------------------------------------- timing
     def graph_ms(fn, reps):

@@ -9,11 +9,12 @@ Shapes (assigned to every LM arch):
   decode_32k   kv 32768,   global batch 128  (decode_step)
   long_500k    kv 524288,  global batch 1    (decode_step; sub-quadratic only)
 
-The port runs the dense family (granite_3_2b, phi3_mini_3_8b, qwen3_32b,
-mistral_large_123b), the MoE family (deepseek_moe_16b, mixtral_8x7b),
-RWKV-6 (rwkv6_7b) and the RG-LRU hybrid (recurrentgemma_2b). Asking for
-seamless_m4t_large_v2 or llava_next_mistral_7b raises
-``NotImplementedError`` naming the slice of the port that brings it.
+The port serves every one of them: the dense family (granite_3_2b,
+phi3_mini_3_8b, qwen3_32b, mistral_large_123b, and llava_next_mistral_7b
+with its vision frontend stub), the MoE family (deepseek_moe_16b,
+mixtral_8x7b), RWKV-6 (rwkv6_7b), the RG-LRU hybrid (recurrentgemma_2b)
+and the encoder-decoder family with its audio frontend stub
+(seamless_m4t_large_v2).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.models.lm import LATER_FAMILIES, LATER_FRONTEND, ModelConfig
+from repro_torch.models.lm import ModelConfig
 
 ARCH_IDS = [
     "granite_3_2b",
@@ -35,12 +36,6 @@ ARCH_IDS = [
     "recurrentgemma_2b",
     "llava_next_mistral_7b",
 ]
-
-# arch -> the slice of the port that brings its config
-_LATER = {
-    "seamless_m4t_large_v2": LATER_FAMILIES["encdec"],
-    "llava_next_mistral_7b": LATER_FRONTEND,
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +63,7 @@ def canonical(arch: str) -> str:
 
 
 def _module(arch: str):
-    name = canonical(arch)
-    if name in _LATER:
-        raise NotImplementedError(f"{name} is not ported yet: it comes with {_LATER[name]}")
-    return importlib.import_module(f"repro_torch.configs.{name}")
+    return importlib.import_module(f"repro_torch.configs.{canonical(arch)}")
 
 
 def get_config(arch: str) -> ModelConfig:

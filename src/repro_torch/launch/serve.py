@@ -1,6 +1,7 @@
 """Serving launcher for the LM stack: prefill a batch of prompts, then
 decode N tokens greedily through the stacked decode cache (KV for
-attention, the recurrent state for RWKV-6 and the RG-LRU hybrid).
+attention, the recurrent state for RWKV-6 and the RG-LRU hybrid, and the
+encoder-decoder family's cross-attention k / v of the encoded frames).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
         [--reduced | --full] [--batch 4] [--prompt-len 64] [--new-tokens 32] \\
@@ -10,7 +11,8 @@ It serves on the card unless ``--device cpu`` is given, and raises where
 CUDA is missing rather than falling back. ``--reduced`` (the default) is
 the config's small twin; ``--full`` the published widths and depth.
 Parameters are float32, drawn from ``--seed``; the prompts are the seed's
-``make_train_batch`` tokens, as in the JAX launcher.
+``make_train_batch`` tokens (with its frame or patch embeddings where the
+config has a frontend), as in the JAX launcher.
 """
 from __future__ import annotations
 

@@ -1,5 +1,4 @@
-"""Prefill + single-token decode for the dense, MoE, RWKV-6 and hybrid
-families.
+"""Prefill + single-token decode for every model family.
 
 Cache layouts (stacked over the layer dimension):
   dense/moe : {"k","v": [L, B, C, Hkv, Dh]}   C = min(max_len, window)
@@ -10,6 +9,9 @@ Cache layouts (stacked over the layer dimension):
                "tail": {"conv": [Tl,B,3,R], "h": [Tl,B,R] float32}}
                W = local_window whatever max_len is; "tail" only when the
                depth is not a multiple of 3
+  encdec    : {"k","v": [Ld,B,C,Hkv,Dh]} the decoder's self-attention,
+               {"xk","xv": [Ld,B,T_enc,Hkv,Dh]} the cross-attention's k / v
+               of the encoder output, made once by prefill
 
 Sliding-window caches are ring buffers (slot = pos % window). ``prefill``
 allocates the stacked cache once and fills layer by layer; ``decode_step``
@@ -18,6 +20,10 @@ place, so nothing is concatenated or copied whole per step.
 
 MoE routing keeps JAX's groups: prefill routes each sequence as a group,
 decode the batch's B tokens as one group (capacity depends on the group).
+A frontend's embeddings (``frontend_embeds``) come ahead of the prompt's
+tokens in a decoder-only model, so its prefill returns the position after
+both; the encoder-decoder family encodes them, and its position counts
+the decoder's tokens alone.
 """
 from __future__ import annotations
 
@@ -33,14 +39,15 @@ from repro_torch.models.attention import (
     apply_rope,
     check_position,
     decode_attention,
+    multi_head_attention,
 )
 from repro_torch.models.common import rms_norm, swiglu
 from repro_torch.models.lm import (
     ModelConfig,
     _embed_inputs,
     _embed_tokens,
+    _encode,
     _rope_tables,
-    check_ported,
     layer_params,
     stack_depth,
 )
@@ -252,6 +259,66 @@ def _hybrid_decode(cfg: ModelConfig, params, cache, pos, token):
 
 
 # ---------------------------------------------------------------------------
+# encdec (seamless)
+# ---------------------------------------------------------------------------
+def _encdec_prefill(cfg: ModelConfig, params, batch, max_len: int):
+    enc_h = _encode(cfg, params, batch["frontend_embeds"])
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    B, S, _ = h.shape
+    cos, sin = _rope_tables(cfg, torch.arange(S, device=h.device))
+    C = _cache_len(cfg, max_len)
+    cache = init_decode_cache(cfg, B, max_len, enc_len=enc_h.shape[1], dtype=h.dtype,
+                              device=h.device)
+    for i in range(stack_depth(params["dec_layers"])):
+        lp = layer_params(params["dec_layers"], i)
+        a, kc, vc = _attn_prefill(
+            lp["self_attn"], cfg.attn_cfg(), rms_norm(h, lp["ln1"], cfg.norm_eps),
+            cos, sin, C, cfg.attn_kv_chunk,
+        )
+        cache["k"][i] = kc
+        cache["v"][i] = vc
+        h = h + a
+        # cross-attention, and the encoder projections it reads kept for decode
+        cache["xk"][i] = torch.einsum("btd,dhk->bthk", enc_h, lp["cross_attn"]["wk"])
+        cache["xv"][i] = torch.einsum("btd,dhk->bthk", enc_h, lp["cross_attn"]["wv"])
+        h = h + multi_head_attention(
+            lp["cross_attn"], cfg.attn_cfg(causal=False), rms_norm(h, lp["ln2"], cfg.norm_eps),
+            kv_source=enc_h, kv_chunk=cfg.attn_kv_chunk,
+        )
+        h = h + swiglu(rms_norm(h, lp["ln3"], cfg.norm_eps), lp["mlp"]["w_gate"],
+                       lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+    return _last_logits(cfg, params, h[:, -1]), cache, S
+
+
+def _encdec_decode(cfg: ModelConfig, params, cache, pos, token):
+    h = _embed_tokens(cfg, params, token[:, None])
+    check_position(pos, cfg.window, cache["k"].shape[2])
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
+    cos, sin = _rope_tables(cfg, pos[None])
+    acfg = cfg.attn_cfg(causal=False)
+    for i in range(stack_depth(params["dec_layers"])):
+        lp = layer_params(params["dec_layers"], i)
+        kv = {"k": cache["k"][i], "v": cache["v"][i]}  # views: written in place
+        a, _ = decode_attention(
+            lp["self_attn"], cfg.attn_cfg(), rms_norm(h, lp["ln1"], cfg.norm_eps),
+            kv, pos, rope_cos=cos, rope_sin=sin,
+        )
+        h = h + a
+        # cross-attention against the encoder projections prefill cached
+        q = torch.einsum("bsd,dhk->bshk", rms_norm(h, lp["ln2"], cfg.norm_eps),
+                         lp["cross_attn"]["wq"])
+        kk = _expand_kv(cache["xk"][i], acfg.n_heads)
+        vv = _expand_kv(cache["xv"][i], acfg.n_heads)
+        logits = torch.einsum("bshk,bthk->bhst", q, kk) * (acfg.head_dim ** -0.5)
+        probs = torch.softmax(logits.float(), dim=-1).to(h.dtype)
+        c = torch.einsum("bhst,bthk->bshk", probs, vv)
+        h = h + torch.einsum("bshk,hkd->bsd", c, lp["cross_attn"]["wo"])
+        h = h + swiglu(rms_norm(h, lp["ln3"], cfg.norm_eps), lp["mlp"]["w_gate"],
+                       lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+    return _last_logits(cfg, params, h[:, 0]), cache
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 _PREFILL = {
@@ -259,25 +326,25 @@ _PREFILL = {
     "moe": _dense_prefill,
     "rwkv6": _rwkv_prefill,
     "hybrid": _hybrid_prefill,
+    "encdec": _encdec_prefill,
 }
 _DECODE = {
     "dense": _dense_decode,
     "moe": _dense_decode,
     "rwkv6": _rwkv_decode,
     "hybrid": _hybrid_decode,
+    "encdec": _encdec_decode,
 }
 
 
 def prefill(cfg: ModelConfig, params, batch, *, max_len: int):
     """Process the full prompt; returns (last-token logits, cache, pos)."""
-    check_ported(cfg)
     return _PREFILL[cfg.family](cfg, params, batch, max_len)
 
 
 def decode_step(cfg: ModelConfig, params, cache, pos, token):
     """One token for the whole batch; returns (logits [B,Vpad], cache), the
     cache updated in place."""
-    check_ported(cfg)
     return _DECODE[cfg.family](cfg, params, cache, pos, token)
 
 
@@ -287,9 +354,8 @@ def init_decode_cache(
 ) -> Pytree:
     """Zero-initialized cache with the right (stacked) structure; the
     recurrent states (``wkv``, ``h``) are float32 whatever ``dtype`` is.
-    ``enc_len`` sizes the encoder-decoder family's cross caches, which come
-    with its slice."""
-    check_ported(cfg)
+    ``enc_len`` sizes the encoder-decoder family's cross caches (the
+    encoder's frame count)."""
     dev = resolve_device(device)
     B, Hkv, Dh = batch, cfg.n_kv_heads, cfg.hd
 
@@ -304,6 +370,13 @@ def init_decode_cache(
         return {"shift_tm": zeros(L, B, 1, D), "wkv": zeros(L, B, H, D // H, D // H,
                                                              dt=torch.float32),
                 "shift_cm": zeros(L, B, 1, D)}
+    if cfg.family == "encdec":
+        Ld = cfg.n_dec_layers or cfg.n_layers
+        self_kv, cross_kv = (Ld, B, _cache_len(cfg, max_len), Hkv, Dh), (Ld, B, enc_len, Hkv, Dh)
+        return {"k": zeros(*self_kv), "v": zeros(*self_kv),
+                "xk": zeros(*cross_kv), "xv": zeros(*cross_kv)}
+    if cfg.family != "hybrid":
+        raise ValueError(cfg.family)
     n_super, n_tail = divmod(cfg.n_layers, 3)
     R, W = cfg.d_rnn or cfg.d_model, cfg.local_window
 

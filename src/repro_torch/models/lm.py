@@ -1,5 +1,5 @@
 """The composable LM: one ModelConfig covers the ten architectures of the
-JAX package; the port runs the dense, MoE, RWKV-6 and hybrid families.
+JAX package, and the port runs all five families.
 
 Families:
   dense   — decoder-only transformer, GQA (+ optional SWA window, qk-norm)
@@ -9,13 +9,15 @@ Families:
   encdec  — seamless: bidirectional encoder + causal decoder w/ cross-attn
 
 ``ModelConfig`` carries every field of every family, so a config compares
-field for field with the JAX package's. ``param_specs`` and ``forward``
-take the four decoder-only families without a modality frontend; the
-encoder-decoder family and the frontends raise ``NotImplementedError``
-naming the slice of the port that brings them. Layers are stacked on a
-leading dimension, as in the JAX package (the hybrid's in ``superblocks``
-of (rec, rec, local-attn) and a recurrent ``tail``), and a Python loop
-over layers takes the place of ``lax.scan``. The JAX package's
+field for field with the JAX package's. The modality frontends
+([audio]/[vlm]) are stubs, as in the JAX package: the batch carries
+precomputed frame / patch embeddings (``frontend_embeds``), projected by
+``frontend_proj``; a decoder-only model prepends them to the token
+embeddings, the encoder-decoder family encodes them. Layers are stacked
+on a leading dimension, as in the JAX package (the hybrid's in
+``superblocks`` of (rec, rec, local-attn) and a recurrent ``tail``; the
+encoder-decoder's in ``enc_layers`` and ``dec_layers``), and a Python
+loop over layers takes the place of ``lax.scan``. The JAX package's
 ``sharding_ctx.constrain`` is a no-op outside a mesh context; on one card
 there is none, so the port drops those calls.
 """
@@ -34,32 +36,6 @@ from repro_torch.models.rglru import RGLRUConfig, rglru_block, rglru_param_specs
 from repro_torch.models.rwkv6 import RWKVConfig, channel_mix, rwkv_param_specs, time_mix
 
 Pytree = Any
-
-PORTED_FAMILIES = ("dense", "moe", "rwkv6", "hybrid")
-# the family and the frontends still to come, and the slice of the port
-# that brings them
-LATER_FAMILIES = {"encdec": "the encoder-decoder slice (with the frontend stubs)"}
-LATER_FRONTEND = "the encoder-decoder slice (with the frontend stubs)"
-
-
-def _not_ported(cfg) -> NotImplementedError:
-    if cfg.family in LATER_FAMILIES:
-        what, slice_ = f"family {cfg.family!r}", LATER_FAMILIES[cfg.family]
-    else:
-        what, slice_ = f"frontend {cfg.frontend!r}", LATER_FRONTEND
-    return NotImplementedError(
-        f"{cfg.name}: the port runs the {', '.join(PORTED_FAMILIES)} families without a "
-        f"frontend; {what} comes with {slice_}"
-    )
-
-
-def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family or frontend not ported."""
-    if cfg.family in LATER_FAMILIES or (cfg.family in PORTED_FAMILIES and cfg.frontend):
-        raise _not_ported(cfg)
-    if cfg.family not in PORTED_FAMILIES:
-        raise ValueError(f"unknown family {cfg.family}")
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -190,7 +166,6 @@ def _stack(specs: Pytree, n: int) -> Pytree:
 
 
 def param_specs(cfg: ModelConfig) -> Pytree:
-    check_ported(cfg)
     V, D = cfg.padded_vocab, cfg.d_model
     specs: Dict[str, Any] = {
         "embed": ParamSpec((V, D), ("tp", "fsdp"), init="embed", scale=1.0),
@@ -203,13 +178,36 @@ def param_specs(cfg: ModelConfig) -> Pytree:
         specs["layers"] = _stack(_moe_layer_specs(cfg), cfg.n_layers)
     elif cfg.family == "rwkv6":
         specs["layers"] = _stack(_rwkv_layer_specs(cfg), cfg.n_layers)
-    else:  # hybrid
+    elif cfg.family == "hybrid":
         n_super, n_tail = divmod(cfg.n_layers, 3)
         specs["superblocks"] = _stack(_hybrid_superblock_specs(cfg), n_super)
         if n_tail:
             # tail layers are recurrent blocks (Griffin starts each triple
             # with recurrence; 26 = 8*3 + 2 leaves two rec blocks)
             specs["tail"] = _stack(_hybrid_superblock_specs(cfg)["rec1"], n_tail)
+    elif cfg.family == "encdec":
+        enc_layer = {
+            "attn": attn_param_specs(cfg.attn_cfg(causal=False)),
+            "mlp": _mlp_specs(cfg),
+            "ln1": _norm(cfg),
+            "ln2": _norm(cfg),
+        }
+        dec_layer = {
+            "self_attn": attn_param_specs(cfg.attn_cfg()),
+            "cross_attn": attn_param_specs(cfg.attn_cfg(causal=False)),
+            "mlp": _mlp_specs(cfg),
+            "ln1": _norm(cfg),
+            "ln2": _norm(cfg),
+            "ln3": _norm(cfg),
+        }
+        specs["enc_layers"] = _stack(enc_layer, cfg.n_layers)
+        specs["dec_layers"] = _stack(dec_layer, cfg.n_dec_layers or cfg.n_layers)
+        specs["enc_norm"] = _norm(cfg)
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    if cfg.frontend:
+        # stub projection for precomputed frame/patch embeddings
+        specs["frontend_proj"] = ParamSpec((D, D), ("fsdp", "tp"))
     return specs
 
 
@@ -292,19 +290,29 @@ def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tenso
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
 
 
+def _project_frontend(params, frontend_embeds: torch.Tensor) -> torch.Tensor:
+    """Frame / patch embeddings [B, P, D] through ``frontend_proj``, in the
+    parameters' dtype (not scaled by sqrt(d_model), unlike the tokens)."""
+    return torch.einsum("bpd,de->bpe", frontend_embeds.to(params["embed"].dtype),
+                        params["frontend_proj"])
+
+
 def _embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
-    """Token embeddings; a frontend's embeddings come with its slice
-    (``check_ported`` refuses such configs)."""
-    return _embed_tokens(cfg, params, batch["tokens"])
+    """Token embeddings, with frontend embeddings prepended when present."""
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend and "frontend_embeds" in batch:
+        h = torch.cat([_project_frontend(params, batch["frontend_embeds"]), h], dim=1)
+    return h
 
 
 def forward(cfg: ModelConfig, params, batch, *, train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits [B,S,Vpad], aux_loss)."""
-    check_ported(cfg)
     if train:
         raise NotImplementedError(
             "forward(train=True) (remat) comes with the port's training slice"
         )
+    if cfg.family == "encdec":
+        return _forward_encdec(cfg, params, batch)
     h = _embed_inputs(cfg, params, batch)
     S = h.shape[1]
     cos, sin = _rope_tables(cfg, torch.arange(S, device=h.device))
@@ -316,7 +324,7 @@ def forward(cfg: ModelConfig, params, batch, *, train: bool) -> Tuple[torch.Tens
     elif cfg.family == "rwkv6":
         for i in range(cfg.n_layers):
             h = _rwkv_block(cfg, layer_params(params["layers"], i), h)
-    else:  # hybrid
+    elif cfg.family == "hybrid":
         for i in range(stack_depth(params["superblocks"])):
             lp = layer_params(params["superblocks"], i)
             h = _hybrid_block(cfg, lp["rec1"], h, cos, sin, "rec")
@@ -324,8 +332,46 @@ def forward(cfg: ModelConfig, params, batch, *, train: bool) -> Tuple[torch.Tens
             h = _hybrid_block(cfg, lp["attn"], h, cos, sin, "attn")
         for i in range(stack_depth(params.get("tail"))):
             h = _hybrid_block(cfg, layer_params(params["tail"], i), h, cos, sin, "rec")
-    h = rms_norm(h, params["out_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", h, params["unembed"])
+    else:
+        raise ValueError(cfg.family)
     aux_total = torch.stack(auxes).sum() if auxes else torch.zeros(
         (), dtype=torch.float32, device=h.device)
-    return logits, aux_total
+    return _all_logits(cfg, params, h), aux_total
+
+
+def _all_logits(cfg: ModelConfig, params, h) -> torch.Tensor:
+    h = rms_norm(h, params["out_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", h, params["unembed"])
+
+
+def _encode(cfg: ModelConfig, params, frontend_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder-decoder family's encoder over the projected frames:
+    bidirectional attention with RoPE over the frame positions, then
+    ``enc_norm``; [B, T_enc, D]."""
+    h = _project_frontend(params, frontend_embeds)
+    cos, sin = _rope_tables(cfg, torch.arange(h.shape[1], device=h.device))
+    acfg = cfg.attn_cfg(causal=False)
+    for i in range(stack_depth(params["enc_layers"])):
+        lp = layer_params(params["enc_layers"], i)
+        h = h + multi_head_attention(lp["attn"], acfg, rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                     rope_cos=cos, rope_sin=sin, kv_chunk=cfg.attn_kv_chunk)
+        h = h + swiglu(rms_norm(h, lp["ln2"], cfg.norm_eps), lp["mlp"]["w_gate"],
+                       lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _forward_encdec(cfg: ModelConfig, params, batch):
+    enc_h = _encode(cfg, params, batch["frontend_embeds"])
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    cos, sin = _rope_tables(cfg, torch.arange(h.shape[1], device=h.device))
+    for i in range(stack_depth(params["dec_layers"])):
+        lp = layer_params(params["dec_layers"], i)
+        h = h + multi_head_attention(lp["self_attn"], cfg.attn_cfg(),
+                                     rms_norm(h, lp["ln1"], cfg.norm_eps), rope_cos=cos,
+                                     rope_sin=sin, kv_chunk=cfg.attn_kv_chunk)
+        h = h + multi_head_attention(lp["cross_attn"], cfg.attn_cfg(causal=False),
+                                     rms_norm(h, lp["ln2"], cfg.norm_eps), kv_source=enc_h,
+                                     kv_chunk=cfg.attn_kv_chunk)
+        h = h + swiglu(rms_norm(h, lp["ln3"], cfg.norm_eps), lp["mlp"]["w_gate"],
+                       lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+    return _all_logits(cfg, params, h), torch.zeros((), dtype=torch.float32, device=h.device)

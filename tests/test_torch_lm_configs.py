@@ -1,5 +1,6 @@
 """The port's LM configs and parameter trees against the JAX package's: the
-four dense and the four MoE / RWKV-6 / hybrid configs field for field, the
+four dense, the four MoE / RWKV-6 / hybrid and the two frontend
+(encoder-decoder seamless, vision llava) configs field for field, the
 registry, the full-size parameter specs leaf for leaf (no allocation), the
 per-leaf init scale, and ``convert.lm_params_from_numpy`` (its checks, and
 each family's REDUCED tree carried over from JAX's ``init_params``)."""
@@ -22,8 +23,8 @@ from repro_torch.models.lm import ModelConfig
 
 DENSE = ["granite_3_2b", "phi3_mini_3_8b", "qwen3_32b", "mistral_large_123b"]
 FAMILIES = ["deepseek_moe_16b", "mixtral_8x7b", "rwkv6_7b", "recurrentgemma_2b"]
-PORTED = DENSE + FAMILIES
-LATER = ["seamless_m4t_large_v2", "llava_next_mistral_7b"]
+FRONTENDS = ["seamless_m4t_large_v2", "llava_next_mistral_7b"]
+PORTED = DENSE + FAMILIES + FRONTENDS
 
 
 def _jax_specs(cfg):
@@ -66,6 +67,26 @@ def test_moe_and_recurrent_configs_equal_jax(arch):
     assert dataclasses.asdict(TCFG.get_config(arch)) == dataclasses.asdict(JCFG.get_config(arch))
 
 
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_frontend_configs_equal_jax(arch):
+    jmod = __import__(f"repro.configs.{arch}", fromlist=["MODEL"])
+    tmod = __import__(f"repro_torch.configs.{arch}", fromlist=["MODEL"])
+    for which in ("MODEL", "REDUCED"):
+        j, t = getattr(jmod, which), getattr(tmod, which)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+        for prop in ("hd", "padded_vocab", "sub_quadratic"):
+            assert getattr(t, prop) == getattr(j, prop)
+        for causal in (True, False):
+            assert dataclasses.asdict(t.attn_cfg(causal=causal)) == dataclasses.asdict(
+                j.attn_cfg(causal=causal))
+    assert getattr(tmod, "N_PATCHES", None) == getattr(jmod, "N_PATCHES", None)
+    assert dataclasses.asdict(TCFG.get_config(arch)) == dataclasses.asdict(JCFG.get_config(arch))
+    assert dataclasses.asdict(TCFG.get_reduced(arch)) == dataclasses.asdict(
+        JCFG.get_reduced(arch))
+    assert TCFG.get_config(arch.replace("_", "-")) == TCFG.get_config(arch)
+
+
 def test_registry_equal_jax():
     assert TCFG.ARCH_IDS == JCFG.ARCH_IDS
     assert {k: dataclasses.asdict(v) for k, v in TCFG.SHAPES.items()} == {
@@ -102,6 +123,8 @@ FULL_PARAMS = {
     "mixtral_8x7b": 46_709_084_160,
     "rwkv6_7b": 7_534_546_944,
     "recurrentgemma_2b": 3_549_841_920,
+    "seamless_m4t_large_v2": 2_039_605_248,
+    "llava_next_mistral_7b": 7_264_800_768,
 }
 
 
@@ -115,11 +138,26 @@ def test_hybrid_specs_split_superblocks_and_tail():
     assert "tail" not in even
 
 
+def test_frontend_specs_add_the_projection_and_the_encoder():
+    specs = param_specs(TCFG.get_config("seamless_m4t_large_v2"))
+    assert set(specs) == {"embed", "unembed", "out_norm", "enc_layers", "dec_layers",
+                          "enc_norm", "frontend_proj"}
+    assert specs["enc_layers"]["attn"]["wq"].shape == (24, 1024, 16, 64)
+    assert specs["dec_layers"]["cross_attn"]["wk"].shape == (24, 1024, 16, 64)
+    assert set(specs["dec_layers"]) == {"self_attn", "cross_attn", "mlp", "ln1", "ln2", "ln3"}
+    assert specs["frontend_proj"].shape == (1024, 1024)
+    llava = param_specs(TCFG.get_config("llava_next_mistral_7b"))
+    assert set(llava) == {"embed", "unembed", "out_norm", "layers", "frontend_proj"}
+    assert llava["frontend_proj"].shape == (4096, 4096)
+
+
 @pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_32b", "deepseek_moe_16b",
-                                  "rwkv6_7b", "recurrentgemma_2b"])
+                                  "rwkv6_7b", "recurrentgemma_2b", "seamless_m4t_large_v2",
+                                  "llava_next_mistral_7b"])
 def test_init_params_std_follows_the_jax_rule(arch):
     # fan_in = shape[0]: the layer count for the stacked layer weights (the
-    # superblock count for the hybrid's: one here)
+    # superblock count for the hybrid's: one here; seamless's encoder 3 and
+    # decoder 2 deep); d_model for frontend_proj
     cfg = dataclasses.replace(TCFG.get_reduced(arch), n_layers=3)
     specs = param_specs(cfg)
     params = init_params(specs, torch.Generator().manual_seed(0), device="cpu")
@@ -136,6 +174,9 @@ def test_init_params_std_follows_the_jax_rule(arch):
         assert abs(got / want - 1) < 5 / np.sqrt(2 * t.numel()), path
     if arch == "granite_3_2b":
         assert abs(float(params["layers"]["attn"]["wq"].std()) - 3 ** -0.5) < 0.02
+    if arch == "seamless_m4t_large_v2":
+        assert abs(float(params["enc_layers"]["attn"]["wq"].std()) - 3 ** -0.5) < 0.02
+        assert abs(float(params["dec_layers"]["cross_attn"]["wq"].std()) - 2 ** -0.5) < 0.02
     # the same seed, the same draws
     again = init_params(specs, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(TC.tree_leaves(params), TC.tree_leaves(again)))
@@ -174,20 +215,6 @@ def test_lm_params_from_numpy_copies_and_checks():
                              _jax_tree(JCFG.get_reduced("qwen3_32b")), device="cpu")
 
 
-@pytest.mark.parametrize("arch", LATER)
-def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="comes with"):
-        TCFG.get_config(arch)
-    with pytest.raises(NotImplementedError, match="comes with"):
-        TCFG.get_reduced(arch)
-    # a config of that family built by hand is refused by the model code too
-    jcfg = JCFG.get_reduced(arch)
-    cfg = ModelConfig(
-        **{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name != "moe"})
-    with pytest.raises(NotImplementedError, match="comes with"):
-        param_specs(cfg)
-
-
 def test_unknown_arch_and_family():
     with pytest.raises(ModuleNotFoundError):
         TCFG.get_config("no_such_arch")
@@ -196,7 +223,7 @@ def test_unknown_arch_and_family():
         param_specs(cfg)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + FRONTENDS)
 def test_lm_params_from_numpy_carries_each_family(arch):
     cfg = TCFG.get_reduced(arch)
     tree = _jax_tree(JCFG.get_reduced(arch))
@@ -205,8 +232,17 @@ def test_lm_params_from_numpy_carries_each_family(arch):
     assert got.keys() == want.keys() == TC.tree_paths(param_specs(cfg)).keys()
     for path, a in want.items():
         assert np.array_equal(got[path].numpy(), a) and got[path].dtype == torch.float32, path
-    with pytest.raises(ValueError, match="missing"):  # another family's tree
-        lm_params_from_numpy(dataclasses.replace(cfg, family="dense"), tree, device="cpu")
+    if cfg.family != "dense":
+        with pytest.raises(ValueError, match="missing"):  # another family's tree
+            lm_params_from_numpy(dataclasses.replace(cfg, family="dense"), tree, device="cpu")
+    if cfg.frontend:
+        # a tree without the frontend's projection, and one with it where the
+        # config has no frontend
+        bare = {k: v for k, v in tree.items() if k != "frontend_proj"}
+        with pytest.raises(ValueError, match="missing.*frontend_proj"):
+            lm_params_from_numpy(cfg, bare, device="cpu")
+        with pytest.raises(ValueError, match="extra.*frontend_proj"):
+            lm_params_from_numpy(dataclasses.replace(cfg, frontend=None), tree, device="cpu")
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -1,6 +1,8 @@
 """The LM stack's serving path on the card against the same on the CPU: the
-reduced configs of every ported family (dense, and a windowed granite;
-MoE deepseek and mixtral; RWKV-6 with its chunked WKV; the RG-LRU hybrid)
+reduced configs of every family (dense, and a windowed granite; MoE
+deepseek and mixtral; RWKV-6 with its chunked WKV; the RG-LRU hybrid; the
+encoder-decoder seamless and the vision-frontend llava, their frame and
+patch embeddings carried)
 through ``prefill``, eight teacher-forced ``decode_step``s and
 ``forward``, the parameters made on the CPU and carried to the card with
 ``convert.lm_params_from_numpy``; then ``launch.serve.serve`` on the card.
@@ -9,7 +11,11 @@ Tolerance (float32, TF32 off, torch's default for matmul): logits
 ``rtol = atol = 1e-4`` elementwise, cache leaves ``rtol = 1e-4``,
 ``atol = 1e-4 * max|leaf|`` (as ``tests/test_torch_lm_decode.py`` holds the
 port to JAX); greedy tokens equal where the CPU's top-2 margin exceeds
-1e-3. The hybrid adds twice the CPU's own spread between two float32
+1e-3. The encoder-decoder adds twice the CPU's own spread under one-ulp
+nudged parameters (its attention logits have std ~50 at this init, and
+near-ties across the encoder and the cross-attention move the reduced
+seamless's logits by ~1e-4 on such a nudge, as they move JAX's:
+``tests/_lm_parity.py``). The hybrid adds twice the CPU's own spread between two float32
 evaluations that differ only in the last bit of the RG-LRU's decay ``a``
 (the port's, rounded from float64, and torch's float32 exp): its
 ``sqrt(1 - a^2)`` with ``a`` a few ulps below 1 moves by up to 2^-12 with
@@ -21,7 +27,8 @@ adds no pass there). On the card run it with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_cuda.py
 
-``chip_smoke.py``'s ``lm_serve`` phase runs granite-3-2b at full width.
+``chip_smoke.py``'s ``lm_serve``, ``lm_families`` and ``lm_frontends``
+phases run one model of each family at full width.
 """
 import dataclasses
 
@@ -53,6 +60,9 @@ CASES = {
     "rwkv6": ("rwkv6_7b", None, 64),
     "rwkv6_chunked": ("rwkv6_7b", None, 32),
     "recurrentgemma": ("recurrentgemma_2b", None, 64),
+    "seamless": ("seamless_m4t_large_v2", None, 64),
+    "seamless_short": ("seamless_m4t_large_v2", None, 8),
+    "llava": ("llava_next_mistral_7b", None, 64),
 }
 
 
@@ -73,6 +83,14 @@ def _snapshot(logits, cache):
 
 def _float32_decay(log_a):
     return torch.exp(log_a.float())
+
+
+def _nudged(params, seed=0):
+    """Every parameter moved up by one ulp with probability 1/2."""
+    gen = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: torch.where(torch.rand(t.shape, generator=gen) < 0.5,
+                                          torch.nextafter(t, torch.tensor(float("inf"))), t),
+                    params)
 
 
 def _run(cfg, params, batch, S, tokens, dev):
@@ -106,10 +124,14 @@ def test_reduced_configs_on_the_card_match_the_cpu(cuda, name):
     ref, ref_fwd = _run(cfg, cpu_params, cpu_batch, S, tokens, torch.device("cpu"))
     got, got_fwd = _run(cfg, gpu_params, gpu_batch, S, tokens, cuda)
     spread = {"logits": 0.0, "forward": 0.0, **{k: 0.0 for k in ref[0][1]}}
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "encdec"):
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(rglru, "_decay", _float32_decay)
-            alt, alt_fwd = _run(cfg, cpu_params, cpu_batch, S, tokens, torch.device("cpu"))
+            alt_params = cpu_params
+            if cfg.family == "hybrid":
+                mp.setattr(rglru, "_decay", _float32_decay)
+            else:
+                alt_params = _nudged(cpu_params)
+            alt, alt_fwd = _run(cfg, alt_params, cpu_batch, S, tokens, torch.device("cpu"))
         for (al, ac), (rl, rc) in zip(alt, ref):
             spread["logits"] = max(spread["logits"], float((al - rl).abs().max()))
             for k in rc:
@@ -142,7 +164,8 @@ def test_serve_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mixtral_8x7b", "rwkv6_7b",
-                                  "recurrentgemma_2b"])
+                                  "recurrentgemma_2b", "seamless_m4t_large_v2",
+                                  "llava_next_mistral_7b"])
 def test_serve_each_family_on_the_card(cuda, arch):
     cfg = get_reduced(arch)
     res = serve_mod.serve(cfg, batch=4, prompt_len=64, new_tokens=8, device=cuda, seed=0)
@@ -153,7 +176,9 @@ def test_serve_each_family_on_the_card(cuda, arch):
     assert res["cache_bytes"] == cpu["cache_bytes"] and res["param_bytes"] == cpu["param_bytes"]
 
 
-def test_serve_cli_on_the_card(cuda, capsys):
-    res = serve_mod.main(["--arch", "qwen3_32b", "--new-tokens", "4"])
-    assert res["device"].startswith("cuda")
+@pytest.mark.parametrize("arch", ["qwen3_32b", "seamless_m4t_large_v2",
+                                  "llava_next_mistral_7b"])
+def test_serve_cli_on_the_card(cuda, capsys, arch):
+    res = serve_mod.main(["--arch", arch, "--new-tokens", "4"])
+    assert res["device"].startswith("cuda") and res["logits_finite"]
     assert capsys.readouterr().out.splitlines()[1].startswith("[serve] prefill ")

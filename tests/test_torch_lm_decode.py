@@ -16,9 +16,10 @@ elementwise ``atol = 1e-4`` sits below the reference's own rounding.
 Greedy tokens are equal wherever JAX's top-2 margin exceeds 1e-3.
 
 The serving entry points (``launch.serve``'s ``serve()`` and CLI) are
-driven here for every ported family; the MoE, RWKV-6 and hybrid models
-are held to JAX in ``tests/test_torch_lm_moe.py`` and
-``tests/test_torch_lm_recurrent.py``.
+driven here for every family and both frontends; the MoE, RWKV-6 and
+hybrid models are held to JAX in ``tests/test_torch_lm_moe.py`` and
+``tests/test_torch_lm_recurrent.py``, the encoder-decoder seamless and
+the vision-frontend llava in ``tests/test_torch_lm_encdec.py``.
 """
 import dataclasses
 
@@ -35,7 +36,7 @@ from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init
 from repro.models import param_specs as jax_specs
 from repro.models import prefill as jax_prefill
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.inputs import make_train_batch
@@ -217,6 +218,10 @@ SERVED = {
     "mixtral_8x7b": ("moe", 2 * 2 * 4 * 32 * 2 * 16 * 4),  # the window's ring
     "rwkv6_7b": ("rwkv6", 2 * 4 * (2 * 64 + 4 * 16 * 16) * 4),
     "recurrentgemma_2b": ("hybrid", 4 * ((2 + 2) * (3 * 64 + 64) + 2 * 32 * 16) * 4),
+    # self k / v over 70 positions and the cross k / v of 64 / 4 = 16 frames
+    "seamless_m4t_large_v2": ("encdec", 2 * 2 * 4 * (70 + 16) * 4 * 16 * 4),
+    # 32 patches and 32 tokens of the 64-position prompt share the KV cache
+    "llava_next_mistral_7b": ("dense", 2 * 2 * 4 * 70 * 2 * 16 * 4),
 }
 
 
@@ -235,7 +240,8 @@ def test_serve_cli_on_cpu_each_family(capsys, arch):
     assert res["param_bytes"] == 4 * cfg.param_count(param_specs(cfg))
 
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "rwkv6_7b", "recurrentgemma_2b"])
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "rwkv6_7b", "recurrentgemma_2b",
+                                  "seamless_m4t_large_v2", "llava_next_mistral_7b"])
 def test_serve_loop_of_each_family_matches_a_hand_driven_one(arch):
     cfg = get_reduced(arch)
     res = serve_mod.serve(cfg, batch=2, prompt_len=16, new_tokens=5, device="cpu", seed=4)
@@ -278,6 +284,17 @@ def test_serve_greedy_loop_matches_a_hand_driven_one():
         logits, cache = decode_step(cfg, params, cache, pos + i, toks[-1])
         toks.append(logits[:, :cfg.vocab_size].argmax(-1))
     assert torch.equal(res["tokens"], torch.stack(toks, 1))
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "llava_next_mistral_7b"])
+def test_serve_cli_takes_reduced_and_full(monkeypatch, arch):
+    seen = []
+    monkeypatch.setattr(serve_mod, "serve", lambda cfg, **kw: seen.append((cfg, kw)) or {
+        "prefill_ms": 1.0, "decode_ms_per_token": 1.0, "tokens": torch.zeros(kw["batch"], 1)})
+    serve_mod.main(["--arch", arch, "--device", "cpu", "--reduced"])
+    serve_mod.main(["--arch", arch, "--device", "cpu", "--full", "--batch", "1"])
+    assert seen[0][0] == get_reduced(arch) and seen[1][0] == get_config(arch)
+    assert seen[1][1]["batch"] == 1 and seen[1][1]["device"] == torch.device("cpu")
 
 
 def test_serve_without_device_raises_without_cuda(monkeypatch):
