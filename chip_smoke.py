@@ -187,6 +187,29 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              largest divisor of the positions up to attn_kv_chunk (960 and
              823: the chunked attention takes whole chunks, in JAX as
              well). Prefill ms beside its bound, peak memory
+  lm_train   the training path (repro_torch.train, float32, TF32 off; no
+             kernel of its own): (a) every reduced config, one
+             make_train_step (2 microbatches, batch 4, 64 positions) on the
+             card and on the CPU from the same parameters and batch: the
+             loss, grad_norm and every gradient leaf within rtol 1e-4, atol
+             1e-4 x max|leaf| plus twice the CPU's own spread (two draws
+             of one-ulp nudged parameters; the hybrid also with a float32
+             exp in the RG-LRU's decay), the largest gap per arch; (b) granite-3-2b at
+             full width and depth through SyntheticLMData and
+             make_train_step, batch 4, sequence 512, 2 microbatches, AdamW
+             lr 1e-3, warmup 1, 4 steps: each step's loss and grad_norm
+             (finite, the parameters moved), ms a step (CUDA events, median
+             of steps 2-4, the first apart) beside its operation bound (the
+             layers' matmuls and attention four times: forward, recompute,
+             backward x2; the unembedding three times), peak memory, and
+             the AdamW update alone (median of 3) beside its byte bound (p,
+             g, m, v read, p, m, v written); (c) the reduced granite: one
+             step twice from the same state (does the card repeat its
+             bits?), 3 steps, an AsyncCheckpointer save, restore, step 4,
+             against an uninterrupted step 4 (bitwise where the card
+             repeats itself); (d) python -m repro_torch.launch.train
+             --arch granite_3_2b --steps 20, reduced, on the card, then
+             with --compress-grads
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
              of 20; the range kernels: the launches over the bulk order cut
              at each superstep, the same function as one full launch), plain version on the card (SpTRSV once, SpMV median of
@@ -290,6 +313,16 @@ LM_FAMILIES = ("deepseek_moe_16b", "rwkv6_7b", "recurrentgemma_2b")
 # then llava at the published anyres size (batch 1; 2,880 patches, 2,880 tokens)
 LM_FRONTENDS = ("seamless_m4t_large_v2", "llava_next_mistral_7b")
 ANYRES_ARCH, ANYRES_BATCH, ANYRES_STEPS = "llava_next_mistral_7b", 1, 4
+# the lm_train phase: every reduced config card against CPU (batch 4, 64
+# positions, 2 microbatches), granite-3-2b at full width (batch 4, sequence
+# 512, 2 microbatches, AdamW lr 1e-3, warmup 1, 4 steps), a resume of the
+# reduced granite after 3 steps, the train CLI
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 4, 64
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = "granite_3_2b", 4, 512, 2, 4
+TRAIN_LR = 1e-3
+TRAIN_UPDATE_REPS = 3
+TRAIN_RESUME_AT = 3
+TRAIN_CLI_STEPS = 20
 MOE_NEAR_TIE = 1e-5  # a token's K-th and (K+1)-th router probabilities this close
 # the runtime calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -2022,6 +2055,289 @@ def lm_model_phase(phase, arch, args, dev, cuda_times, card) -> dict:
     return rec
 
 
+def nudged_params(params, seed=0):
+    """Every parameter moved up by one ulp with probability 1/2."""
+    import torch
+
+    from repro_torch.models.common import tree_map
+
+    gen = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: torch.where(torch.rand(t.shape, generator=gen) < 0.5,
+                                          torch.nextafter(t, torch.tensor(float("inf"))), t),
+                    params)
+
+
+def train_run(cfg, params, batch, microbatches):
+    """One make_train_step on a copy of ``params`` and the gradients it
+    applies: (loss, grad_norm, {path: gradient on the CPU})."""
+    import torch
+
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_loop import init_train_state, microbatch_grads
+
+    grads, _ = microbatch_grads(cfg, params, batch, microbatches)
+    grads = {k: v.cpu() for k, v in tree_paths(grads).items()}
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1),
+                           microbatches=microbatches)
+    _, m = step(init_train_state(cfg, tree_map(torch.clone, params)), batch)
+    return float(m["loss"]), float(m["grad_norm"]), grads
+
+
+def train_card_vs_cpu(arch, seed, dev) -> dict:
+    """The reduced ``arch``: one train step and its gradients on the card
+    and on the CPU from the same parameters and batch, held within rtol
+    1e-4, atol 1e-4 x max|leaf| plus twice the CPU's own spread (two draws
+    of one-ulp nudged parameters; for the hybrid also a float32 exp in the
+    RG-LRU's decay, whose last bit the card and the host round apart)."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.models import init_params, param_specs, rglru
+    from repro_torch.models.common import tree_map
+
+    cfg = get_reduced(arch)
+    cpu_params = init_params(param_specs(cfg), torch.Generator().manual_seed(seed),
+                             device="cpu")
+    gpu_params = lm_params_from_numpy(cfg, tree_map(lambda t: t.numpy(), cpu_params),
+                                      device=dev)
+    kw = dict(batch=TRAIN_CHECK_BATCH, seq_len=TRAIN_CHECK_SEQ, seed=seed)
+    cpu_batch = make_train_batch(cfg, device="cpu", **kw)
+    ref = train_run(cfg, cpu_params, cpu_batch, TRAIN_MICRO)
+    got = train_run(cfg, gpu_params, make_train_batch(cfg, device=dev, **kw), TRAIN_MICRO)
+    others = [train_run(cfg, nudged_params(cpu_params, draw), cpu_batch, TRAIN_MICRO)
+              for draw in (0, 1)]
+    if cfg.family == "hybrid":
+        decay = rglru._decay
+        rglru._decay = lambda log_a: torch.exp(log_a.float())
+        try:
+            others.append(train_run(cfg, cpu_params, cpu_batch, TRAIN_MICRO))
+        finally:
+            rglru._decay = decay
+    worst, worst_leaf, rel_gap = 0.0, None, 0.0
+    for k, r in ref[2].items():
+        spread = max(float((o[2][k] - r).abs().max()) for o in others)
+        scale = float(r.abs().max())
+        gap = (got[2][k] - r).abs()
+        allowed = 1e-4 * r.abs() + 1e-4 * scale + 2 * spread
+        ratio = float((gap / allowed.clamp(min=1e-30)).max())
+        rel_gap = max(rel_gap, float(gap.max()) / scale if scale else 0.0)
+        if ratio > worst:
+            worst, worst_leaf = ratio, "/".join(k)
+    rec = {"arch": cfg.name, "family": cfg.family, "loss_cpu": ref[0], "loss_card": got[0],
+           "grad_norm_cpu": ref[1], "grad_norm_card": got[1], "leaves": len(ref[2]),
+           "max_rel_gap": rel_gap, "worst_gap_over_allowed": worst, "worst_leaf": worst_leaf}
+    for i, key in ((0, "loss"), (1, "grad_norm")):
+        spread = max(abs(o[i] - ref[i]) for o in others)
+        rec[f"{key}_gap"] = abs(got[i] - ref[i])
+        require(rec[f"{key}_gap"] <= 1e-4 + 1e-4 * abs(ref[i]) + 2 * spread,
+                f"lm_train card against CPU, {cfg.name}: {key} {got[i]} vs {ref[i]}")
+    require(worst <= 1.0, f"lm_train card against CPU, {cfg.name}: gradient {worst_leaf} "
+                          f"{worst:.3g} x its tolerance")
+    return rec
+
+
+def train_work(cfg, batch, seq) -> dict:
+    """The least work of one train step of ``batch`` x ``seq`` tokens,
+    float32: ``lm_work``'s matmuls and attention of a prefill four times
+    (the forward, its recompute under remat, the backward's two products),
+    the unembedding of every position three times (not recomputed)."""
+    D, V = cfg.d_model, cfg.padded_vocab
+    fwd = lm_work(cfg, batch, seq, None)
+    layers = fwd["ops"] - 2 * batch * D * V  # lm_work unembeds the last position only
+    return bound(0, 4 * layers + 3 * 2 * batch * seq * D * V)
+
+
+def train_resume(cfg, seed, dev) -> dict:
+    """The reduced ``cfg`` on the card: one step twice from one state,
+    then ``TRAIN_RESUME_AT`` steps, an AsyncCheckpointer save, a restore
+    and the next step against the same step taken without the break."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_loop import clone_state, init_train_state
+
+    def leaves(state):
+        return {("params",) + k: v for k, v in tree_paths(state.params).items()} | {
+            ("opt_state",) + k: v for k, v in tree_paths(state.opt_state).items()}
+
+    def gaps(a, b):
+        la, lb = leaves(a), leaves(b)
+        return {"/".join(k): float((la[k].double() - lb[k].double()).abs().max())
+                for k in la if not torch.equal(la[k], lb[k])}
+
+    params = init_params(param_specs(cfg), torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    state = init_train_state(cfg, params)
+    data = SyntheticLMData(vocab=cfg.vocab_size, batch=TRAIN_CHECK_BATCH,
+                           seq=TRAIN_CHECK_SEQ, seed=seed, device=str(dev))
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10),
+                           microbatches=TRAIN_MICRO)
+    twin = clone_state(state)
+    state, m1 = step(state, data.batch_at(0))
+    twin, _ = step(twin, data.batch_at(0))
+    repeat = gaps(state, twin)
+    for s in range(1, TRAIN_RESUME_AT):
+        state, _ = step(state, data.batch_at(s))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = AsyncCheckpointer(tmp)
+        ck.save(state, step=TRAIN_RESUME_AT)
+        ck.wait()
+        restored, meta = restore_checkpoint(ck.latest(), template=state, device=dev)
+    straight, ms = step(clone_state(state), data.batch_at(TRAIN_RESUME_AT))
+    resumed, mr = step(restored, data.batch_at(meta["step"]))
+    resume = gaps(straight, resumed)
+    # where the card does not repeat itself, the resume is held to that spread
+    bitwise = not repeat
+    require(meta["step"] == TRAIN_RESUME_AT, f"lm_train resume: meta {meta}")
+    require(not resume if bitwise else all(
+        v <= 2 * max(repeat.values()) for v in resume.values()),
+        f"lm_train resume: step {TRAIN_RESUME_AT + 1} after a restore differs: {resume}")
+    require(all(torch.isfinite(t).all() for t in tree_leaves(resumed.params)),
+            "lm_train resume: a parameter is not finite")
+    return {"arch": cfg.name, "steps_before_save": TRAIN_RESUME_AT,
+            "repeats_its_bits": bitwise, "repeat_leaves_differing": repeat,
+            "resume_bitwise": not resume, "resume_leaves_differing": resume,
+            "loss_step1": float(m1["loss"]), "loss_resumed": float(mr["loss"]),
+            "loss_straight": float(ms["loss"])}
+
+
+def lm_train_phase(args, dev, card) -> dict:
+    """The training path on the card (see the module docstring); emits one
+    record a part and returns them."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import AdamWConfig, adamw_update_, make_train_step
+    from repro_torch.train.train_loop import init_train_state, microbatch_grads
+
+    t_phase = time.perf_counter()
+    recs = {}
+
+    # (a) every reduced config, the card against the CPU
+    rows = [train_card_vs_cpu(arch, args.seed, dev) for arch in ARCH_IDS]
+    recs["card_vs_cpu"] = {"phase": "lm_train", "part": "card_vs_cpu", "seed": args.seed,
+                           "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ,
+                           "microbatches": TRAIN_MICRO, "rtol": 1e-4, "atol_of_max": 1e-4,
+                           "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "archs": rows,
+                           "phase_s": time.perf_counter() - t_phase, **card}
+    emit(recs["card_vs_cpu"])
+
+    # (b) granite-3-2b at full width and depth
+    t0 = time.perf_counter()
+    cfg = configs.get_config(TRAIN_ARCH)
+    n_params = cfg.param_count(param_specs(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    require(free > 16 * n_params, f"lm_train: {cfg.name} needs {16 * n_params} bytes of "
+                                  f"parameters, gradients and moments, {free} free")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(param_specs(cfg), torch.Generator(device=dev).manual_seed(args.seed),
+                         device=dev)
+    state = init_train_state(cfg, params)
+    data = SyntheticLMData(vocab=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           seed=args.seed, device=str(dev))
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO)
+    # a sample of every leaf, to see the parameters move
+    sample = [t.reshape(-1)[:4096].clone() for t in tree_leaves(state.params)]
+    losses, norms, step_ms = [], [], []
+    for s in range(TRAIN_STEPS):
+        batch = data.batch_at(s)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(int(not torch.equal(a, t.reshape(-1)[:4096]))
+                for a, t in zip(sample, tree_leaves(state.params)))
+    require(all(math.isfinite(v) for v in losses + norms),
+            f"lm_train: {cfg.name}'s loss {losses} or grad_norm {norms} is not finite")
+    require(moved == len(sample), f"lm_train: {moved} of {len(sample)} parameter leaves moved")
+    # the AdamW update alone, on the gradients of one more batch
+    grads, _ = microbatch_grads(cfg, state.params, data.batch_at(TRAIN_STEPS), TRAIN_MICRO)
+    update_ms = []
+    for _ in range(TRAIN_UPDATE_REPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        adamw_update_(opt, state.params, grads, state.opt_state)
+        e1.record()
+        e1.synchronize()
+        update_ms.append(e0.elapsed_time(e1))
+    del state, params, grads, sample, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = train_work(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    ms = statistics.median(step_ms[1:])
+    upd = statistics.median(update_ms)
+    upd_bytes = 7 * 4 * n_params
+    upd_bound_ms = upd_bytes / HBM_BYTES_PER_S * 1e3
+    recs["full"] = {
+        "phase": "lm_train", "part": "full_width", "arch": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "tokens": TRAIN_BATCH * TRAIN_SEQ, "microbatches": TRAIN_MICRO, "remat": cfg.remat,
+        "dtype": "float32", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "seed": args.seed, "lr": TRAIN_LR, "losses": losses, "grad_norms": norms,
+        "leaves_moved": moved, "step_ms": step_ms, "step_ms_first": step_ms[0],
+        "step_ms_median_2_on": ms, "step_bound_ms": work["bound_us"] / 1e3,
+        "step_bound_by": work["bound_by"], "step_ops": work["ops"],
+        "step_bound_share": work["bound_us"] / 1e3 / ms,
+        "step_tflops": work["ops"] / ms / 1e9,
+        "update_ms": update_ms, "update_ms_median": upd, "update_bound_ms": upd_bound_ms,
+        "update_bound_by": "bytes", "update_bytes": upd_bytes,
+        "update_bound_share": upd_bound_ms / upd,
+        "max_memory_allocated": peak, "card_free_bytes_before": free,
+        "part_s": time.perf_counter() - t0, **card}
+    emit(recs["full"])
+
+    # (c) resume on the card, reduced granite
+    t0 = time.perf_counter()
+    recs["resume"] = {"phase": "lm_train", "part": "resume",
+                      **train_resume(get_reduced(TRAIN_ARCH), args.seed, dev),
+                      "part_s": time.perf_counter() - t0, **card}
+    emit(recs["resume"])
+
+    # (d) the CLI, reduced, on the card
+    cli = []
+    for extra in ([], ["--compress-grads"]):
+        t0 = time.perf_counter()
+        out = train_cli.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_STEPS), *extra])
+        require(out["device"].startswith("cuda") and all(math.isfinite(v)
+                                                         for v in out["losses"]),
+                f"lm_train CLI {extra}: {out['device']} {out['losses']}")
+        cli.append({"args": ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_STEPS), *extra],
+                    "device": out["device"], "losses_first_last": [out["losses"][0],
+                                                                    out["losses"][-1]],
+                    "loss_mean_first5": statistics.mean(out["losses"][:5]),
+                    "loss_mean_last5": statistics.mean(out["losses"][-5:]),
+                    "train_s": out["seconds"], "wall_s": time.perf_counter() - t0})
+        del out
+    recs["cli"] = {"phase": "lm_train", "part": "cli", "runs": cli,
+                   "phase_s": time.perf_counter() - t_phase, **card}
+    emit(recs["cli"])
+    return recs
+
+
 def main() -> int:
     import argparse
 
@@ -2445,6 +2761,9 @@ def main() -> int:
 
     # -------------------------------------------------- lm_frontends
     lm_frontends_phase(args, dev, cuda_times, card)
+
+    # ------------------------------------------------------- lm_train
+    lm_train_phase(args, dev, card)
 
     # --------------------------------------------------------- timing
     def graph_ms(fn, reps):

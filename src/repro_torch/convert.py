@@ -100,3 +100,40 @@ def lm_params_from_numpy(cfg, tree, device=None, dtype=None):
             node = node.setdefault(key, {})
         node[path[-1]] = leaf(path)
     return out
+
+
+def train_state_from_numpy(cfg, tree, device=None):
+    """The port's ``TrainState`` for ``cfg`` from ``{"params", "opt_state":
+    {"mu", "nu", "step"}}`` of numpy arrays (for example a JAX
+    ``TrainState`` through ``{"params": s.params, "opt_state":
+    s.opt_state}`` and ``np.asarray``). ``params``, ``mu`` and ``nu`` are
+    checked as ``lm_params_from_numpy`` checks parameters, ``step`` must be
+    a scalar, and a missing or extra key raises ``ValueError``. Arrays are
+    copied (``step`` to int32) and placed on ``device`` (the card unless
+    ``device="cpu"``)."""
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.train.train_loop import TrainState
+
+    def keys(node, want, where):
+        if not isinstance(node, dict) or set(node) != want:
+            got = sorted(node) if isinstance(node, dict) else type(node).__name__
+            raise ValueError(f"{cfg.name}: {where} must have the keys {sorted(want)}, "
+                             f"got {got}")
+
+    keys(tree, {"params", "opt_state"}, "a train state")
+    opt = tree["opt_state"]
+    keys(opt, {"mu", "nu", "step"}, "opt_state")
+    if np.shape(opt["step"]) != ():
+        raise ValueError(f"{cfg.name}: opt_state step must be a scalar, "
+                         f"got shape {np.shape(opt['step'])}")
+    dev = resolve_device(device)
+    return TrainState(
+        params=lm_params_from_numpy(cfg, tree["params"], device=dev),
+        opt_state={
+            "mu": lm_params_from_numpy(cfg, opt["mu"], device=dev),
+            "nu": lm_params_from_numpy(cfg, opt["nu"], device=dev),
+            "step": torch.tensor(int(opt["step"]), dtype=torch.int32, device=dev),
+        },
+    )

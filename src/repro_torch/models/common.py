@@ -1,4 +1,4 @@
-"""Shared model building blocks: parameter specs, norms, RoPE, MLPs.
+"""Shared model building blocks: parameter specs, norms, RoPE, MLPs, the loss.
 
 Parameters are plain nested dicts of tensors, and every parameter carries a
 *logical* sharding tuple built from the placeholder axis names ``'tp'``,
@@ -129,3 +129,18 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     """GELU MLP; the tanh approximation, which is ``jax.nn.gelu``'s default."""
     return F.gelu(x @ w_up, approximate="tanh") @ w_down
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in float32: ``logsumexp`` minus the gold logit.
+    logits [..., V]; labels int [...]; ``mask`` weights the tokens (the
+    mean over its sum, at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)  # a bool mask too, as JAX promotes it
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

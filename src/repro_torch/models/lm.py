@@ -20,6 +20,13 @@ encoder-decoder's in ``enc_layers`` and ``dec_layers``), and a Python
 loop over layers takes the place of ``lax.scan``. The JAX package's
 ``sharding_ctx.constrain`` is a no-op outside a mesh context; on one card
 there is none, so the port drops those calls.
+
+``forward(train=True)`` is the training forward: with ``cfg.remat`` each
+layer (the hybrid's superblock, each tail, encoder and decoder layer) runs
+under ``torch.utils.checkpoint``, which keeps only the layer's input and
+recomputes the rest in the backward pass, as the JAX package's
+``jax.checkpoint(policy=nothing_saveable)``. Its logits are those of
+``forward(train=False)`` bit for bit. ``loss_fn`` scores them.
 """
 from __future__ import annotations
 
@@ -28,9 +35,17 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import AttnConfig, attn_param_specs, multi_head_attention
-from repro_torch.models.common import ParamSpec, rms_norm, swiglu, tree_leaves, tree_map
+from repro_torch.models.common import (
+    ParamSpec,
+    cross_entropy_loss,
+    rms_norm,
+    swiglu,
+    tree_leaves,
+    tree_map,
+)
 from repro_torch.models.moe import MoEConfig, moe_ffn, moe_param_specs
 from repro_torch.models.rglru import RGLRUConfig, rglru_block, rglru_param_specs
 from repro_torch.models.rwkv6 import RWKVConfig, channel_mix, rwkv_param_specs, time_mix
@@ -305,33 +320,60 @@ def _embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
     return h
 
 
+def _layers(stacked: Optional[Pytree], train: bool) -> list:
+    """The per-layer trees of a stacked tree. Serving takes views
+    (``layer_params``); the training forward unbinds every leaf once, so
+    that autograd stacks the layers' gradients once a leaf, where a
+    ``t[i]`` a layer would make a zero gradient of the whole stack each."""
+    n = stack_depth(stacked)
+    if not train or n == 0:
+        return [layer_params(stacked, i) for i in range(n)]
+    parts = tree_map(torch.unbind, stacked)
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+
+
+def _maybe_remat(f, cfg: ModelConfig, train: bool):
+    """``f`` under ``torch.utils.checkpoint`` when training with
+    ``cfg.remat``: only its inputs are kept, the rest recomputed in the
+    backward pass. The JAX package also puts ``_grad_safe_barrier`` (an
+    ``optimization_barrier``) inside the rematted region, against an XLA
+    rewrite that hoists a convert of the whole saved stack out of the
+    backward loop; torch makes no such rewrite, so the port has none."""
+    if train and cfg.remat:
+        return lambda *args: checkpoint(f, *args, use_reentrant=False)
+    return f
+
+
 def forward(cfg: ModelConfig, params, batch, *, train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits [B,S,Vpad], aux_loss)."""
-    if train:
-        raise NotImplementedError(
-            "forward(train=True) (remat) comes with the port's training slice"
-        )
     if cfg.family == "encdec":
-        return _forward_encdec(cfg, params, batch)
+        return _forward_encdec(cfg, params, batch, train=train)
     h = _embed_inputs(cfg, params, batch)
     S = h.shape[1]
     cos, sin = _rope_tables(cfg, torch.arange(S, device=h.device))
     auxes = []
     if cfg.family in ("dense", "moe"):
-        for i in range(cfg.n_layers):
-            h, aux = _dense_block(cfg, layer_params(params["layers"], i), h, cos, sin)
+        layer = _maybe_remat(lambda h, lp: _dense_block(cfg, lp, h, cos, sin), cfg, train)
+        for lp in _layers(params["layers"], train):
+            h, aux = layer(h, lp)
             auxes.append(aux)
     elif cfg.family == "rwkv6":
-        for i in range(cfg.n_layers):
-            h = _rwkv_block(cfg, layer_params(params["layers"], i), h)
+        layer = _maybe_remat(lambda h, lp: _rwkv_block(cfg, lp, h), cfg, train)
+        for lp in _layers(params["layers"], train):
+            h = layer(h, lp)
     elif cfg.family == "hybrid":
-        for i in range(stack_depth(params["superblocks"])):
-            lp = layer_params(params["superblocks"], i)
+        def superblock(h, lp):
             h = _hybrid_block(cfg, lp["rec1"], h, cos, sin, "rec")
             h = _hybrid_block(cfg, lp["rec2"], h, cos, sin, "rec")
-            h = _hybrid_block(cfg, lp["attn"], h, cos, sin, "attn")
-        for i in range(stack_depth(params.get("tail"))):
-            h = _hybrid_block(cfg, layer_params(params["tail"], i), h, cos, sin, "rec")
+            return _hybrid_block(cfg, lp["attn"], h, cos, sin, "attn")
+
+        superblock = _maybe_remat(superblock, cfg, train)
+        for lp in _layers(params["superblocks"], train):
+            h = superblock(h, lp)
+        tail = _maybe_remat(lambda h, lp: _hybrid_block(cfg, lp, h, cos, sin, "rec"), cfg,
+                            train)
+        for lp in _layers(params.get("tail"), train):
+            h = tail(h, lp)
     else:
         raise ValueError(cfg.family)
     aux_total = torch.stack(auxes).sum() if auxes else torch.zeros(
@@ -344,34 +386,58 @@ def _all_logits(cfg: ModelConfig, params, h) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", h, params["unembed"])
 
 
-def _encode(cfg: ModelConfig, params, frontend_embeds: torch.Tensor) -> torch.Tensor:
+def _encode(cfg: ModelConfig, params, frontend_embeds: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
     """The encoder-decoder family's encoder over the projected frames:
     bidirectional attention with RoPE over the frame positions, then
     ``enc_norm``; [B, T_enc, D]."""
     h = _project_frontend(params, frontend_embeds)
     cos, sin = _rope_tables(cfg, torch.arange(h.shape[1], device=h.device))
     acfg = cfg.attn_cfg(causal=False)
-    for i in range(stack_depth(params["enc_layers"])):
-        lp = layer_params(params["enc_layers"], i)
+
+    def enc_layer(h, lp):
         h = h + multi_head_attention(lp["attn"], acfg, rms_norm(h, lp["ln1"], cfg.norm_eps),
                                      rope_cos=cos, rope_sin=sin, kv_chunk=cfg.attn_kv_chunk)
-        h = h + swiglu(rms_norm(h, lp["ln2"], cfg.norm_eps), lp["mlp"]["w_gate"],
-                       lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+        return h + swiglu(rms_norm(h, lp["ln2"], cfg.norm_eps), lp["mlp"]["w_gate"],
+                          lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+
+    enc_layer = _maybe_remat(enc_layer, cfg, train)
+    for lp in _layers(params["enc_layers"], train):
+        h = enc_layer(h, lp)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def _forward_encdec(cfg: ModelConfig, params, batch):
-    enc_h = _encode(cfg, params, batch["frontend_embeds"])
+def _forward_encdec(cfg: ModelConfig, params, batch, *, train: bool):
+    enc_h = _encode(cfg, params, batch["frontend_embeds"], train)
     h = _embed_tokens(cfg, params, batch["tokens"])
     cos, sin = _rope_tables(cfg, torch.arange(h.shape[1], device=h.device))
-    for i in range(stack_depth(params["dec_layers"])):
-        lp = layer_params(params["dec_layers"], i)
+
+    def dec_layer(h, lp, enc_h):
         h = h + multi_head_attention(lp["self_attn"], cfg.attn_cfg(),
                                      rms_norm(h, lp["ln1"], cfg.norm_eps), rope_cos=cos,
                                      rope_sin=sin, kv_chunk=cfg.attn_kv_chunk)
         h = h + multi_head_attention(lp["cross_attn"], cfg.attn_cfg(causal=False),
                                      rms_norm(h, lp["ln2"], cfg.norm_eps), kv_source=enc_h,
                                      kv_chunk=cfg.attn_kv_chunk)
-        h = h + swiglu(rms_norm(h, lp["ln3"], cfg.norm_eps), lp["mlp"]["w_gate"],
-                       lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+        return h + swiglu(rms_norm(h, lp["ln3"], cfg.norm_eps), lp["mlp"]["w_gate"],
+                          lp["mlp"]["w_up"], lp["mlp"]["w_down"])
+
+    dec_layer = _maybe_remat(dec_layer, cfg, train)
+    for lp in _layers(params["dec_layers"], train):
+        h = dec_layer(h, lp, enc_h)
     return _all_logits(cfg, params, h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, train: bool = True):
+    """(ce + aux, {"ce", "aux"}): the mean token cross-entropy of the last
+    ``labels.shape[1]`` positions (frontend positions carry no labels),
+    the vocabulary's padding columns set to -1e30 first."""
+    logits, aux = forward(cfg, params, batch, train=train)
+    labels = batch["labels"]
+    logits = logits[:, -labels.shape[1]:]
+    V = cfg.vocab_size
+    if cfg.padded_vocab != V:
+        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= V
+        logits = torch.where(pad_mask[None, None, :], -1e30, logits)
+    ce = cross_entropy_loss(logits, labels)
+    return ce + aux, {"ce": ce, "aux": aux}

@@ -24,6 +24,21 @@ not, no float32 evaluation (JAX's own included) is closer than the spread:
     position: a one-ulp nudge moves JAX's logits by 4.1e-4).
 Greedy tokens are compared where the reference's top-2 margin exceeds
 twice the logits' bound.
+
+The training slice's gradients (``grad_run``, ``assert_grads_close``)
+take the same rule: each leaf of ``jax.grad`` of ``loss_fn(train=True)``
+within ``rtol = 1e-4`` and ``atol = 1e-4 * max|leaf|`` plus twice the
+leaf's spread. A gradient is more sensitive than the logits: through the
+near one-hot softmax (attention logits of std ~50) a one-ulp nudge moves
+the reduced granite's attention gradients by up to ~9e-4 of a leaf's
+largest, in JAX and in the port alike, and which draw moves them most
+differs between the two; so the spread is the larger of both packages'
+responses to the nudge (two draws for JAX, one for the port). The RG-LRU
+adds ``d sqrt(1 - a^2) / da = -a / sqrt(1 - a^2)``: the reduced
+recurrentgemma's gradients move by up to ~9% of a leaf's largest between
+JAX's jitted and op-by-op runs, so its spread includes the op-by-op run
+(which costs ~35 s of eager dispatch; for the other nine configs the
+op-by-op run lies within 2.2e-4 of jit, inside the nudges' spread).
 """
 import dataclasses
 
@@ -37,6 +52,7 @@ from repro.launch.inputs import make_train_batch as jax_batch
 from repro.models import decode_step as jax_decode
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init
+from repro.models import loss_fn as jax_loss
 from repro.models import param_specs as jax_specs
 from repro.models import prefill as jax_prefill
 from repro_torch.configs import get_reduced
@@ -44,6 +60,7 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch.inputs import make_train_batch
 from repro_torch.models import decode_step, forward, prefill
 from repro_torch.models.common import tree_map, tree_paths
+from repro_torch.train.train_loop import microbatch_grads
 
 RTOL = ATOL = 1e-4
 MARGIN = 1e-3
@@ -194,3 +211,65 @@ def assert_greedy_equal_where_clear(port_logits, ref_logits, vocab, spread=0.0):
         assert np.array_equal(got[clear], np.argmax(ref, -1)[clear])
         compared += int(clear.sum())
     return compared
+
+
+
+def _gaps(ref, others):
+    return {k: max(float(np.abs(o[k] - r).max()) for o in others) for k, r in ref.items()}
+
+
+def grad_run(arch, S, *, op_by_op=False, **changes):
+    """JAX's loss and gradients (``jax.value_and_grad`` of ``loss_fn(train=
+    True)``, jitted) and the port's (``microbatch_grads`` on the CPU) on
+    the arch's reduced parameters (``changes`` applied) and
+    ``make_train_batch(batch=B, seq_len=S, seed=1)``, with the spread: per
+    leaf and for the loss, the largest gap of JAX jitted with parameters
+    nudged by one ulp (two draws), of the port with the first draw, and
+    (``op_by_op``) of JAX under ``jax.disable_jit()``, each to the same
+    package unnudged. Where a float32 evaluation of the function moves by
+    its last bits, no float32 evaluation is closer than that."""
+    jc, tc = configs(arch, **changes)
+    jparams = jax_params(jc)
+    jb = jax_batch(jc, batch=B, seq_len=S, seed=1)
+
+    def f(p, b):
+        return jax_loss(jc, p, b, train=True)[0]
+
+    vg = jax.value_and_grad(f)
+    loss, grads = jax.jit(vg)(jparams, jb)
+    ref = jax_paths(grads)
+    others = [jax.jit(vg)(nudged(jparams, seed), jb) for seed in (0, 1)]
+    if op_by_op:
+        with jax.disable_jit():
+            others.append(vg(jparams, jb))
+    port_loss, port = port_grad_run(tc, port_params(tc, jparams), S)
+    nudged_loss, port_nudged = port_grad_run(tc, port_params(tc, nudged(jparams)), S)
+    spread = {k: max(a, b) for (k, a), b in zip(
+        _gaps(ref, [jax_paths(g) for _, g in others]).items(),
+        _gaps(port, [port_nudged]).values())}
+    loss_spread = max([abs(float(l) - float(loss)) for l, _ in others]
+                      + [abs(nudged_loss - port_loss)])
+    return {"loss": float(loss), "grads": ref, "spread": spread, "loss_spread": loss_spread,
+            "port_loss": port_loss, "port_grads": port}
+
+
+def port_grad_run(tc, params, S, *, batch=B, seed=1, microbatches=1):
+    """The port's loss and mean gradients on the CPU (``microbatch_grads``)
+    over ``make_train_batch(seed)``: (loss, {path: numpy array})."""
+    tb = make_train_batch(tc, batch=batch, seq_len=S, seed=seed, device="cpu")
+    grads, loss = microbatch_grads(tc, params, tb, microbatches)
+    return float(loss), {k: t.numpy() for k, t in tree_paths(grads).items()}
+
+
+def assert_grads_close(port, ref, spread):
+    """Every leaf at rtol 1e-4, atol 1e-4 * max|leaf| plus twice its spread."""
+    assert port.keys() == ref.keys()
+    for k, r in ref.items():
+        assert port[k].shape == r.shape and port[k].dtype == r.dtype, k
+        np.testing.assert_allclose(port[k], r, rtol=RTOL,
+                                   atol=ATOL * float(np.abs(r).max()) + 2 * spread[k],
+                                   err_msg="/".join(k))
+
+
+def assert_loss_close(port, run):
+    assert abs(port - run["loss"]) <= ATOL + RTOL * abs(run["loss"]) + 2 * run["loss_spread"]

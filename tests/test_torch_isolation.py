@@ -52,6 +52,7 @@ def test_no_jax_or_repro_imports_in_package():
     assert len(files) > 20
     scanned = {f.relative_to(PKG).parts[0] for f in files}
     assert {"serve", "launch", "analysis", "models", "configs"} <= scanned  # the LM stack too
+    assert {"train", "data", "checkpoint", "distributed"} <= scanned  # and its training
     assert len([f for f in files if f.parent.name == "analysis"]) >= 9
     assert len([f for f in files if f.parent.name == "serve"]) >= 7
     bad = [
@@ -116,6 +117,25 @@ logits, cache, pos = prefill(cfg, params, make_train_batch(cfg, batch=2, seq_len
                              max_len=17)
 logits, cache = decode_step(cfg, params, cache, pos, logits[:, :cfg.vocab_size].argmax(-1))
 assert logits.shape == (2, cfg.padded_vocab) and torch.isfinite(logits).all()
+import tempfile
+import repro_torch.launch.train
+from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+from repro_torch.data import SyntheticLMData
+from repro_torch.distributed import compressed_grad_transform, init_error_buffers
+from repro_torch.train import AdamWConfig, make_train_step
+from repro_torch.train.train_loop import init_train_state
+state = init_train_state(cfg, params)
+step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1), microbatches=2,
+                       grad_transform=compressed_grad_transform({"e": init_error_buffers(params)}))
+data = SyntheticLMData(vocab=cfg.vocab_size, batch=2, seq=16, device="cpu")
+state, metrics = step(state, data.batch_at(0))
+assert torch.isfinite(metrics["loss"]) and int(state.opt_state["step"]) == 1
+with tempfile.TemporaryDirectory() as tmp:
+    ck = AsyncCheckpointer(tmp)
+    ck.save(state, step=1)
+    ck.wait()
+    back, meta = restore_checkpoint(ck.latest(), template=state, device="cpu")
+assert meta["step"] == 1 and torch.equal(back.params["embed"], state.params["embed"])
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert loaded == [], loaded
 print("ok")
@@ -265,6 +285,37 @@ def _lm_serve_cli(plan):
     return serve.main(["--arch", "granite_3_2b"])
 
 
+def _lm_train_cli(plan):
+    from repro_torch.launch import train
+
+    return train.main(["--arch", "granite_3_2b", "--steps", "1"])
+
+
+def _synthetic_data(plan):
+    from repro_torch.data import SyntheticLMData
+
+    return SyntheticLMData(vocab=10, batch=1, seq=4).batch_at(0)
+
+
+def _restore_checkpoint(plan):
+    from repro_torch.checkpoint import restore_checkpoint
+
+    # the device is resolved before the checkpoint is read
+    return restore_checkpoint("no-such-checkpoint")
+
+
+def _train_state_from_numpy(plan):
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models import param_specs
+    from repro_torch.models.common import tree_map
+
+    cfg = get_reduced("granite_3_2b")
+    zeros = tree_map(lambda s: np.zeros(s.shape, np.float32), param_specs(cfg))
+    return train_state_from_numpy(cfg, {"params": zeros, "opt_state": {
+        "mu": zeros, "nu": zeros, "step": np.int32(0)}})
+
+
 @pytest.mark.parametrize(
     "entry",
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
@@ -272,7 +323,8 @@ def _lm_serve_cli(plan):
      _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv,
      _ell_operator, _cg_solve, _pcg_ichol, _serve_register, _serve_cli, _make_mesh,
      _bind_distributed_on_card_mesh, _lm_init_params, _lm_batch, _lm_decode_cache,
-     _lm_params_from_numpy, _lm_serve_cli],
+     _lm_params_from_numpy, _lm_serve_cli, _lm_train_cli, _synthetic_data, _restore_checkpoint,
+     _train_state_from_numpy],
 )
 def test_lower_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     # every entry point that places tensors defaults to the card

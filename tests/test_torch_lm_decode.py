@@ -170,12 +170,6 @@ def test_forward_matches_jax_and_prefill(run):
                                rtol=RTOL, atol=ATOL)
 
 
-def test_forward_train_raises():
-    cfg = get_reduced("granite_3_2b")
-    with pytest.raises(NotImplementedError, match="training"):
-        forward(cfg, {}, {}, train=True)
-
-
 @pytest.mark.parametrize("name", list(CASES))
 def test_init_decode_cache_matches_prefill(name):
     _, cfg = _cfgs(name)

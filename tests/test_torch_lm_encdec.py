@@ -33,7 +33,6 @@ import _lm_parity as P
 from repro.launch.inputs import make_train_batch as jax_batch
 from repro.models import decode as JD
 from repro.models import lm as JL
-from repro_torch.configs import get_reduced
 from repro_torch.launch.inputs import make_train_batch, token_split
 from repro_torch.models import forward, init_decode_cache, prefill
 from repro_torch.models import lm as TL
@@ -162,12 +161,6 @@ def test_init_decode_cache_matches_prefill_and_jax(arch):
         wide = init_decode_cache(tc, 2, max_len, enc_len=enc_len, dtype=torch.float64,
                                  device="cpu")
         assert all(t.dtype == torch.float64 for t in tree_paths(wide).values())
-
-
-def test_forward_train_raises_for_the_encoder_decoder():
-    cfg = get_reduced("seamless_m4t_large_v2")
-    with pytest.raises(NotImplementedError, match="training"):
-        forward(cfg, {}, {}, train=True)
 
 
 def test_encoder_and_decoder_stacks_keep_their_own_depths():

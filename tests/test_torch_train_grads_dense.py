@@ -1,0 +1,37 @@
+"""The training slice's gradients against the JAX package's, dense family:
+granite-3-2b, phi3-mini, qwen3 (qk-norm) and mistral-large. ``jax.grad``
+of ``loss_fn(train=True)`` (jitted) and the port's ``microbatch_grads`` on
+the CPU, on the same reduced parameters and ``make_train_batch`` tokens
+(batch 2, sequence 32, attention chunks of 16, so that the backward pass
+crosses chunks).
+
+Tolerance (``tests/_lm_parity.py::grad_run``): the loss and every gradient
+leaf at ``rtol = 1e-4`` and ``atol = 1e-4 * max|leaf|``, plus twice the
+spread measured here: JAX and the port each against itself with
+one-ulp-nudged parameters.
+"""
+import functools
+
+import pytest
+
+import _lm_parity as P
+
+S = 32
+ARCHS = ["granite_3_2b", "phi3_mini_3_8b", "qwen3_32b", "mistral_large_123b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _run(arch):
+    return P.grad_run(arch, S, attn_kv_chunk=16)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_matches_jax(arch):
+    run = _run(arch)
+    P.assert_loss_close(run["port_loss"], run)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grads_match_jax(arch):
+    run = _run(arch)
+    P.assert_grads_close(run["port_grads"], run["grads"], run["spread"])
