@@ -54,7 +54,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              (relative, in norm); the plan's host seconds, supersteps, T, W,
              bsp_cost (from the plan's rows), levels (= block barriers) and
              the widest level, kernel ms single and m = 32 (CUDA events, 3
-             warm-ups, median of 20)
+             warm-ups, median of 20); the CPU plain versions of this phase
+             and the next run in two spawned worker processes while the
+             card's plans are made
   main_path_auto      TriangularSolver.plan(L, strategy="auto") on the same
              matrices: the Selection (regime, pick, slack, candidates' costs,
              equal to the strategies phase's bsp_cost) equal to the CPU scan
@@ -210,6 +212,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              repeats itself); (d) python -m repro_torch.launch.train
              --arch granite_3_2b --steps 20, reduced, on the card, then
              with --compress-grads
+  dryrun     the port's dry run (repro_torch.launch.dryrun): the three
+             SpTRSV cells (ER p=5e-5, NB p=0.14 B=10 with shard "model"
+             and "rows"; n=100,000, seed 1, growlocal k=16) on a 16x16
+             mesh of cuda:0 positions, 16 right-hand sides: each answer
+             bitwise the kernel backend's, the range launches of a solve
+             equal to describe()'s, ms a solve (CUDA events, 3 warm-ups,
+             median of 10), the exchange rounds and bytes, the roofline
+             terms, plan and bind seconds, a torch.profiler window of one
+             solve on the ER and NB "model" cells (NB solved on its
+             pattern with a dominant diagonal, as its own values overflow
+             float32); granite-3-2b's
+             train_4k, prefill_32k and decode_32k counted on meta; the
+             counter on the card's tensors (lm_serve's prefill, batch 4,
+             prompt 64, float32) equal op by op to its meta count, beside
+             lm_work's operations
   timing     CUDA events on the main-path plans: kernel (3 warm-ups, median
              of 20; the range kernels: the launches over the bulk order cut
              at each superstep, the same function as one full launch), plain version on the card (SpTRSV once, SpMV median of
@@ -235,7 +252,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              of the order over runs of slack supersteps and its slack
 
 then the ``kernels`` summary line (the path launches include those of the
-validate, strategies, main_path_auto, pcg and serve phases), the nvidia-smi
+validate, strategies, main_path_auto, pcg, serve, distributed and dryrun
+phases), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. It exits non-zero,
 printing no result, without CUDA or outside a checkout of the repository.
 """
@@ -247,7 +265,8 @@ import subprocess
 import sys
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -281,6 +300,7 @@ MAIN_M = 32
 RELERR_VS_SCIPY = 1e-5
 LIBRARY_GAP = 1e-4  # a yardstick's answer against the kernel's: the same system solved
 STRATEGIES = ("growlocal", "serial", "wavefront", "spmp", "hdagg", "funnel-gl", "block")
+TWIN_WORKERS = 2  # processes that solve the strategies' plans on the CPU
 # the pcg phase: poisson2d_matrix(512), (n, nnz(A), nnz(IC(0) factor))
 PCG_GRID = 512
 PCG_SIZES = (262_144, 1_308_672, 785_408)
@@ -636,6 +656,14 @@ def plan_bsp_cost(solver, L, barrier=500.0) -> float:
     return float(loads.max(axis=1).sum() + barrier * plan.n_supersteps)
 
 
+def twin_args(solver, backend="scan") -> dict:
+    """What binds ``solver``'s own plan anew on the CPU (see ``cpu_twin``):
+    plain data, which a worker process can take."""
+    return dict(exec_plan=solver.exec_plan, total_perm=solver._perm.cpu().numpy(),
+                backend=backend, dtype=solver.dtype, fingerprint=solver.fingerprint,
+                strategy=solver.strategy, lower=solver.lower)
+
+
 def cpu_twin(solver, backend="scan"):
     """``solver``'s own plan bound on the CPU, the plain version of every
     kernel: the same rows, order and values, with no second schedule. On
@@ -646,10 +674,50 @@ def cpu_twin(solver, backend="scan"):
 
     import repro_torch
 
-    return repro_torch.TriangularSolver(
-        exec_plan=solver.exec_plan, total_perm=solver._perm.cpu().numpy(), backend=backend,
-        dtype=solver.dtype, device=torch.device("cpu"), fingerprint=solver.fingerprint,
-        strategy=solver.strategy, lower=solver.lower, inspector_seconds=0.0)
+    return repro_torch.TriangularSolver(**twin_args(solver, backend),
+                                        device=torch.device("cpu"), inspector_seconds=0.0)
+
+
+def twin_worker_init(src: str) -> None:
+    sys.path.insert(0, src)
+
+
+def twin_pool():
+    """Worker processes for the CPU plain versions of the card's plans
+    (spawned: the parent holds a CUDA context)."""
+    return ProcessPoolExecutor(TWIN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=twin_worker_init, initargs=(str(ROOT / "src"),))
+
+
+def scan_plan_solves(L, rhs_list, **plan_kw) -> tuple:
+    """In a worker process: ``TriangularSolver.plan(L, device="cpu",
+    backend="scan", **plan_kw)``, its Selection (a dict, or None), its
+    answers (numpy) to ``rhs_list`` and the seconds of the plan."""
+    import torch
+
+    import repro_torch
+
+    t0 = time.perf_counter()
+    cpu = repro_torch.TriangularSolver.plan(L, device=torch.device("cpu"), backend="scan",
+                                            **plan_kw)
+    plan_s = time.perf_counter() - t0
+    sel = None if cpu.selection is None else cpu.selection.as_dict()
+    return sel, [cpu.solve(rhs).numpy() for rhs in rhs_list], plan_s
+
+
+def twin_solves(args: dict, rhs_list) -> tuple:
+    """In a worker process: the answers (numpy) of the solver that
+    ``twin_args`` describes, bound on the CPU, to ``rhs_list``, and the
+    seconds of those solves."""
+    import torch
+
+    import repro_torch
+
+    twin = repro_torch.TriangularSolver(**args, device=torch.device("cpu"),
+                                        inspector_seconds=0.0)
+    t0 = time.perf_counter()
+    out = [twin.solve(rhs).numpy() for rhs in rhs_list]
+    return out, time.perf_counter() - t0
 
 
 def scipy_refs(mats, inputs) -> dict:
@@ -673,10 +741,11 @@ def relerr(x, x64) -> float:
 
 
 def strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
-                     card) -> dict:
+                     card, pool) -> dict:
     """Every registered strategy through the front door on the card (see
-    the module docstring); returns the phase's record, which it has
-    emitted, with the launches of its solves."""
+    the module docstring), the CPU plain versions in ``pool``'s workers;
+    returns the phase's record, which it has emitted, with the launches of
+    its solves."""
     import torch
 
     import repro_torch
@@ -685,42 +754,46 @@ def strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, mai
 
     require(sorted(STRATEGIES) == list(available_strategies()),
             f"strategies {available_strategies()}")
-    rows, solvers = [], []
+    rows, solvers, pending = [], [], []
     sptrsv.reset_launches()  # the phase's launches start here
+    # the kernel's plain version on the same plan, on the CPU, in worker
+    # processes while the next plans are made: the plan's steps; on the
+    # serial plans (~100,000 steps, over 10 s each in the step loop) the
+    # level walk (sptrsv_level_ref), bitwise the step walk
     for name, L in mats.items():
         b, B, _ = inputs[name]
-        x64, X64 = refs[name]
         for strategy in STRATEGIES:
             t0 = time.perf_counter()
-            gpu = repro_torch.TriangularSolver.plan(L, strategy=strategy)  # cuda, k=8, kernel
+            gpu = repro_torch.TriangularSolver.plan(L, strategy=strategy)  # cuda, k=8
             plan_s = time.perf_counter() - t0
             require(gpu.strategy == strategy and gpu.info()["mode"] == "bsp"
                     and gpu.device.type == "cuda" and gpu.backend == "kernel",
                     f"{name} {strategy}: defaults")
-            # the kernel's plain version on the same plan, on the CPU: the
-            # plan's steps; on the serial plans (~100,000 steps, over 10 s
-            # each in the step loop) the level walk (sptrsv_level_ref),
-            # bitwise the step walk
-            cpu = cpu_twin(gpu, "kernel" if strategy == "serial" else "scan")
+            backend = "kernel" if strategy == "serial" else "scan"
+            twin = pool.submit(twin_solves, twin_args(gpu, backend), [b, B])
             row = {"matrix": name, "strategy": strategy, "plan_s": plan_s,
-                   **{key: gpu.info()["plan"][key] for key in ("n_steps", "n_supersteps", "W", "k")},
-                   **level_shape(gpu), "bsp_cost": plan_bsp_cost(gpu, L), "cpu_plain_s": 0.0,
-                   "cpu_plain": cpu.backend}
-            for kname, rhs, ref in (("sptrsv_single", b, x64), ("sptrsv_mrhs", B, X64)):
-                x = gpu.solve(rhs)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                x_cpu = cpu.solve(rhs)
-                row["cpu_plain_s"] += time.perf_counter() - t0
-                require(bool(torch.isfinite(x).all()), f"{name} {strategy}: non-finite x")
-                require(bitwise_equal(x, x_cpu),
-                        f"{name} {strategy} {kname}: kernel != CPU plain version")
-                main_err[kname] = max(main_err[kname], max_abs(x, x_cpu))
-                err = relerr(x, ref)
-                require(err < RELERR_VS_SCIPY, f"{name} {strategy} {kname}: relerr {err}")
-                row["relerr_vs_scipy_f64" + ("" if kname == "sptrsv_single" else "_m32")] = err
-            rows.append(row)
-            solvers.append((row, gpu))
+                   **{key: gpu.info()["plan"][key]
+                      for key in ("n_steps", "n_supersteps", "W", "k")},
+                   **level_shape(gpu), "bsp_cost": plan_bsp_cost(gpu, L),
+                   "cpu_plain": backend}
+            xs = [gpu.solve(rhs) for rhs in (b, B)]
+            torch.cuda.synchronize()
+            pending.append((name, strategy, row, gpu, xs, twin))
+    for name, strategy, row, gpu, xs, twin in pending:
+        x_cpus, row["cpu_plain_s"] = twin.result()
+        x64, X64 = refs[name]
+        for kname, ref, x, x_cpu in zip(("sptrsv_single", "sptrsv_mrhs"), (x64, X64), xs,
+                                        x_cpus):
+            x_cpu = torch.from_numpy(x_cpu)
+            require(bool(torch.isfinite(x).all()), f"{name} {strategy}: non-finite x")
+            require(bitwise_equal(x, x_cpu),
+                    f"{name} {strategy} {kname}: kernel != CPU plain version")
+            main_err[kname] = max(main_err[kname], max_abs(x, x_cpu))
+            err = relerr(x, ref)
+            require(err < RELERR_VS_SCIPY, f"{name} {strategy} {kname}: relerr {err}")
+            row["relerr_vs_scipy_f64" + ("" if kname == "sptrsv_single" else "_m32")] = err
+        rows.append(row)
+        solvers.append((row, gpu))
     launches = dict(sptrsv.launches)
     want = len(rows)
     require(launches["single"] == want and launches["mrhs"] == want
@@ -737,11 +810,12 @@ def strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, mai
 
 
 def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err, card,
-               strategy_rows):
+               strategy_rows, pool):
     """``strategy="auto"`` on the card, model-based and tuned (see the
-    module docstring); returns the phase's record, which it has emitted,
-    with the launches of its solves and trials, and the PlanCache that
-    holds the model-based plans."""
+    module docstring), the CPU scan plans in ``pool``'s workers; returns
+    the phase's record, which it has emitted, with the launches of its
+    solves and trials, and the PlanCache that holds the model-based
+    plans."""
     import torch
 
     import repro_torch
@@ -754,21 +828,20 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
     # one PlanCache for both matrices: the serve phase registers them
     # through it and builds no second plan
     cache = repro_torch.PlanCache()
+    # the CPU scan plans, made in worker processes while the card's are
+    cpu_jobs = {name: pool.submit(scan_plan_solves, L, inputs[name][:2], strategy="auto")
+                for name, L in mats.items()}
     sptrsv.reset_launches()  # the model-based path's launches start here
     for name, L in mats.items():
         b, B, _ = inputs[name]
         x64, X64 = refs[name]
-        cache_cpu = repro_torch.PlanCache()
         before = cache.stats.as_dict()
         t0 = time.perf_counter()
         gpu = repro_torch.TriangularSolver.plan(L, strategy="auto", cache=cache)
         plan_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu = repro_torch.TriangularSolver.plan(L, strategy="auto", cache=cache_cpu,
-                                                device="cpu", backend="scan")
-        cpu_plan_s = time.perf_counter() - t0
+        cpu_sel, x_cpus, cpu_plan_s = cpu_jobs[name].result()
         sel = gpu.selection
-        require(sel is not None and not sel.tuned and sel.as_dict() == cpu.selection.as_dict(),
+        require(sel is not None and not sel.tuned and sel.as_dict() == cpu_sel,
                 f"{name}: the card's Selection differs from the CPU scan plan's")
         require(gpu.strategy == sel.strategy and gpu.info()["slack"] == sel.options.slack,
                 f"{name}: the plan is not the Selection's")
@@ -782,10 +855,10 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
                "selection": sel.as_dict(), "mode": gpu.info()["mode"],
                "slack_unit": gpu.info()["slack_unit"], **level_shape(gpu),
                "n_supersteps": gpu.n_supersteps}
-        for kname, rhs, ref in (("single", b, x64), ("m32", B, X64)):
+        for kname, rhs, ref, x_cpu in zip(("single", "m32"), (b, B), (x64, X64), x_cpus):
             x = gpu.solve(rhs)
             torch.cuda.synchronize()
-            x_cpu = cpu.solve(rhs)
+            x_cpu = torch.from_numpy(x_cpu)
             require(bitwise_equal(x, x_cpu), f"{name} auto {kname}: != CPU scan plan")
             key = ("sptrsv_elastic_" if gpu.info()["mode"] == "elastic" else "sptrsv_") + (
                 "single" if kname == "single" else "mrhs")
@@ -801,9 +874,9 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
         require(again is gpu and st["selections"] == 1 and st["selection_hits"] == 1
                 and st["misses"] == 1 and st["hits"] == 1, f"{name}: second auto plan: {st}")
         row["cache"] = st
-        rows.append((row, gpu, cpu_plan_s, cache_cpu))
+        rows.append((row, gpu))
     model_launches = dict(sptrsv.launches)
-    nb_mode = [r for r, *_ in rows if r["matrix"] == "nb"][0]["mode"]
+    nb_mode = [r for r, _ in rows if r["matrix"] == "nb"][0]["mode"]
     require(nb_mode == "elastic" and model_launches["elastic_single"] > 0
             and model_launches["elastic_mrhs"] > 0,
             f"auto on NB: mode {nb_mode}, launches {model_launches}")
@@ -813,7 +886,7 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
     # measured trials on NB only: on ER they add half a minute of host time
     # (PERF.md §6, PR 19)
     tuned_rows = [r for r in rows if r[0]["matrix"] == "nb"]
-    for row, gpu, _, cache_cpu in tuned_rows:
+    for row, gpu in tuned_rows:
         name = row["matrix"]
         L = mats[name]
         b, B, _ = inputs[name]
@@ -824,16 +897,17 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
         ts = tuned.selection
         require(ts.tuned and ts.timings and ts.slack_timings, f"{name}: tune=True {ts}")
         require(tuned.device.type == "cuda" and tuned.backend == "kernel", f"{name}: tuned")
-        # the tuned answer, bitwise a CPU scan plan of the tuned pick
-        ref = repro_torch.TriangularSolver.plan(L, strategy=ts.strategy, options=ts.options,
-                                                device="cpu", backend="scan", cache=cache_cpu)
-        for rhs in (b, B):
-            x = tuned.solve(rhs)
-            torch.cuda.synchronize()
-            require(bitwise_equal(x, ref.solve(rhs)), f"{name}: tuned != CPU scan plan")
+        # the tuned answer, bitwise a CPU scan plan of the tuned pick (made
+        # in a worker process while the second plan is)
+        ref = pool.submit(scan_plan_solves, L, [b, B], strategy=ts.strategy,
+                          options=ts.options)
         t0 = time.perf_counter()
         again = repro_torch.TriangularSolver.plan(L, strategy="auto", tune=True, cache=cache_t)
         second_s = time.perf_counter() - t0
+        for rhs, x_cpu in zip((b, B), ref.result()[1]):
+            x = tuned.solve(rhs)
+            torch.cuda.synchronize()
+            require(bitwise_equal(x, torch.from_numpy(x_cpu)), f"{name}: tuned != CPU scan plan")
         require(again is tuned and cache_t.stats.selections == 1
                 and cache_t.stats.selection_hits == 1, f"{name}: second tuned plan")
         model = pick(gpu.selection)
@@ -849,15 +923,15 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
     tuned_launches = dict(sptrsv.launches)
     require(sum(tuned_launches.values()) > 0, "the trials launched no kernel")
     # the kernels alone, after the counters are read
-    for row, gpu, *_ in rows:
+    for row, gpu in rows:
         row["ms"] = kernel_ms(gpu, None, cuda_times)
         row["ms_m32"] = kernel_ms(gpu, MAIN_M, cuda_times)
-    for (row, *_), tuned in zip(tuned_rows, tuned_solvers):
+    for (row, _), tuned in zip(tuned_rows, tuned_solvers):
         row["tuned"]["ms"] = kernel_ms(tuned, None, cuda_times)
         row["tuned"]["ms_m32"] = kernel_ms(tuned, MAIN_M, cuda_times)
-    rec = {"phase": "main_path_auto", "matrices": [r for r, *_ in rows],
+    rec = {"phase": "main_path_auto", "matrices": [r for r, _ in rows],
            "plan_cache": cache.stats.as_dict(),
-           "tune_matrices": [r["matrix"] for r, *_ in tuned_rows],
+           "tune_matrices": [r["matrix"] for r, _ in tuned_rows],
            "launches": {"model": model_launches, "tune_and_checks": tuned_launches},
            "bitwise_vs_cpu_scan": True, "relerr_limit": RELERR_VS_SCIPY, **card}
     emit(rec)
@@ -1182,18 +1256,6 @@ def distributed_phase(solvers, mats, inputs, cuda_times, bitwise_equal, max_abs,
     return rec
 
 
-def plan_work(plan, esize) -> dict:
-    """What this run's data needs of a solve, padding left out: the plan's
-    real entries (index and value), real lane steps (row, diagonal, accum
-    flag) and finishing rows."""
-    real = plan.row_ids < plan.n
-    entries = int((plan.val_src >= 0).sum())
-    lane_steps = int(real.sum())
-    return {"entries": entries, "finishes": int((real & ~plan.accum).sum()),
-            "bytes": entries * (4 + esize) + lane_steps * (4 + esize + 1),
-            "padding_share": 1.0 - entries / plan.col_idx.size}
-
-
 def bound(nbytes, ops) -> dict:
     """The least time of the card for ``nbytes`` moved and ``ops``
     operations (data sheet rates): the larger of the two."""
@@ -1221,6 +1283,7 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
     from repro_torch.kernels import sptrsv
     from repro_torch.kernels.ops import stack_level_bank
     from repro_torch.kernels.ref import sptrsv_level_bank_ref
+    from repro_torch.launch.dryrun import sptrsv_work
     from repro_torch.pipeline import GroupBank
     from repro_torch.serve import (
         GroupReplay,
@@ -1482,7 +1545,7 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
     require(lib_gap < LIBRARY_GAP, f"bank: the library's block-diagonal solve differs "
             f"from the bank kernel by {lib_gap}")
     esize = b_col.element_size()
-    work = plan_work(er_solver.exec_plan, esize)  # each lane: the same pattern
+    work = sptrsv_work(er_solver.exec_plan, esize)  # each lane: the same pattern
     lanes_used = 8
     timing = {"matrix": "er", "kernel": "sptrsv_bank", "m": m, "lanes": lanes_used,
               "bank_lanes": int(bank.level_off.shape[0]), "ms": ms, "cols_ms": cols_ms,
@@ -2338,6 +2401,121 @@ def lm_train_phase(args, dev, card) -> dict:
     return recs
 
 
+DRYRUN_LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_UNPROFILED = ("solve_nb100k_rows",)
+
+
+def dryrun_phase(dev, card) -> dict:
+    """The port's dry run (``repro_torch.launch.dryrun``; see the module
+    docstring): the SpTRSV cells on 16x16 meshes of cuda:0 positions, the
+    LM cells of granite-3-2b counted on meta, and the counting mode on
+    CUDA tensors against meta on lm_serve's prefill. Emits a line a cell
+    and the phase's record, and returns the record with the launches of
+    its path (the cells' checked solves)."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import sptrsv
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.launch.op_analysis import count_ops
+    from repro_torch.models import abstract_params, init_params, param_specs, prefill
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sptrsv.reset_launches()  # the dry run's launches start here
+    cells = []
+    for name in dryrun.SPTRSV_SHAPES:
+        t0 = time.perf_counter()
+        # the profile of one solve, on one cell a matrix (it took 17-35 s on
+        # the third cell, whose launches are the second's)
+        probe = (None if name in DRYRUN_UNPROFILED else
+                 lambda solve: profile_iterations(lambda k: [solve() for _ in range(k)], 1))
+        rec = dryrun.run_sptrsv_cell(name, save=False, device=dev, probe=probe)
+        torch.cuda.synchronize()
+        require(rec["status"] == "OK" and rec["bitwise_vs_kernel_backend"] and rec["x_finite"],
+                f"dryrun {name}: {rec.get('error')}")
+        require(rec["launches_counted"] == rec["launches_per_solve"]
+                == rec["binding"]["launches_per_solve"]["mrhs"],
+                f"dryrun {name}: launches {rec['launches_counted']} != describe()'s")
+        cell = {key: rec[key] for key in (
+            "cell", "mesh", "chips", "positions_on", "supersteps", "shard", "comm", "nnz",
+            "model_flops", "rhs", "solve_values", "launches_per_solve", "launches_counted",
+            "ms", "ms_all", "ms_clock", "bound_share", "roofline", "plan_s", "bind_s",
+            "reference_s", "timing_s", "compile_s",
+            "bitwise_vs_kernel_backend", "nvidia_smi")}
+        cell["n_levels"] = rec["binding"]["n_levels"]
+        cell["probe_s"] = rec.get("probe_s")
+        cell["profile_1_solve"] = None if probe is None else {key: rec["probe"][key] for key in (
+            "elapsed_ms", "ms_per_iter", "device_busy_ms", "kernel_ms_sum", "idle_share",
+            "kernels", "launches", "top")}
+        cell["cell_s"] = time.perf_counter() - t0
+        cells.append(cell)
+        emit({"phase": "dryrun", "sptrsv": cell, **card})
+    sptrsv_launches = dict(sptrsv.launches)
+    launches = {"range_mrhs": sum(c["launches_counted"] for c in cells)}
+    require(launches["range_mrhs"] > 0, "the dry run launched no range kernel")
+
+    lm = []
+    for shape in DRYRUN_LM_SHAPES:
+        rec = dryrun.run_cell(LM_ARCH, shape, save=False)
+        require(rec["status"] == "OK", f"dryrun {LM_ARCH} {shape}: {rec.get('error')}")
+        r = rec["roofline"]
+        lm.append({"cell": rec["cell"], "count_s": rec["count_s"], "chips": rec["chips"],
+                   "flops_total": r["flops_total"], "bytes_total": r["bytes_total"],
+                   "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+                   "t_memory_lb_s": r["t_memory_lb_s"], "dominant": r["dominant"],
+                   "model_flops": rec["model_flops"],
+                   "useful_flops_ratio": rec["useful_flops_ratio"],
+                   "memory_analysis": {k: v for k, v in rec["memory_analysis"].items()
+                                       if k.endswith("_in_bytes")}})
+        emit({"phase": "dryrun", "lm": lm[-1]})
+
+    # the counting mode on the card's tensors against meta: lm_serve's prefill
+    cfg = configs.get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(param_specs(cfg), gen, dtype=torch.float32, device=dev)
+    batch = make_train_batch(cfg, batch=LM_BATCH, seq_len=LM_PROMPT, seed=0, device=dev)
+    max_len = LM_PROMPT + LM_NEW
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        (logits, _, _), c_cuda = count_ops(
+            lambda: prefill(cfg, params, batch, max_len=max_len), log=True)
+        torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(logits).all()), "dryrun: the counted prefill's logits")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta_params = abstract_params(param_specs(cfg), dtype=torch.float32)
+    meta_batch = {k: v.to("meta") for k, v in batch.items()}
+    c_meta = count_ops(lambda: prefill(cfg, meta_params, meta_batch, max_len=max_len),
+                       log=True)[1]
+    meta_s = time.perf_counter() - t0
+    a, b = c_cuda.costed(), c_meta.costed()
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    require(a == b and c_cuda.dots == c_meta.dots,
+            f"dryrun: the CUDA count != the meta count op by op ({len(a)} / {len(b)} ops; "
+            f"first difference at {first}: {a[first] if first is not None else None} / "
+            f"{b[first] if first is not None else None})")
+    work = lm_work(cfg, LM_BATCH, LM_PROMPT, None)
+    counted = {"ops": len(a), "dots": len(c_cuda.dots), "flops": c_cuda.flops,
+               "bytes": c_cuda.bytes, "lm_work_ops": work["ops"],
+               "flops_over_lm_work": c_cuda.flops / work["ops"],
+               "top": c_cuda.breakdown(top=5), "cuda_s": cuda_s, "meta_s": meta_s,
+               "equal_op_by_op": True}
+    emit({"phase": "dryrun", "count_cuda_vs_meta": counted})
+    rec = {"phase": "dryrun", "sptrsv_cells": [c["cell"] for c in cells],
+           "lm_cells": [c["cell"] for c in lm], "launches": launches,
+           "launches_all": sptrsv_launches, "phase_s": time.perf_counter() - t_phase, **card}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import argparse
 
@@ -2364,6 +2542,7 @@ def main() -> int:
         sptrsv_level_ref,
         sptrsv_ref,
     )
+    from repro_torch.launch.dryrun import dominant_values, nvidia_smi_line, sptrsv_work
     from repro_torch.solver.executor import pad_rhs, plan_arrays
     from repro_torch.sparse import (
         csr_from_coo,
@@ -2378,8 +2557,8 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ------------------------------------------------------------ env
-    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).strip().splitlines()[0].strip()
+    smi = nvidia_smi_line()
+    require(smi, "nvidia-smi gave no name and power limit")
     nvcc_line = [ln for ln in run([build.nvcc_path(), "--version"]).splitlines()
                  if "release" in ln][0].strip()
     card = {"nvidia_smi": smi}
@@ -2559,25 +2738,13 @@ def main() -> int:
     # ------------------------------------------------------ main_path
     import scipy.sparse.linalg as spla
 
-    def dominant(L, data):
-        """``data`` with each diagonal entry set to +-(1 + the sum of its
-        row's |off-diagonals|): the solve's |x| is then bounded by
-        max|b| however deep the DAG."""
-        rows = L.row_of_entry()
-        on_diag = L.indices == rows
-        off = np.bincount(rows, weights=np.where(on_diag, 0.0, np.abs(data)),
-                          minlength=L.n_rows)
-        out = np.array(data, dtype=np.float64)
-        out[on_diag] = np.where(data[on_diag] < 0, -1.0, 1.0) * (1.0 + off[rows[on_diag]])
-        return out
-
     mats = {}
     t0 = time.perf_counter()
     mats["er"] = erdos_renyi_lower(100_000, 1e-4, seed=0)
     nb = narrow_band_lower(100_000, 0.14, 10, seed=0)
     # the paper's NB values make |x| grow past float32 along the 10^4-step
     # deep chains (inf, then NaN); keep its pattern, make it dominant
-    mats["nb"] = dataclasses.replace(nb, data=dominant(nb, nb.data))
+    mats["nb"] = dataclasses.replace(nb, data=dominant_values(nb))
     lf = ichol0(poisson2d_matrix(128))
     gen_s = time.perf_counter() - t0
     rng = np.random.default_rng(2025)
@@ -2594,7 +2761,7 @@ def main() -> int:
         cpu = repro_torch.TriangularSolver.plan(L, device="cpu", backend="scan")
         b = rng.standard_normal(n)
         B = rng.standard_normal((n, MAIN_M))
-        new_data = dominant(L, L.data * rng.uniform(0.5, 1.5, L.nnz))
+        new_data = dominant_values(L, L.data * rng.uniform(0.5, 1.5, L.nnz))
         inputs[name] = (b, B, new_data)
         row = {"matrix": name, "n": n, "nnz": L.nnz, "plan_s": round(plan_s, 3),
                **{key: gpu.info()["plan"][key] for key in ("n_steps", "n_supersteps", "W", "k")},
@@ -2723,11 +2890,12 @@ def main() -> int:
         path_launches[key] = path_launches.get(key, 0) + v
 
     # --------------------------------------------- strategies, auto
-    refs = scipy_refs(mats, inputs)
-    strat = strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
-                             card)
-    auto, auto_cache = auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs,
-                                  main_err, card, strat["rows"])
+    with twin_pool() as pool:  # the CPU plain versions of both phases' plans
+        refs = scipy_refs(mats, inputs)
+        strat = strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs,
+                                 main_err, card, pool)
+        auto, auto_cache = auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs,
+                                      main_err, card, strat["rows"], pool)
     # the kernels' path launches add these paths' (the tuned plans' trials
     # and solves too, but not the launches that time a kernel alone)
     for counts in (strat["launches"], *auto["launches"].values()):
@@ -2764,6 +2932,11 @@ def main() -> int:
 
     # ------------------------------------------------------- lm_train
     lm_train_phase(args, dev, card)
+
+    # --------------------------------------------------------- dryrun
+    dry = dryrun_phase(dev, card)
+    for key, v in dry["launches"].items():
+        path_launches[key] = path_launches.get(key, 0) + v
 
     # --------------------------------------------------------- timing
     def graph_ms(fn, reps):
@@ -2818,7 +2991,7 @@ def main() -> int:
         level_s = time.perf_counter() - t0
         la = level_plan_arrays(plan, device=dev, order=order)
         esize = la.vals.element_size()
-        work = plan_work(plan, esize)
+        work = sptrsv_work(plan, esize)  # the plan's share; the right-hand sides below
         stats = order.stats()
         for kname, m in (("sptrsv_single", None), ("sptrsv_mrhs", MAIN_M)):
             b_pad = rhs_pad(gpu.n, m)
@@ -2915,7 +3088,7 @@ def main() -> int:
         level_s = time.perf_counter() - t0
         la = level_plan_arrays(plan, device=dev, order=order)
         esize = la.vals.element_size()
-        work = plan_work(plan, esize)
+        work = sptrsv_work(plan, esize)  # the plan's share; the right-hand sides below
         for kname, m in (("sptrsv_elastic_single", None), ("sptrsv_elastic_mrhs", MAIN_M)):
             b_pad = rhs_pad(el.n, m)  # the bulk timing's right-hand side
             ms = statistics.median(cuda_times(

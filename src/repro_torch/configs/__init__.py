@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.models.lm import ModelConfig
 
@@ -72,3 +72,23 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).REDUCED
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """None if the (arch, shape) cell runs; otherwise the skip reason."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return (
+            "full quadratic attention: 500k-token decode is out of scope by "
+            "assignment (sub-quadratic archs only)"
+        )
+    return None
+
+
+def all_cells():
+    """Every (arch, shape) pair with its skip status."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            out.append((arch, shape.name, shape_applicable(cfg, shape)))
+    return out

@@ -14,6 +14,8 @@
     ``mode="elastic"`` (``ElasticPlan``, ``DEFAULT_SLACK``)
   * ``partition_plan`` — the host-side row-shard partition with its halo
     exchange tables (``RowShardPlan``, ``HaloRound``)
+  * ``grow_local_pipeline`` — GrowLocal as a pipeline-parallel schedule
+    (``PipelineProblem``, ``pipeline_dag``, ``pipeline_stats``)
 
 Copies of the JAX package's ``repro.core`` modules of the same names. The
 front door for solving is ``repro_torch.pipeline.TriangularSolver``.
@@ -36,6 +38,12 @@ from repro_torch.core.elastic import (
 from repro_torch.core.funnel import funnel_grow_local
 from repro_torch.core.growlocal import grow_local
 from repro_torch.core.hdagg import hdagg_schedule
+from repro_torch.core.pipeline_schedule import (
+    PipelineProblem,
+    grow_local_pipeline,
+    pipeline_dag,
+    pipeline_stats,
+)
 from repro_torch.core.plan import ExecPlan, compile_plan, plans_bitwise_equal
 from repro_torch.core.reorder import Reordering, apply_reordering, schedule_order
 from repro_torch.core.rowshard import HaloRound, RowShardPlan, partition_plan
@@ -93,4 +101,8 @@ __all__ = [
     "partition_plan",
     "RowShardPlan",
     "HaloRound",
+    "PipelineProblem",
+    "pipeline_dag",
+    "grow_local_pipeline",
+    "pipeline_stats",
 ]

@@ -70,6 +70,51 @@ def _causal_window_mask(
     return mask
 
 
+def _chunk_scores(q32, kb, m, mask):
+    """The step's probabilities: (m_new, correction, p) of one KV chunk."""
+    logits = torch.einsum("bshk,bthk->bhst", q32, kb)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    correction = torch.exp(m - m_new)
+    p = torch.exp(logits - m_new[..., None])
+    return m_new, correction, p
+
+
+class _ChunkStep(torch.autograd.Function):
+    """One KV chunk of the online softmax, ``(m, l, acc) -> (m_new, l_new,
+    acc_new)``, saving only its inputs: the backward recomputes the chunk's
+    probabilities, as the JAX package's ``jax.checkpoint(step,
+    nothing_saveable)``, so a training step keeps no [B, H, S, C]
+    probabilities per chunk. As there, the recompute is the logits product
+    alone: the backward of ``acc_new = acc * correction + p @ vb`` needs p
+    and vb, not the product."""
+
+    @staticmethod
+    def forward(ctx, q32, kb, vb, m, l, acc, mask):
+        m_new, correction, p = _chunk_scores(q32, kb, m, mask)
+        l_new = l * correction + p.sum(dim=-1)
+        acc_new = acc * correction.transpose(1, 2)[..., None] + torch.einsum(
+            "bhst,bthk->bshk", p, vb
+        )
+        ctx.save_for_backward(q32, kb, vb, m, l, acc, mask)
+        return m_new, l_new, acc_new
+
+    @staticmethod
+    def backward(ctx, g_m, g_l, g_acc):
+        q32, kb, vb, m, l, acc, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            q_, kb_, m_, l_, acc_ = (t.detach().requires_grad_()
+                                     for t in (q32, kb, m, l, acc))
+            m_new, correction, p = _chunk_scores(q_, kb_, m_, mask)
+            l_new = l_ * correction + p.sum(dim=-1)
+            acc_kept = acc_ * correction.transpose(1, 2)[..., None]
+        g_p = torch.einsum("bshk,bthk->bhst", g_acc, vb)
+        g_vb = torch.einsum("bhst,bshk->bthk", p.detach(), g_acc)
+        g_q, g_kb, g_m0, g_l0, g_acc0 = torch.autograd.grad(
+            (m_new, l_new, acc_kept, p), (q_, kb_, m_, l_, acc_), (g_m, g_l, g_acc, g_p))
+        return g_q, g_kb, g_vb, g_m0, g_l0, g_acc0, None
+
+
 def _chunked_attention(
     q: torch.Tensor,  # [B, S, H, Dh]
     k: torch.Tensor,  # [B, T, H, Dh]
@@ -80,7 +125,9 @@ def _chunked_attention(
     kv_chunk: int,
 ) -> torch.Tensor:
     """Flash-style attention: a loop over KV chunks with the running max and
-    sum in f32, memory O(B*H*S*kv_chunk) instead of O(B*H*S*T)."""
+    sum in f32, memory O(B*H*S*kv_chunk) instead of O(B*H*S*T). Each chunk
+    is one ``_ChunkStep``, whose backward recomputes the chunk's
+    probabilities (the JAX package's remat of the chunk step)."""
     B, S, H, Dh = q.shape
     T = k.shape[1]
     assert T % kv_chunk == 0, "pad kv length to a multiple of kv_chunk"
@@ -95,22 +142,13 @@ def _chunked_attention(
     for idx in range(n_chunks):
         kb = k[:, idx * kv_chunk:(idx + 1) * kv_chunk].float()
         vb = v[:, idx * kv_chunk:(idx + 1) * kv_chunk].float()
-        logits = torch.einsum("bshk,bthk->bhst", q32, kb)
         k_pos = idx * kv_chunk + torch.arange(kv_chunk, device=q.device)[None, :]
         mask = torch.ones((S, kv_chunk), dtype=torch.bool, device=q.device)
         if causal:
             mask &= k_pos <= q_pos
         if window is not None:
             mask &= k_pos > q_pos - window
-        logits = torch.where(mask[None, None], logits, NEG_INF)
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        correction = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new[..., None])
-        l = l * correction + p.sum(dim=-1)
-        acc = acc * correction.transpose(1, 2)[..., None] + torch.einsum(
-            "bhst,bthk->bshk", p, vb
-        )
-        m = m_new
+        m, l, acc = _ChunkStep.apply(q32, kb, vb, m, l, acc, mask)
     out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype)
 

@@ -18,8 +18,9 @@ on a leading dimension, as in the JAX package (the hybrid's in
 ``superblocks`` of (rec, rec, local-attn) and a recurrent ``tail``; the
 encoder-decoder's in ``enc_layers`` and ``dec_layers``), and a Python
 loop over layers takes the place of ``lax.scan``. The JAX package's
-``sharding_ctx.constrain`` is a no-op outside a mesh context; on one card
-there is none, so the port drops those calls.
+``sharding_ctx.constrain`` calls are left out: the port's
+``distributed.sharding_ctx.constrain`` returns its input unchanged, as one
+process has no layout to constrain.
 
 ``forward(train=True)`` is the training forward: with ``cfg.remat`` each
 layer (the hybrid's superblock, each tail, encoder and decoder layer) runs

@@ -90,7 +90,10 @@ def time_mix(params, cfg: RWKVConfig, x, *, shift_prev=None, state=None,
     k = (mix(1) @ params["wk"]).reshape(B, S, H, Dh)
     v = (mix(2) @ params["wv"]).reshape(B, S, H, Dh)
     g = mix(3) @ params["wg"]
-    dd = (mix(4) @ params["decay_a"]) @ params["decay_b"] + params["decay_bias"]
+    # one three-operand einsum, as in the JAX package: both pick the
+    # contraction order by opt_einsum's rule for these shapes
+    dd = torch.einsum("bsd,dr,re->bse", mix(4), params["decay_a"],
+                      params["decay_b"]) + params["decay_bias"]
     log_w = -torch.exp(dd.float()).reshape(B, S, H, Dh)
     u = params["bonus_u"].reshape(H, Dh)
 
