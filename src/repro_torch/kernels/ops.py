@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.levels import LevelOrder, level_order, round_ranges
@@ -151,8 +152,9 @@ def solve_with_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
     scratch row, run ``sptrsv_level_cuda`` over ``la`` in the bulk level
     order (b f[n] or f[n, m]), drop the scratch row. Shared by
     ``bind_kernel_solver`` and the ``kernel`` backend."""
-    b_pad = pad_rhs(b.to(la.vals.dtype))
-    return sptrsv_level_cuda(*la[:7], b_pad)[: la.n]
+    with obs.span("kernel.solve", cat="kernel"):
+        b_pad = pad_rhs(b.to(la.vals.dtype))
+        return sptrsv_level_cuda(*la[:7], b_pad)[: la.n]
 
 
 class LevelBank(NamedTuple):
@@ -236,14 +238,15 @@ def solve_with_level_bank(bank: LevelBank, lane_idx, B) -> torch.Tensor:
     column-major buffer f[m, n+1] (the scratch entry 0), one launch of
     ``sptrsv_level_bank_cuda`` solves every column, and one gather by the
     lanes' ``inv`` returns x f[n, m] in caller order."""
-    lanes = torch.as_tensor(np.asarray(lane_idx, dtype=np.int64))
-    B = torch.as_tensor(B).to(device=bank.vals.device, dtype=bank.vals.dtype)
-    m, n = lanes.shape[0], bank.n
-    b_col = B.new_zeros((m, n + 1))
-    on_device = lanes.to(B.device)
-    torch.gather(B.T, 1, bank.perm[on_device], out=b_col[:, :n])
-    x_col = sptrsv_level_bank_cuda(*bank[:9], lanes, b_col)
-    return torch.gather(x_col[:, :n], 1, bank.inv[on_device]).T
+    with obs.span("kernel.solve", cat="kernel"):
+        lanes = torch.as_tensor(np.asarray(lane_idx, dtype=np.int64))
+        B = torch.as_tensor(B).to(device=bank.vals.device, dtype=bank.vals.dtype)
+        m, n = lanes.shape[0], bank.n
+        b_col = B.new_zeros((m, n + 1))
+        on_device = lanes.to(B.device)
+        torch.gather(B.T, 1, bank.perm[on_device], out=b_col[:, :n])
+        x_col = sptrsv_level_bank_cuda(*bank[:9], lanes, b_col)
+        return torch.gather(x_col[:, :n], 1, bank.inv[on_device]).T
 
 
 def check_elastic_certificate(plan: ExecPlan) -> None:
@@ -277,9 +280,9 @@ def solve_with_elastic_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.
     """Elastic twin of ``solve_with_kernel_arrays``: cast ``b``, append the
     scratch row, run ``sptrsv_elastic_cuda`` (b f[n] or f[n, m]), drop the
     scratch row."""
-    b_pad = pad_rhs(b.to(la.vals.dtype))
-    x = sptrsv_elastic_cuda(*la[:7], b_pad)
-    return x[: la.n]
+    with obs.span("kernel.solve", cat="kernel"):
+        b_pad = pad_rhs(b.to(la.vals.dtype))
+        return sptrsv_elastic_cuda(*la[:7], b_pad)[: la.n]
 
 
 def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device=None):

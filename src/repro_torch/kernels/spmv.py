@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.backends.base import numpy_dtype
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
@@ -210,8 +211,9 @@ def _run(col, val, slice_ptr, row_len, width, x):
     fn = _entry(val.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(col.data_ptr(), val.data_ptr(), slice_ptr.data_ptr(), row_len.data_ptr(),
-                 n, width, x.data_ptr(), y.data_ptr(), stream)
+        with obs.span("kernel.launch", cat="kernel", kind="spmv"):
+            err = fn(col.data_ptr(), val.data_ptr(), slice_ptr.data_ptr(), row_len.data_ptr(),
+                     n, width, x.data_ptr(), y.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"spmv_sliced launch failed: CUDA error {err}")
     _count()

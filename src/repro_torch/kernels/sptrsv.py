@@ -45,6 +45,7 @@ import threading
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (
     sptrsv_level_bank_ref,
@@ -104,7 +105,8 @@ def _launch(kind, vals, b, *args):
     entry = _entry(kind, vals.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = entry(*args, stream)
+        with obs.span("kernel.launch", cat="kernel", kind=kind):
+            err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"sptrsv_{kind} launch failed: CUDA error {err}")
     _count(kind)

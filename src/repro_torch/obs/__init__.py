@@ -14,9 +14,10 @@ process-wide singleton). Usage::
 
 Spans are host-clock regions: a span around an asynchronous CUDA launch
 measures the enqueue, not the device work (the timed solves' step spans
-wait for the device). ``export_chrome_trace(path)`` writes a buffer as
-Chrome/Perfetto trace JSON and ``metrics_rows()`` flattens it into
-``repro-bench-rows/v1`` rows (``obs.export``).
+wait for the device). While a ``torch.profiler`` session runs, each span
+is also a profiler range of its name, in the profiler's trace beside the
+device operations it launched (``obs.trace``). ``export_chrome_trace(path)``
+writes a buffer as Chrome/Perfetto trace JSON (``obs.export``).
 """
 from repro_torch.obs.export import (
     TRACE_SCHEMA,
@@ -24,7 +25,6 @@ from repro_torch.obs.export import (
     chrome_trace_payload,
     export_chrome_trace,
     load_chrome_trace,
-    metrics_rows,
     validate_chrome_trace,
 )
 from repro_torch.obs.trace import (
@@ -71,7 +71,6 @@ __all__ = [
     "get_buffer",
     "is_enabled",
     "load_chrome_trace",
-    "metrics_rows",
     "span",
     "summary",
     "tracing",

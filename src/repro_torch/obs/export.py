@@ -1,4 +1,4 @@
-"""Exporters — Chrome/Perfetto ``trace_event`` JSON and flat metric rows.
+"""Exporter — Chrome/Perfetto ``trace_event`` JSON.
 
 ``export_chrome_trace(path)`` writes the active (or given) buffer as the
 Chrome Trace Event Format consumed by ``chrome://tracing``, Perfetto
@@ -8,16 +8,12 @@ grouped by thread. Span nesting is lexical (context managers), so the
 per-thread event stream is properly bracketed; ties at one timestamp are
 ordered E-before-B (and inner-before-outer among E's) so a stack-based
 consumer never underflows. A copy of the JAX package's ``obs/export.py``
-over the port's own ``obs.trace``: the same event order and row shape.
-
-``metrics_rows()`` flattens the same buffer into the
-``repro-bench-rows/v1`` row shape (``name, us_per_call, derived``) used
-by every benchmark JSON in this repo.
+over the port's own ``obs.trace``: the same event order.
 """
 from __future__ import annotations
 
 import json
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 from repro_torch.obs.trace import TraceBuffer, active_buffer, get_buffer, pid
 
@@ -146,25 +142,3 @@ def validate_chrome_trace(payload: dict) -> dict:
         raise ValueError(f"unclosed spans at end of trace: {open_spans}")
     return {"n_events": len(events), "n_pairs": pairs, "cats": sorted(cats)}
 
-
-def metrics_rows(
-    buffer: Optional[TraceBuffer] = None,
-) -> List[Tuple[str, float, str]]:
-    """The buffer flattened to ``repro-bench-rows/v1`` rows: one
-    ``(obs.<span name>, mean_us_per_call, "count=N total_us=T")`` row per
-    span name plus one ``(obs.counter.<name>, value, "counter")`` row per
-    counter.
-    """
-    summary = _resolve(buffer).summary()
-    rows: List[Tuple[str, float, str]] = []
-    for name, agg in summary["spans"].items():
-        rows.append(
-            (
-                f"obs.{name}",
-                agg["mean_us"],
-                f"count={agg['count']} total_us={agg['total_us']}",
-            )
-        )
-    for name, value in summary["counters"].items():
-        rows.append((f"obs.counter.{name}", float(value), "counter"))
-    return rows

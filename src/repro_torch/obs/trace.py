@@ -1,6 +1,7 @@
 """Tracing core — spans, counters, and the in-process ``TraceBuffer``.
 
-A copy of the JAX package's ``repro/obs/trace.py``. Design constraints:
+A copy of the JAX package's ``repro/obs/trace.py`` whose spans also reach
+the profiler (below). Design constraints:
 
   * **zero overhead when off** — ``span(...)`` on the disabled path is a
     single module-flag check returning one process-wide ``_NullSpan``
@@ -17,6 +18,13 @@ A copy of the JAX package's ``repro/obs/trace.py``. Design constraints:
 Spans nest lexically (context managers), so per-thread begin/end pairs
 are properly bracketed by construction.
 
+While a ``torch.profiler`` session runs, an enabled span also opens a
+profiler range of its own name, as ``record_function`` does: the span is
+then a ``user_annotation`` event in the profiler's Chrome trace, on the
+clock of the device operations it launched, so device idle can be charged
+to the span the host was in. The disabled path does not look at the
+profiler.
+
 Counters are monotonic ``int``s that wrap at ``COUNTER_WRAP`` (2**63 —
 documented two's-complement semantics so exported values stay exact in
 JSON/float64 consumers); ``reset_counters`` zeroes them.
@@ -29,9 +37,16 @@ import time
 from contextlib import contextmanager
 from typing import Dict, List, NamedTuple, Optional
 
+import torch
+
 # counters wrap modulo 2**63: large enough to be unreachable in practice,
 # small enough that every value survives a float64/JSON round-trip exactly
 COUNTER_WRAP = 1 << 63
+
+# the profiler's range ops, called as ``record_function`` calls them but
+# without its Python object: less host time a range
+_RANGE_ENTER = torch.ops.profiler._record_function_enter_new.default
+_RANGE_EXIT = torch.ops.profiler._record_function_exit._RecordFunction
 
 # spans kept per buffer before drops start (each record is ~200 bytes; the
 # default bounds a runaway traced serving loop at ~200 MB)
@@ -231,7 +246,7 @@ class Span:
     into its buffer on ``__exit__``. ``set(key=value)`` attaches args
     discovered mid-span (e.g. a cache hit flag known only at the end)."""
 
-    __slots__ = ("name", "cat", "args", "_buf", "_t0")
+    __slots__ = ("name", "cat", "args", "_buf", "_t0", "_range")
 
     def __init__(self, name: str, cat: str, args: dict, buf: TraceBuffer):
         self.name = name
@@ -239,17 +254,24 @@ class Span:
         self.args = args
         self._buf = buf
         self._t0 = 0
+        self._range = None  # the profiler range, while a profiler runs
 
     def set(self, **args) -> "Span":
         self.args.update(args)
         return self
 
     def __enter__(self) -> "Span":
+        if torch.autograd._profiler_enabled():
+            self._range = _RANGE_ENTER(self.name, None)
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = time.perf_counter_ns()
+        if self._range is not None:
+            with torch._C.DisableTorchFunctionSubclass():
+                _RANGE_EXIT(self._range)
+            self._range = None
         if exc_type is not None:
             self.args["error"] = exc_type.__name__
         cur = threading.current_thread()

@@ -235,6 +235,14 @@ class TriangularSolver:
             )
         return b
 
+    def _permute(self, b: torch.Tensor) -> torch.Tensor:
+        with obs.span("executor.permute", cat="executor"):
+            return b[self._perm]
+
+    def _unpermute(self, x: torch.Tensor) -> torch.Tensor:
+        with obs.span("executor.unpermute", cat="executor"):
+            return x[self._inv]
+
     def solve(self, b) -> torch.Tensor:
         """Solve the planned system for ``b``: f[n] or f[n, m] (multi-RHS),
         numpy or torch. Input/output live in the caller's original row
@@ -242,10 +250,9 @@ class TriangularSolver:
         ``timed`` toggle on, routes through :meth:`solve_timed`."""
         if self.timed:
             return self.solve_timed(b)[0]
-        b = self._check_b(b)
         with obs.span("executor.solve", cat="executor", n=self.n):
-            x = self._bound.solve(b[self._perm])
-            return x[self._inv]
+            x = self._bound.solve(self._permute(self._check_b(b)))
+            return self._unpermute(x)
 
     def solve_timed(self, b):
         """``solve`` with per-step timing: returns ``(x, steps)``, where
@@ -253,10 +260,9 @@ class TriangularSolver:
         observe (``BoundSolve.solve_timed``: per superstep or macro-step on
         ``scan``, one per launch on ``kernel``). The last list is kept on
         ``last_step_timings``."""
-        b = self._check_b(b)
         with obs.span("executor.solve", cat="executor", n=self.n, timed=True):
-            x, steps = self._bound.solve_timed(b[self._perm])
-            x = x[self._inv]
+            x, steps = self._bound.solve_timed(self._permute(self._check_b(b)))
+            x = self._unpermute(x)
         self.last_step_timings = steps
         return x, steps
 

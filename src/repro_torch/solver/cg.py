@@ -20,6 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.spmv import EllOperator
 from repro_torch.pipeline import PlanCache, factor_pair
@@ -52,34 +53,52 @@ def cg_solve(
     a tolerance, not bit for bit. The JAX ``while_loop`` becomes a Python
     loop that reads its condition ``‖r‖/‖b‖ > tol`` back to the host once
     per iteration: one device-to-host synchronisation per iteration;
-    ``alpha`` and ``beta`` stay 0-d tensors on the device."""
+    ``alpha`` and ``beta`` stay 0-d tensors on the device.
+
+    With tracing on (``repro_torch.obs``), the call is a ``cg.solve`` span
+    (its ``iters`` set at the end) holding ``cg.bind`` (A bound, b moved,
+    ‖b‖), then per iteration ``cg.converged`` (‖r‖ read back: the host
+    sync), ``cg.matvec``, ``cg.update`` (the dots and axpys, either side
+    of the preconditioner) and ``cg.precond``."""
     device = resolve_device(device)
-    matvec = _csr_matvec_fn(a, dtype, device)
-    b_t = torch.as_tensor(b).to(device=device, dtype=dtype)
-    bnorm = torch.linalg.norm(b_t) + 1e-30
-
     M = precond if precond is not None else (lambda r: r)
+    with obs.span("cg.solve", cat="cg") as call:
+        with obs.span("cg.bind", cat="cg"):
+            matvec = _csr_matvec_fn(a, dtype, device)
+            b_t = torch.as_tensor(b).to(device=device, dtype=dtype)
+            bnorm = torch.linalg.norm(b_t) + 1e-30
 
-    x = torch.zeros_like(b_t)
-    r = b_t
-    z = M(b_t)
-    p = z
-    it = 0
-    while it < maxiter and bool(torch.linalg.norm(r) / bnorm > tol):
-        ap = matvec(p)
-        # repro: blessed-reduction — CG inner products: the iteration is
-        # convergence-bounded, not bitwise-specified (only the triangular
-        # solves inside the preconditioner carry the bitwise contract)
-        rz = torch.dot(r, z)
-        alpha = rz / (torch.dot(p, ap) + 1e-30)  # repro: blessed-reduction
-        x = x + alpha * p
-        r2 = r - alpha * ap
-        z2 = M(r2)
-        beta = torch.dot(r2, z2) / (rz + 1e-30)  # repro: blessed-reduction
-        p = z2 + beta * p
-        r, z = r2, z2
-        it += 1
-    return x, it, float(torch.linalg.norm(r) / bnorm)
+        x = torch.zeros_like(b_t)
+        r = b_t
+        with obs.span("cg.precond", cat="cg"):
+            z = M(b_t)
+        p = z
+        it = 0
+        while it < maxiter:
+            with obs.span("cg.converged", cat="cg"):
+                if not bool(torch.linalg.norm(r) / bnorm > tol):
+                    break
+            with obs.span("cg.matvec", cat="cg"):
+                ap = matvec(p)
+            with obs.span("cg.update", cat="cg"):
+                # repro: blessed-reduction — CG inner products: the iteration is
+                # convergence-bounded, not bitwise-specified (only the triangular
+                # solves inside the preconditioner carry the bitwise contract)
+                rz = torch.dot(r, z)
+                alpha = rz / (torch.dot(p, ap) + 1e-30)  # repro: blessed-reduction
+                x = x + alpha * p
+                r2 = r - alpha * ap
+            with obs.span("cg.precond", cat="cg"):
+                z2 = M(r2)
+            with obs.span("cg.update", cat="cg"):
+                beta = torch.dot(r2, z2) / (rz + 1e-30)  # repro: blessed-reduction
+                p = z2 + beta * p
+            r, z = r2, z2
+            it += 1
+        with obs.span("cg.converged", cat="cg"):
+            relres = float(torch.linalg.norm(r) / bnorm)
+        call.set(iters=it)
+    return x, it, relres
 
 
 def pcg_ichol(

@@ -10,9 +10,12 @@
   * the toggle is not part of the cache key, ``info()["timed"]``, the
     runtime counters (and ``update_values`` starting a new history);
   * ``obs.export``: a timed solve's Chrome trace round-trips through
-    ``validate_chrome_trace``; on the same span records the port's events,
-    payload and ``metrics_rows`` equal the JAX exporter's (the E-before-B
-    tie rule and the ``repro-bench-rows/v1`` row shape).
+    ``validate_chrome_trace``; on the same span records the port's events
+    and payload equal the JAX exporter's (the E-before-B tie rule);
+  * spans on the profiler's clock: under ``obs.tracing()`` and a CPU
+    ``torch.profiler`` session, a solve and a ``cg_solve`` put each span
+    into the profiler's trace as a ``user_annotation`` range inside its
+    parent's, one for each ``SpanRecord``; with tracing off, none.
 """
 import json
 
@@ -177,12 +180,10 @@ def test_timed_solve_trace_round_trips(tmp_path, backend):
     inner = "executor.macro_step" if backend == "scan" else "executor.solve_timed"
     names = [ev["name"] for ev in loaded["traceEvents"] if ev.get("ph") == "B"]
     assert names[0] == "executor.solve" and inner in names
-    assert report["n_pairs"] == len(names) == len(buf) and report["cats"] == ["executor"]
+    # the kernel backend's cast, padding and launch are a kernel.solve span
+    cats = ["executor"] if backend == "scan" else ["executor", "kernel"]
+    assert report["n_pairs"] == len(names) == len(buf) and report["cats"] == cats
     assert loaded["counters"] == {"solves": 1}
-    rows = obs.metrics_rows(buf)
-    assert ("obs.counter.solves", 1.0, "counter") in rows
-    row = {name: (val, derived) for name, val, derived in rows}[f"obs.{inner}"]
-    assert row[1] == f"count={names.count(inner)} total_us={buf.summary()['spans'][inner]['total_us']}"
 
 
 def _same_records(port_buf, jax_buf):
@@ -209,10 +210,6 @@ def test_exporter_matches_jax_on_the_same_records():
     jpayload["summary"]["buffer"] = "p"
     assert payload == jpayload
     assert obs.validate_chrome_trace(payload) == jobs.validate_chrome_trace(jpayload)
-    rows, jrows = obs.metrics_rows(buf), jobs.metrics_rows(jbuf)
-    assert rows == jrows
-    assert all(isinstance(n, str) and isinstance(v, float) and isinstance(d, str)
-               for n, v, d in rows)
 
 
 def test_validate_rejects_broken_traces():
@@ -231,3 +228,100 @@ def test_validate_rejects_broken_traces():
             obs.validate_chrome_trace({"traceEvents": bad})
         with pytest.raises(ValueError):
             jobs.validate_chrome_trace({"traceEvents": bad})
+
+
+FRONT_DOOR = {"executor.solve", "executor.permute", "executor.unpermute", "kernel.solve"}
+CG = {"cg.solve", "cg.bind", "cg.matvec", "cg.precond", "cg.update", "cg.converged"}
+
+
+def _solve_case():
+    s = _plan("kernel", "bsp")
+    b = _rhs(s.n, None)
+    return lambda: s.solve(b), FRONT_DOOR
+
+
+def _cg_case():
+    from repro_torch import factor_pair
+    from repro_torch.solver.cg import cg_solve
+    from repro_torch.sparse import ichol0, poisson2d_matrix
+
+    a = poisson2d_matrix(8)
+    fwd, bwd = factor_pair(ichol0(a), device="cpu")
+    b = _rhs(64, None)
+    return (lambda: cg_solve(a, b, precond=lambda r: bwd(fwd(r)), device="cpu"),
+            FRONT_DOOR | CG)
+
+
+def _profiled(run, tmp_path):
+    """``run()`` under a CPU profiler; the trace's user annotations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def _innermost_parents(intervals):
+    """For (start, end) intervals sorted by start, longest first at a tie,
+    the index of each one's innermost enclosing interval (None at the
+    top)."""
+    parents, stack = [], []
+    for i, (a, b) in enumerate(intervals):
+        while stack and not (a >= intervals[stack[-1]][0] and b <= intervals[stack[-1]][1]):
+            stack.pop()
+        parents.append(stack[-1] if stack else None)
+        stack.append(i)
+    return parents
+
+
+@pytest.mark.parametrize("case", [_solve_case, _cg_case], ids=["solve", "cg"])
+def test_spans_are_profiler_ranges_inside_their_parents(case, tmp_path):
+    run, want = case()
+    buf = obs.TraceBuffer("profiled")
+    with obs.tracing(buf):
+        events = _profiled(run, tmp_path)
+    records = sorted(buf.spans(), key=lambda r: (r.t0_ns, r.t0_ns - r.t1_ns))
+    events.sort(key=lambda e: (float(e["ts"]), -float(e["dur"])))
+    # one profiler range for each SpanRecord, in the same order
+    assert [e["name"] for e in events] == [r.name for r in records]
+    assert {r.name for r in records} == want
+    # each range lies inside the range of its record's parent span
+    parents = _innermost_parents([(r.t0_ns, r.t1_ns) for r in records])
+    assert parents[0] is None and all(p is not None for p in parents[1:])
+    for e, p in zip(events, parents):
+        if p is not None:
+            outer = events[p]
+            assert float(outer["ts"]) <= float(e["ts"])
+            assert float(e["ts"]) + float(e["dur"]) <= float(outer["ts"]) + float(outer["dur"])
+    by_name = {}
+    for r, p in zip(records, parents):
+        by_name.setdefault(r.name, set()).add(None if p is None else records[p].name)
+    assert by_name["executor.permute"] == by_name["kernel.solve"] == {"executor.solve"}
+    if "cg.solve" in want:
+        assert by_name["executor.solve"] == {"cg.precond"}
+        assert by_name["cg.bind"] == by_name["cg.matvec"] == {"cg.solve"}
+        iters = [r.args["iters"] for r in records if r.name == "cg.solve"]
+        assert iters == [sum(r.name == "cg.matvec" for r in records)] and iters[0] > 1
+
+
+@pytest.mark.parametrize("case", [_solve_case, _cg_case], ids=["solve", "cg"])
+def test_tracing_off_puts_no_span_in_the_profile(case, tmp_path):
+    run, _ = case()
+    assert not obs.is_enabled()
+    recorded = len(obs.get_buffer("default"))
+    events = _profiled(run, tmp_path)
+    assert events == []
+    assert obs.span("executor.solve", n=1) is obs.NULL_SPAN
+    assert len(obs.get_buffer("default")) == recorded
+
+
+def test_front_door_span_holds_the_check_of_b():
+    s = _plan("kernel", "bsp")
+    buf = obs.TraceBuffer("bad-b")
+    with obs.tracing(buf), pytest.raises(ValueError):
+        s.solve(np.zeros(s.n + 1))
+    assert [(r.name, r.args.get("error")) for r in buf.spans()] == [
+        ("executor.solve", "ValueError")]
