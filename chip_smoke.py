@@ -244,8 +244,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
              200 traced and dropped), which must record no other operation;
              the same for L_csr @ x; the bound share and the layout's
              lane-idle share. The single-RHS
-             line also reports the level order: its host seconds, levels
-             (= block barriers), widest level, the supersteps and the DAG's
+             line also reports the level order: its host seconds, levels,
+             block barriers (one a chunk of a level) and the walk's stage
+             layout (`staging`), widest level, the supersteps and the DAG's
              longest path beside them; the m-RHS line adds its column
              blocks and the time of the column-major copy of b that its
              call makes; the elastic lines report the levels
@@ -537,8 +538,8 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
     def med(fn):
         return statistics.median(cuda_times(fn, 3, 20))
 
-    fwd_ms = med(lambda: sptrsv.sptrsv_level_cuda(*la_f[:7], r_pad))
-    bwd_ms = med(lambda: sptrsv.sptrsv_level_cuda(*la_b[:7], r_pad))
+    fwd_ms = med(lambda: sptrsv.sptrsv_level_cuda(*la_f[:7], r_pad, chunks=la_f.chunks))
+    bwd_ms = med(lambda: sptrsv.sptrsv_level_cuda(*la_b[:7], r_pad, chunks=la_b.chunks))
     # the same launches with L2 emptied before each (a write of twice its
     # 50 MB), as a solve inside CG may find it after the other factor,
     # A and the vectors have passed through
@@ -555,8 +556,8 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
             out.append(e0.elapsed_time(e1))
         return statistics.median(out)
 
-    fwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_f[:7], r_pad))
-    bwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_b[:7], r_pad))
+    fwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_f[:7], r_pad, chunks=la_f.chunks))
+    bwd_cold_ms = cold(lambda: sptrsv.sptrsv_level_cuda(*la_b[:7], r_pad, chunks=la_b.chunks))
     del flush
     spmv_ms = med(lambda: op(xs))  # the matvec: one launch of the SpMV kernel
     precond_ms = med(lambda: bwd(fwd(rt)))  # the front door: gathers included
@@ -629,7 +630,7 @@ def kernel_ms(solver, m, cuda_times) -> float:
     n = solver.n
     b_pad = torch.randn((n + 1,) if m is None else (n + 1, m),
                         generator=torch.Generator().manual_seed(7)).to(solver.device)
-    return statistics.median(cuda_times(lambda: fn(*la[:7], b_pad), 3, 20))
+    return statistics.median(cuda_times(lambda: fn(*la[:7], b_pad, chunks=la.chunks), 3, 20))
 
 
 def level_shape(solver) -> dict:
@@ -1502,7 +1503,7 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
         er_solver.device)
     b_col[:, n] = 0
     sptrsv.reset_launches()
-    x = sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col)
+    x = sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col, chunks=bank.chunks)
     torch.cuda.synchronize()
     require(sptrsv.launches["bank"] == 1, "the bank check is one launch")
     t0 = time.perf_counter()
@@ -1511,13 +1512,14 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
     require(bitwise_equal(x, x_cpu), "the bank kernel != its CPU plain version")
     main_err["sptrsv_bank"] = max(main_err.get("sptrsv_bank", 0.0), max_abs(x, x_cpu))
     ms = statistics.median(cuda_times(
-        lambda: sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col), 3, 20))
+        lambda: sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col, chunks=bank.chunks),
+        3, 20))
     # the cols kernel on one of those plans, on the same column-major
     # buffer: the m-RHS entry's launch as its wrapper makes it (x zeroed,
     # one launch), without the wrapper's copy of b into that layout
     la = clones[0].bound._la
     cols_ms = statistics.median(cuda_times(
-        lambda: sptrsv._launch_level("single", "mrhs", la[:7], b_col.T), 3, 20))
+        lambda: sptrsv._launch_level("single", "mrhs", la[:7], b_col.T, la.chunks), 3, 20))
     plain = cuda_times(lambda: sptrsv_level_bank_ref(*bank[:9], lane_idx, b_col), 0, 1)
     # the library: one cuSPARSE solve of the 8 clones' block diagonal
     # (sparse CSR, the rows of lane l at l * n) with B [8n, 4], lane l's
@@ -2641,7 +2643,8 @@ def main() -> int:
                     b_pad = pad_rhs(b)
                     x_cpu = sptrsv_ref(*pa_cpu[:5], b_pad)
                     # one block for b f[n+1], a block per column for f[n+1, m]
-                    x_gpu = sptrsv.sptrsv_level_cuda(*la_gpu[:7], b_pad.to(dev))
+                    x_gpu = sptrsv.sptrsv_level_cuda(*la_gpu[:7], b_pad.to(dev),
+                                                     chunks=la_gpu.chunks)
                     x_plain_gpu = sptrsv_level_ref(*la_gpu[:7], b_pad.to(dev))
                     torch.cuda.synchronize()
                     same = bitwise_equal(x_gpu, x_cpu)
@@ -2655,7 +2658,8 @@ def main() -> int:
                         x_r = torch.zeros_like(b_r)
                         cuts = superstep_ranges(la_gpu.order)
                         for lo, hi in zip(cuts[:-1], cuts[1:]):
-                            sptrsv.sptrsv_level_range_cuda(*la_gpu[:7], lo, hi, b_r, x_r)
+                            sptrsv.sptrsv_level_range_cuda(*la_gpu[:7], lo, hi, b_r, x_r,
+                                                           chunks=la_gpu.chunks)
                         torch.cuda.synchronize()
                         cells[-1]["range_launches_bitwise_full"] = bitwise_equal(
                             x_r if m is None else x_r.T, x_gpu)
@@ -2684,7 +2688,8 @@ def main() -> int:
                         2000 if m is None else (2000, m)), dtype=torch.float32))
                     x_cpu = sptrsv_level_ref(*la_cpu[:7], b_pad)
                     x_bulk = sptrsv_ref(*pa_cpu[:5], b_pad)
-                    x_gpu = sptrsv.sptrsv_elastic_cuda(*la_gpu[:7], b_pad.to(dev))
+                    x_gpu = sptrsv.sptrsv_elastic_cuda(*la_gpu[:7], b_pad.to(dev),
+                                                       chunks=la_gpu.chunks)
                     torch.cuda.synchronize()
                     same = bitwise_equal(x_gpu, x_cpu)
                     cells.append({"matrix": gen_name, "k": k, "slack": slack, "W": plan.W,
@@ -2998,9 +3003,9 @@ def main() -> int:
             # both walk the bulk level order: one block for b f[n+1], a
             # block per column of a column-major copy (timed with it) for
             # f[n+1, m]
-            ms = statistics.median(cuda_times(lambda: sptrsv.sptrsv_level_cuda(*la[:7], b_pad),
-                                              3, 20))
-            x = sptrsv.sptrsv_level_cuda(*la[:7], b_pad)
+            ms = statistics.median(cuda_times(
+                lambda: sptrsv.sptrsv_level_cuda(*la[:7], b_pad, chunks=la.chunks), 3, 20))
+            x = sptrsv.sptrsv_level_cuda(*la[:7], b_pad, chunks=la.chunks)
             # the plain version once: it launches tens of operations per level
             x_plain = []
             plain = cuda_times(lambda: x_plain.append(sptrsv_level_ref(*la[:7], b_pad)), 0, 1)
@@ -3024,8 +3029,10 @@ def main() -> int:
                    "entries": work["entries"], "padding_share": work["padding_share"],
                    "bound_padded_plan_us": plan_total / HBM_BYTES_PER_S * 1e6,
                    "padded_plan_bytes": plan_total,
-                   # one block barrier per level (per column block for m RHS)
-                   "barriers": order.n_levels, "levels": order.n_levels,
+                   # one block barrier per chunk of a level (per column block
+                   # for m RHS), the plan's operands staged ahead of it
+                   "barriers": la.chunks.stats()["chunks"], "levels": order.n_levels,
+                   "staging": la.chunks.stats(),
                    "level_width_max": stats["level_width_max"],
                    "supersteps": plan.n_supersteps, "level_order_s": level_s,
                    "plain_ms": statistics.median(plain),
@@ -3051,15 +3058,15 @@ def main() -> int:
             b_pad = rhs_pad(gpu.n, m)
             b_r = b_pad if m is None else b_pad.T.contiguous()  # column-major for m
 
-            def ranged(walk, x):
+            def ranged(walk, x, **kw):
                 for lo, hi in zip(cuts[:-1], cuts[1:]):
-                    walk(*la[:7], lo, hi, b_r, x)
+                    walk(*la[:7], lo, hi, b_r, x, **kw)
                 return x
 
-            ms = statistics.median(cuda_times(
-                lambda: ranged(sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r)), 3, 20))
-            x = ranged(sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r))
-            full = sptrsv.sptrsv_level_cuda(*la[:7], b_pad)
+            ms = statistics.median(cuda_times(lambda: ranged(
+                sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r), chunks=la.chunks), 3, 20))
+            x = ranged(sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r), chunks=la.chunks)
+            full = sptrsv.sptrsv_level_cuda(*la[:7], b_pad, chunks=la.chunks)
             require(bitwise_equal(x if m is None else x.T, full),
                     f"{name} {kname}: range launches != one full launch")
             x_plain = []
@@ -3092,8 +3099,8 @@ def main() -> int:
         for kname, m in (("sptrsv_elastic_single", None), ("sptrsv_elastic_mrhs", MAIN_M)):
             b_pad = rhs_pad(el.n, m)  # the bulk timing's right-hand side
             ms = statistics.median(cuda_times(
-                lambda: sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad), 3, 20))
-            x = sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad)
+                lambda: sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad, chunks=la.chunks), 3, 20))
+            x = sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad, chunks=la.chunks)
             # the plain version once: it launches tens of operations per level
             x_plain = []
             plain = cuda_times(lambda: x_plain.append(sptrsv_level_ref(*la[:7], b_pad)), 0, 1)
@@ -3107,8 +3114,10 @@ def main() -> int:
                    **bound(work["bytes"] + 2 * el.n * cols * esize,
                            2 * (work["entries"] + work["finishes"]) * cols),
                    "entries": work["entries"], "slack": ep.slack,
-                   # one block barrier per level (per column block for m RHS)
-                   "levels": order.n_levels, "barriers": order.n_levels,
+                   # one block barrier per chunk of a level (per column block
+                   # for m RHS), the plan's operands staged ahead of it
+                   "levels": order.n_levels, "barriers": la.chunks.stats()["chunks"],
+                   "staging": la.chunks.stats(),
                    "level_width_max": stats["level_width_max"],
                    "levels_per_run": stats["levels_per_run"], "level_order_s": level_s,
                    "supersteps": ep.n_supersteps, "waves_certificate": int(ep.n_waves.sum()),

@@ -79,9 +79,12 @@ class _KernelTimed:
         rt = dict(self._kernel_runtime)
         if rt["timed_solves"]:
             rt["levels_per_solve"] = round(rt["levels_walked"] / rt["timed_solves"], 2)
+        ch = self._la.chunks
         out["n_levels"] = self._n_levels()
-        out["device_bytes"] += _device_bytes(self._la[:8])
+        out["device_bytes"] += _device_bytes((*self._la[:8], ch.chunk_ptr, ch.level_chunk))
         out["runtime"] = {**rt, "predicted_levels": out["n_levels"]}
+        # how often the kernel's stages engage (kernels.levels.LevelChunks)
+        out["staging"] = ch.stats()
         return out
 
 

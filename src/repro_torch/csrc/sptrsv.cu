@@ -18,18 +18,21 @@
 // reads b and writes x (n+1 entries per right-hand side). Those bytes over
 // the H100's 3.35 TB/s are the least time the card could take. The real
 // limit is latency: a row reads x rows that earlier rows wrote, so the solve
-// is a chain of dependent gathers (index load, then x load, then the FMA
-// chain, then the store) as long as the dependency structure the kernel
-// keeps.
+// is a chain of dependent gathers (the x loads, then the FMA chain, then
+// the store; the index and value loads are staged off it, level.cuh) as
+// long as the dependency structure the kernel keeps.
 //
 // Both entries run the level walk of csrc/level.cuh over the plan in the
-// bulk level order (kernels/levels.py, a run per superstep), one
-// __syncthreads() per level: 80 on the paper's ER set at n = 100,000 and
-// 2,020 on its NB set, against T = 13,561 and 16,635 plan steps.
+// bulk level order (kernels/levels.py, a run per superstep), one barrier
+// per level, chunks of at most 992 vertices between them: 80 levels on the
+// paper's ER set at n = 100,000 and 2,020 on its NB set, against T = 13,561
+// and 16,635 plan steps. Each chunk's plan operands are staged in shared
+// memory ahead of it (level.cuh), so a level waits only on its x gathers.
 // mode="elastic" launches the same code over runs of supersteps
 // (csrc/sptrsv_elastic.cu).
 //
-// Single right-hand side: one block of 1,024 threads.
+// Single right-hand side: one block of 1,024 threads (31 consumer warps and
+// the producer warp).
 //
 // A bank of plans (the serve layer's width-class grouping, for which the JAX
 // package vmaps its scan over the lanes): sptrsv_bank_f32/_f64 launch the
@@ -49,9 +52,9 @@
 // thread, each a gather of rows the previous step may have written, about
 // 1.45 us each, on one block, so 17-20 ms at m = 32, over 2,000x the bound.
 // The level walk cuts the chain to one dependent load chain per level. What
-// still holds it back is what holds the single-RHS walk back: a dependent
-// load chain and a block barrier per level, and on ER's wide levels (up to
-// 7,548 vertices) rounds of 1,024 vertices per block. Column groups (a
+// still holds it back is what holds the single-RHS walk back: a level's x
+// gathers and a block barrier, and on ER's wide levels (up to 7,548
+// vertices) chunks of up to 992 vertices per block. Column groups (a
 // thread solving one vertex for C columns of x packed f[G, n + 1, C], one
 // 16-byte load for C entries of a row) did not beat this grid by more than
 // 5% at m = 32 on the sum of both plans, and in float32 every C > 1 lost:
@@ -60,9 +63,11 @@
 // kernels/level_sweep.py builds and times them (csrc/sweep/groups.cu);
 // PERF.md holds the numbers.
 //
-// Left for later: skipping padding slots (with an acc + 0 where padding
-// stood), staging the plan in shared memory, more than one block for a
-// level wider than one block, column groups past the SM count (m > 132).
+// Done: staging the plan's operands in shared memory ahead of each barrier
+// (level.cuh). Left for later: skipping padding slots (with an acc + 0
+// where padding stood), more than one block for a level wider than one
+// block, column groups past the SM count (m > 132; with up to 227 KB of
+// stages a block, one block fits an SM).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,35 +80,39 @@
 extern "C" {
 
 int sptrsv_single_f32(const void* row_ids, const void* col_idx, const void* vals,
-                      const void* diag, const void* accum, const void* vert_ptr,
-                      const void* level_ptr, int n_levels, int W, const void* b,
-                      void* x, void* stream) {
-  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                              level_ptr, n_levels, W, b, x, stream);
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
+  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                            level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
 }
 
 int sptrsv_single_f64(const void* row_ids, const void* col_idx, const void* vals,
-                      const void* diag, const void* accum, const void* vert_ptr,
-                      const void* level_ptr, int n_levels, int W, const void* b,
-                      void* x, void* stream) {
-  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                               level_ptr, n_levels, W, b, x, stream);
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
+  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                            level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
 }
 
 int sptrsv_mrhs_f32(const void* row_ids, const void* col_idx, const void* vals,
-                    const void* diag, const void* accum, const void* vert_ptr,
-                    const void* level_ptr, int n_levels, int W, int m,
-                    int64_t rows, const void* b, void* x, void* stream) {
-  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                   level_ptr, n_levels, W, m, rows, b, x, stream);
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x,
+                void* stream) {
+  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                 level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b,
+                                 x, stream);
 }
 
 int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
-                    const void* diag, const void* accum, const void* vert_ptr,
-                    const void* level_ptr, int n_levels, int W, int m,
-                    int64_t rows, const void* b, void* x, void* stream) {
-  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                    level_ptr, n_levels, W, m, rows, b, x, stream);
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x,
+                void* stream) {
+  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                 level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b,
+                                 x, stream);
 }
 
 // A bank of plans of one width class, m right-hand sides column-major:
@@ -111,23 +120,23 @@ int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
 // sptrsv_level_bank_kernel). The serve layer's grouped, banked and
 // resident-slot solves.
 int sptrsv_bank_f32(const void* row_ids, const void* col_idx, const void* vals,
-                    const void* diag, const void* accum, const void* vert_ptr,
-                    const void* level_ptr, const void* level_off, const void* n_levels,
-                    const void* lane_idx, int W, int m, int64_t rows, const void* b,
-                    void* x, void* stream) {
-  return level::launch_bank<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                   level_ptr, level_off, n_levels, lane_idx, W, m, rows, b,
-                                   x, stream);
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, const void* level_off,
+                const void* n_levels, const void* lane_idx, int W, int stage_bytes,
+                int n_stages, int m, int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_bank<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                 level_chunk, level_off, n_levels, lane_idx, W, stage_bytes,
+                                 n_stages, m, rows, b, x, stream);
 }
 
 int sptrsv_bank_f64(const void* row_ids, const void* col_idx, const void* vals,
-                    const void* diag, const void* accum, const void* vert_ptr,
-                    const void* level_ptr, const void* level_off, const void* n_levels,
-                    const void* lane_idx, int W, int m, int64_t rows, const void* b,
-                    void* x, void* stream) {
-  return level::launch_bank<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                    level_ptr, level_off, n_levels, lane_idx, W, m, rows, b,
-                                    x, stream);
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, const void* level_off,
+                const void* n_levels, const void* lane_idx, int W, int stage_bytes,
+                int n_stages, int m, int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_bank<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                 level_chunk, level_off, n_levels, lane_idx, W, stage_bytes,
+                                 n_stages, m, rows, b, x, stream);
 }
 
 }  // extern "C"

@@ -13,21 +13,25 @@
 // These kernels take the level layout instead (kernels/levels.py): the
 // supersteps are grouped into runs of `slack`, one level numbering spans a
 // run, and the level walk of csrc/level.cuh ends each level in one block
-// barrier. A vertex reads only rows of an earlier run or of a lower level
-// of its own run, both complete behind an earlier barrier; the barrier
+// barrier (its chunks of at most 992 vertices between), each chunk's plan
+// operands staged in shared memory ahead of it. A vertex reads only rows of
+// an earlier run or of a lower level of its own run, both complete behind
+// an earlier barrier; the barrier
 // orders every lane, so a run needs no cut at cross-core reads. Each row
 // keeps the plan's exact FMA chain and correctly rounded finish (rn.cuh;
 // never --use_fast_math), so the bits are the bulk kernels'.
 //
 // Bound on this card: the bulk kernels' bytes (each real plan entry and
 // lane-step read once, b read, x written) over 3.35 TB/s. The real limit is
-// latency: a dependent load chain and a block barrier per level, and one
-// block takes a wide level in rounds of 1,024 vertices. Runs of slack = 8
-// supersteps take 38 levels on the paper's ER set at n = 100,000 (80 per
+// latency: a level's x gathers, its FMA chain and a block barrier (the plan
+// operands are staged ahead of it), and one block takes a wide level in
+// chunks of up to 992 vertices. Runs of slack = 8 supersteps take 38
+// levels on the paper's ER set at n = 100,000 (80 per
 // superstep, 12,761 waves) and 1,460 on its NB set (2,020; 14,378 waves).
 //
-//   Single right-hand side: one block of 1,024 threads striding over each
-//   level's vertices: the bulk kernel's code over the elastic order.
+//   Single right-hand side: one block of 1,024 threads (992 consumers)
+//   over each level's vertices: the bulk kernel's code over the elastic
+//   order.
 //   m right-hand sides: the grid runs over columns, block c walks the level
 //   order for column c. Columns never interact and a level's barrier is
 //   needed only within one column, so blocks never wait for each other.
@@ -39,8 +43,7 @@
 //   lines.
 //
 // Left for later: skipping padding slots (with an acc + 0 where padding
-// stood), staging the plan in shared memory, more than one block for a
-// level wider than one block.
+// stood), more than one block for a level wider than one block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,40 +55,40 @@
 // current around the call.
 extern "C" {
 
-int sptrsv_elastic_single_f32(const void* row_ids, const void* col_idx,
-                              const void* vals, const void* diag, const void* accum,
-                              const void* vert_ptr, const void* level_ptr,
-                              int n_levels, int W, const void* b, void* x,
-                              void* stream) {
-  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr,
-                              n_levels, W, b, x, stream);
+int sptrsv_elastic_single_f32(const void* row_ids, const void* col_idx, const void* vals,
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
+  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                            level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
 }
 
-int sptrsv_elastic_single_f64(const void* row_ids, const void* col_idx,
-                              const void* vals, const void* diag, const void* accum,
-                              const void* vert_ptr, const void* level_ptr,
-                              int n_levels, int W, const void* b, void* x,
-                              void* stream) {
-  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr,
-                               n_levels, W, b, x, stream);
+int sptrsv_elastic_single_f64(const void* row_ids, const void* col_idx, const void* vals,
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
+  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                            level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
 }
 
-int sptrsv_elastic_mrhs_f32(const void* row_ids, const void* col_idx,
-                            const void* vals, const void* diag, const void* accum,
-                            const void* vert_ptr, const void* level_ptr, int n_levels,
-                            int W, int m, int64_t rows, const void* b, void* x,
-                            void* stream) {
-  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                   level_ptr, n_levels, W, m, rows, b, x, stream);
+int sptrsv_elastic_mrhs_f32(const void* row_ids, const void* col_idx, const void* vals,
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x,
+                void* stream) {
+  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                 level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b,
+                                 x, stream);
 }
 
-int sptrsv_elastic_mrhs_f64(const void* row_ids, const void* col_idx,
-                            const void* vals, const void* diag, const void* accum,
-                            const void* vert_ptr, const void* level_ptr, int n_levels,
-                            int W, int m, int64_t rows, const void* b, void* x,
-                            void* stream) {
-  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                    level_ptr, n_levels, W, m, rows, b, x, stream);
+int sptrsv_elastic_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x,
+                void* stream) {
+  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                 level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b,
+                                 x, stream);
 }
 
 }  // extern "C"

@@ -86,6 +86,9 @@ PICK_MARGIN = 0.05  # a C > 1 ships only where it beats C = 1 by more than this
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _LEVEL = [_P] * 7 + [_I, _I]  # the level tensors, level count, W
+# the staged walk's (csrc/level.cuh): the level tensors but level_ptr, the
+# chunk table, level count, W, stage bytes and stages
+_STAGED = [_P] * 8 + [_I] * 4
 # the columns a group at which the sweep runs the walk, per type: a row of
 # C entries is 4 to 32 bytes (C = 1 is the column grid that ships)
 GROUP_COLS = {torch.float32: (1, 2, 4, 8), torch.float64: (1, 2, 4)}
@@ -192,8 +195,9 @@ class _Lib:
     """One built library's entry points, typed once, and calls that run
     them on prepared tensors."""
 
-    def __init__(self, name, path):
+    def __init__(self, name, path, staged=False):
         self.name = name
+        self.staged = staged  # built from the staged walk of csrc/level.cuh
         self.lib = ctypes.CDLL(str(path))
         self.fns = {}
 
@@ -207,15 +211,21 @@ class _Lib:
         if err:
             raise RuntimeError(f"{self.name} {entry}: CUDA error {err}")
 
-    @staticmethod
-    def _level(la):
-        return (*[t.data_ptr() for t in la[:7]], la.level_ptr.numel() - 1, la.col_idx.shape[1])
+    def _level(self, la):
+        """The level arguments' types and values, in this build's layout."""
+        L, W = la.level_ptr.numel() - 1, la.col_idx.shape[1]
+        if self.staged:
+            ch = la.chunks
+            return _STAGED, (*[t.data_ptr() for t in la[:6]], ch.chunk_ptr.data_ptr(),
+                             ch.level_chunk.data_ptr(), L, W, ch.stage_bytes, ch.n_stages)
+        return _LEVEL, (*[t.data_ptr() for t in la[:7]], L, W)
 
     def single(self, entry, la, b_pad):
         """One RHS: ``sptrsv_single`` or ``sptrsv_elastic_single``."""
         x = torch.zeros_like(b_pad)
-        self._call(entry, b_pad.dtype, _LEVEL + [_P, _P, _P], *self._level(la),
-                   b_pad.data_ptr(), x.data_ptr())
+        types, args = self._level(la)
+        self._call(entry, b_pad.dtype, types + [_P, _P, _P], *args, b_pad.data_ptr(),
+                   x.data_ptr())
         return x
 
     def groups(self, la, b_groups):
@@ -225,8 +235,9 @@ class _Lib:
         G, rows, C = b_groups.shape
         if b_groups.data_ptr() % min(16, C * b_groups.element_size()):
             raise ValueError("b_groups must be aligned to its row of C entries (or 16 bytes)")
-        self._call("sptrsv_groups", b_groups.dtype, _LEVEL + [_I, _I, _I64, _P, _P, _P],
-                   *self._level(la), C, G, rows, b_groups.data_ptr(), x.data_ptr())
+        types, args = self._level(la)
+        self._call("sptrsv_groups", b_groups.dtype, types + [_I, _I, _I64, _P, _P, _P],
+                   *args, C, G, rows, b_groups.data_ptr(), x.data_ptr())
         return x
 
     def cols(self, entry, la, b_col, strides=False):
@@ -236,8 +247,9 @@ class _Lib:
         x = torch.zeros_like(b_col)
         m, rows = b_col.shape[:2]
         shape = (1, rows) if strides else (rows,)
-        self._call(entry, b_col.dtype, _LEVEL + [_I] + [_I64] * len(shape) + [_P, _P, _P],
-                   *self._level(la), m, *shape, b_col.data_ptr(), x.data_ptr())
+        types, args = self._level(la)
+        self._call(entry, b_col.dtype, types + [_I] + [_I64] * len(shape) + [_P, _P, _P],
+                   *args, m, *shape, b_col.data_ptr(), x.data_ptr())
         return x
 
     def parent_mrhs(self, pa, b_pad):
@@ -293,7 +305,7 @@ def main(argv=None) -> int:
         if rc != 0:
             print(log[-3000:], file=sys.stderr)
             return 1
-        libs[name] = _Lib(name, so)
+        libs[name] = _Lib(name, so, staged=name in ("bulk", "elastic"))
     parent = "parent_bulk" in libs
     new, new_el, grp = libs["bulk"], libs["elastic"], libs["groups"]
 

@@ -45,7 +45,7 @@ the step padding and the readiness waves were the TPU kernels'.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -154,6 +154,97 @@ def round_ranges(order: LevelOrder, bounds) -> np.ndarray:
     if order.slack != 1:
         raise ValueError(f"round ranges need the bulk order (slack 1), got slack {order.slack}")
     return np.searchsorted(order.level_run, np.asarray(bounds, np.int64), side="left")
+
+
+# The level walk's stages (csrc/level.cuh, which holds the same numbers):
+SMEM_BYTES = 232_448  # dynamic shared memory one block may use on an H100 (227 KB)
+STAGE_HEAD_BYTES = 256  # the stages' mbarriers and heads, ahead of the stages
+# The stages take at most half of it: the rest of the SM's 256 KB of shared
+# memory and L1 stays L1, where the x gathers hit. On ER (n = 100,000, W =
+# 12), with a barrier a chunk, two stages of 116 KB made the single-RHS
+# walk 16-21% slower than two of 60 KB.
+MIN_STAGES, MAX_STAGES = 2, 4
+# the block's consumer threads, a vertex each: 1,024 less the producer warp
+CHUNK_VERTICES = 992
+
+
+class LevelChunks(NamedTuple):
+    """The level walk's chunk table and stage layout (``level_chunks``).
+    A chunk is a run of at most ``CHUNK_VERTICES`` vertices inside one
+    level; the kernel stages each chunk's slices of the level tensors in
+    shared memory ahead of the barrier before it (csrc/level.cuh)."""
+
+    chunk_ptr: Any  # int32[C+1, 2]: (first vertex, first lane-step) of each chunk, then the ends
+    level_chunk: Any  # int32[L+1]: level i covers chunks [level_chunk[i], level_chunk[i+1])
+    n_stages: int  # stages in the ring, 2 to MAX_STAGES
+    stage_bytes: int  # bytes a stage holds, a multiple of 16
+    # bool[C] (host): the chunk fits a stage; else it is one vertex, read in place
+    staged: np.ndarray
+
+    def stats(self) -> dict:
+        """The staging counter of ``describe()``: how often the stages engage."""
+        return {"stages": self.n_stages, "stage_bytes": self.stage_bytes,
+                "chunks": int(self.staged.size),
+                "chunks_staged": int(np.count_nonzero(self.staged)),
+                "levels": len(self.level_chunk) - 1}
+
+
+def stage_need(nv, np_, W: int, itemsize: int):
+    """Bytes a stage needs for a chunk of ``nv`` vertices and ``np_``
+    lane-steps (scalars or int64 arrays): its slices of vert_ptr (nv + 1),
+    col_idx and vals (np_ * W), row_ids, diag and accum (np_), each rounded
+    out to 16-byte bounds wherever it starts, as ``cp.async.bulk`` copies
+    it. The kernel decides whether a chunk is staged by the same sum."""
+    nv, np_ = np.asarray(nv, np.int64), np.asarray(np_, np.int64)
+    lens = (4 * (nv + 1), 4 * np_ * W, itemsize * np_ * W, 4 * np_, itemsize * np_, np_)
+    return sum((n + 30) // 16 * 16 for n in lens)
+
+
+def level_chunks(vert_ptr, level_ptr, W: int, itemsize: int) -> LevelChunks:
+    """The chunk table of a level order (host arrays) for elements of
+    ``itemsize`` bytes and plan width ``W``, and its stage layout.
+
+    Each level is cut every ``CHUNK_VERTICES`` vertices. A stage holds the
+    widest of those chunks (``stage_need``), at most half of the stages'
+    room (half of ``SMEM_BYTES``), and the ring takes as many such stages
+    as the room holds, 2 to ``MAX_STAGES``. A chunk that does not fit a
+    stage is cut again, as many vertices at a time as fit; a vertex that
+    alone does not fit is a chunk of its own, not staged (the kernel reads
+    it in place). One pass over the levels; only chunks that do not fit are
+    cut in a loop."""
+    vp = np.asarray(vert_ptr, np.int64)
+    lp = np.asarray(level_ptr, np.int64)
+    widths = np.diff(lp)
+    pieces = -(-widths // CHUNK_VERTICES)
+    ends = np.cumsum(pieces)
+    first = np.repeat(lp[:-1], pieces) + CHUNK_VERTICES * (
+        np.arange(ends[-1] if ends.size else 0) - np.repeat(ends - pieces, pieces))
+    last = np.minimum(first + CHUNK_VERTICES, np.repeat(lp[1:], pieces))
+    need = stage_need(last - first, vp[last] - vp[first], W, itemsize)
+
+    room = SMEM_BYTES // 2 - STAGE_HEAD_BYTES
+    largest = room // MIN_STAGES // 16 * 16
+    stage_bytes = min(-(-int(need.max(initial=16)) // 16) * 16, largest)
+    n_stages = min(max(room // stage_bytes, MIN_STAGES), MAX_STAGES)
+
+    starts = [first]
+    for v, end in zip(first[need > stage_bytes], last[need > stage_bytes]):
+        cuts = []
+        while v < end:  # stage_need rises with the vertices taken
+            fits = stage_need(np.arange(1, end - v + 1), vp[v + 1 : end + 1] - vp[v], W, itemsize)
+            v += max(int(np.count_nonzero(fits <= stage_bytes)), 1)
+            cuts.append(v)
+        starts.append(np.asarray(cuts[:-1], np.int64))
+    starts = np.unique(np.concatenate(starts)) if len(starts) > 1 else first
+    ends = np.append(starts[1:], lp[-1])
+    bounds = np.append(starts, lp[-1])
+    return LevelChunks(
+        chunk_ptr=np.stack([bounds, vp[bounds]], axis=1).astype(np.int32),
+        level_chunk=np.searchsorted(starts, lp).astype(np.int32),
+        n_stages=int(n_stages),
+        stage_bytes=int(stage_bytes),
+        staged=stage_need(ends - starts, vp[ends] - vp[starts], W, itemsize) <= stage_bytes,
+    )
 
 
 def _run_starts(a: np.ndarray) -> np.ndarray:

@@ -31,8 +31,15 @@ import torch
 from repro_torch import obs
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
-from repro_torch.kernels.levels import LevelOrder, level_order, round_ranges
+from repro_torch.kernels.levels import (
+    LevelChunks,
+    LevelOrder,
+    level_chunks,
+    level_order,
+    round_ranges,
+)
 from repro_torch.kernels.sptrsv import (
+    device_chunks,
     sptrsv_elastic_cuda,
     sptrsv_level_bank_cuda,
     sptrsv_level_cuda,
@@ -80,14 +87,20 @@ class LevelArrays(NamedTuple):
     # the host level order these tensors were gathered by: what the
     # verifier (``analysis.level_check``) audits after a bind
     order: LevelOrder | None = None
+    # the order's chunk table on the device and its stage layout
+    # (``kernels.levels.level_chunks``): what the kernel stages
+    chunks: LevelChunks | None = None
+
 
 
 def level_plan_arrays(
     plan: ExecPlan, *, dtype=torch.float32, device=None, order: LevelOrder | None = None
 ) -> LevelArrays:
     """The plan tensors gathered into level order on ``device`` (``None``:
-    the card, raising without CUDA), index contents checked. ``order`` is
-    ``plan``'s level order where the caller has it already."""
+    the card, raising without CUDA), index contents checked, with the
+    order's chunk table for the kernel's stages (one pass over the level
+    bounds). ``order`` is ``plan``'s level order where the caller has it
+    already."""
     check_plan_indices(plan)
     device = resolve_device(device)
     if order is None:
@@ -109,6 +122,8 @@ def level_plan_arrays(
         perm=put(perm, torch.int64),
         n=plan.n,
         order=order,
+        chunks=device_chunks(level_chunks(order.vert_ptr, order.level_ptr, W, dtype.itemsize),
+                             device),
     )
 
 
@@ -154,7 +169,7 @@ def solve_with_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
     ``bind_kernel_solver`` and the ``kernel`` backend."""
     with obs.span("kernel.solve", cat="kernel"):
         b_pad = pad_rhs(b.to(la.vals.dtype))
-        return sptrsv_level_cuda(*la[:7], b_pad)[: la.n]
+        return sptrsv_level_cuda(*la[:7], b_pad, chunks=la.chunks)[: la.n]
 
 
 class LevelBank(NamedTuple):
@@ -162,7 +177,9 @@ class LevelBank(NamedTuple):
     the banked kernel's tensors. Each lane's level tensors are concatenated
     (``vert_ptr`` shifted by the lane's lane-step offset, ``level_ptr`` by
     its vertex offset), so lane l walks ``level_ptr[level_off[l] ..
-    level_off[l] + n_levels[l]]`` of the shared arrays. The lane axis is
+    level_off[l] + n_levels[l]]`` of the shared arrays; the chunk tables
+    are concatenated the same way, so the lane tables index
+    ``chunks.level_chunk`` as they index ``level_ptr``. The lane axis is
     padded up to a power of two by repeating lane 0
     (``solver.executor.pow2_lanes``), whose padded lanes point at lane 0's
     levels and copy no plan data."""
@@ -179,6 +196,7 @@ class LevelBank(NamedTuple):
     perm: torch.Tensor  # int64[lanes, n]: caller order -> plan row order
     inv: torch.Tensor  # int64[lanes, n]: plan row order -> caller order
     n: int
+    chunks: LevelChunks | None = None  # the lanes' chunk tables concatenated, one stage layout
 
 
 _INT32_MAX = 2**31 - 1
@@ -218,6 +236,34 @@ def _concat_levels(las, lanes):
             vert_ptr, level_ptr, lane_table(l_off[:-1]), lane_table(n_lvls))
 
 
+def _concat_chunks(las) -> LevelChunks:
+    """The members' chunk tables concatenated as ``_concat_levels``
+    concatenates their levels: each chunk bound shifted by its member's
+    vertex and lane-step offsets, each ``level_chunk`` by its chunk offset.
+    One stage layout serves every lane: the largest stage and the fewest
+    stages, which fit the block (each member's largest stage fits its own
+    ring of at least two), so each member's chunks still fit."""
+    chunks = [la.chunks for la in las]
+    n_steps = [la.row_ids.shape[0] for la in las]
+    n_verts = [la.vert_ptr.shape[0] - 1 for la in las]
+    n_chunks = [c.chunk_ptr.shape[0] - 1 for c in chunks]
+    offs = np.stack([np.concatenate([[0], np.cumsum(n_verts)]),
+                     np.concatenate([[0], np.cumsum(n_steps)])], axis=1)
+    c_off = np.concatenate([[0], np.cumsum(n_chunks)])
+    tail = chunks[0].chunk_ptr.new_tensor
+    chunk_ptr = torch.cat([c.chunk_ptr[:-1] + tail(o.tolist()) for c, o in zip(chunks, offs)]
+                          + [tail([offs[-1].tolist()])])
+    level_chunk = torch.cat([c.level_chunk[:-1] + int(o) for c, o in zip(chunks, c_off)]
+                            + [tail([int(c_off[-1])])])
+    return LevelChunks(
+        chunk_ptr=chunk_ptr,
+        level_chunk=level_chunk,
+        n_stages=min(c.n_stages for c in chunks),
+        stage_bytes=max(c.stage_bytes for c in chunks),
+        staged=np.concatenate([c.staged for c in chunks]),
+    )
+
+
 def stack_level_bank(las, perms, invs) -> LevelBank:
     """Stack one width class's level tensors ``las`` (``LevelArrays``) with
     their row permutations ``perms`` / ``invs`` (int64[n] each) into a
@@ -228,6 +274,7 @@ def stack_level_bank(las, perms, invs) -> LevelBank:
         perm=torch.stack([perms[i] for i in lanes]),
         inv=torch.stack([invs[i] for i in lanes]),
         n=las[0].n,
+        chunks=_concat_chunks(las),
     )
 
 
@@ -245,7 +292,7 @@ def solve_with_level_bank(bank: LevelBank, lane_idx, B) -> torch.Tensor:
         b_col = B.new_zeros((m, n + 1))
         on_device = lanes.to(B.device)
         torch.gather(B.T, 1, bank.perm[on_device], out=b_col[:, :n])
-        x_col = sptrsv_level_bank_cuda(*bank[:9], lanes, b_col)
+        x_col = sptrsv_level_bank_cuda(*bank[:9], lanes, b_col, chunks=bank.chunks)
         return torch.gather(x_col[:, :n], 1, bank.inv[on_device]).T
 
 
@@ -282,7 +329,7 @@ def solve_with_elastic_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.
     scratch row."""
     with obs.span("kernel.solve", cat="kernel"):
         b_pad = pad_rhs(b.to(la.vals.dtype))
-        return sptrsv_elastic_cuda(*la[:7], b_pad)[: la.n]
+        return sptrsv_elastic_cuda(*la[:7], b_pad, chunks=la.chunks)[: la.n]
 
 
 def bind_kernel_solver(plan: ExecPlan, *, dtype=torch.float32, device=None):

@@ -28,9 +28,15 @@ lanes instead).
 levels, ``[lo, hi)``, of a bound level order into the caller's x, which
 keeps what earlier ranges wrote: the distributed backend's rounds, one
 launch per position and round, with an exchange between rounds. It needs
-no kernel of its own: the level walk reads absolute vertex bounds from
-``level_ptr[0]`` on and keeps no state across launches, so the range is
-the walk started at ``level_ptr + lo`` with ``hi - lo`` levels.
+no kernel of its own: the level walk reads absolute chunk bounds from
+``level_chunk[0]`` on and keeps no state across launches, so the range is
+the walk started at ``level_chunk + lo`` with ``hi - lo`` levels.
+
+Every entry also takes the level order's chunk table and stage layout
+(``kernels.levels.LevelChunks``, the kernel's stages in shared memory):
+``chunks=`` the one bound with the level tensors (``LevelArrays.chunks``,
+``LevelBank.chunks``), else the wrapper builds it from ``vert_ptr`` and
+``level_ptr`` on the host, a copy from the device and one pass, per call.
 
 ``launches`` counts the kernel launches per entry point, under a lock (the
 serve layer launches from several threads), so a run can show that its
@@ -47,6 +53,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import build
+from repro_torch.kernels.levels import LevelChunks, level_chunks
 from repro_torch.kernels.ref import (
     sptrsv_level_bank_ref,
     sptrsv_level_range_ref,
@@ -63,9 +70,9 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-_SINGLE = [_P] * 7 + [_I, _I, _P, _P, _P]
-_COLS = [_P] * 7 + [_I, _I, _I, _I64, _P, _P, _P]
-_BANK = [_P] * 10 + [_I, _I, _I64, _P, _P, _P]
+_SINGLE = [_P] * 8 + [_I] * 4 + [_P] * 3
+_COLS = [_P] * 8 + [_I] * 5 + [_I64] + [_P] * 3
+_BANK = [_P] * 11 + [_I] * 4 + [_I64] + [_P] * 3
 _ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "elastic_single": _SINGLE, "elastic_mrhs": _COLS,
              "bank": _BANK}
 # a range launch runs the bulk entry point of its layout; it is counted
@@ -96,16 +103,15 @@ def _entry(kind: str, dtype: torch.dtype):
     return fn
 
 
-def _launch(kind, vals, b, *args):
-    """Launch ``kind`` on ``b``'s device and current stream; the guard
-    makes that device current for the call and restores the caller's."""
+def _launch(kind, vals, b, stage_bytes, *args):
+    """Launch ``kind`` on ``b``'s device (a CUDA device: ``_stage_chunks``
+    checked it) and current stream; the guard makes that device current
+    for the call and restores the caller's."""
     device = b.device
-    if device.type != "cuda":
-        raise ValueError(f"the SpTRSV kernels run on CUDA or CPU tensors, not {device}")
     entry = _entry(kind, vals.dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        with obs.span("kernel.launch", cat="kernel", kind=kind):
+        with obs.span("kernel.launch", cat="kernel", kind=kind, stage_bytes=stage_bytes):
             err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"sptrsv_{kind} launch failed: CUDA error {err}")
@@ -153,14 +159,52 @@ def _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b):
         raise ValueError(f"b must be [n+1] or [n+1, m]; got {tuple(b.shape)}")
 
 
-def _level_args(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr):
-    """The level tensors' pointers, the level count and W: the leading
-    arguments of every level entry point."""
-    ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr)]
-    return (*ptrs, level_ptr.shape[0] - 1, col_idx.shape[1])
+def device_chunks(host: LevelChunks, device) -> LevelChunks:
+    """``host`` (``kernels.levels.level_chunks``) with its chunk table on
+    ``device``."""
+    return host._replace(chunk_ptr=torch.as_tensor(host.chunk_ptr).to(device),
+                         level_chunk=torch.as_tensor(host.level_chunk).to(device))
 
 
-def _launch_level(single, mrhs, level, b_pad):
+def _stage_chunks(level, chunks, device):
+    """The chunk table the walk takes: ``chunks`` checked against the
+    level tensors ``level`` and ``device``, or, where it is None, built
+    from the level tensors on the host (``kernels.levels.level_chunks``)."""
+    if device.type != "cuda":
+        raise ValueError(f"the SpTRSV kernels run on CUDA or CPU tensors, not {device}")
+    vals, vert_ptr, level_ptr = level[2], level[5], level[6]
+    if chunks is None:
+        chunks = device_chunks(level_chunks(vert_ptr.cpu().numpy(), level_ptr.cpu().numpy(),
+                                            vals.shape[1], vals.element_size()), device)
+    if not isinstance(chunks, LevelChunks):
+        raise TypeError("chunks must be a kernels.levels.LevelChunks")
+    for name in ("chunk_ptr", "level_chunk"):
+        t = getattr(chunks, name)
+        if not isinstance(t, torch.Tensor) or t.device != device:
+            raise ValueError(f"chunks.{name} must be a tensor on {device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"chunks.{name} must be contiguous int32")
+    if chunks.chunk_ptr.dim() != 2 or chunks.chunk_ptr.shape[1] != 2:
+        raise ValueError(f"chunks.chunk_ptr must be [C+1, 2]; got {tuple(chunks.chunk_ptr.shape)}")
+    if chunks.level_chunk.shape != level_ptr.shape:
+        raise ValueError(f"chunks.level_chunk must be [L+1={level_ptr.shape[0]}]; got "
+                         f"{tuple(chunks.level_chunk.shape)}")
+    return chunks
+
+
+def _level_args(row_ids, col_idx, vals, diag, accum, vert_ptr, chunks, lo=0, hi=None):
+    """The level tensors' and the chunk table's pointers, the level count
+    (of levels ``[lo, hi)``, all by default), W and the stage layout: the
+    leading arguments of every level entry point but the bank's."""
+    ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, vert_ptr,
+                                   chunks.chunk_ptr)]
+    lc = chunks.level_chunk
+    hi = lc.shape[0] - 1 if hi is None else hi
+    return (*ptrs, lc.data_ptr() + lo * lc.element_size(), hi - lo, col_idx.shape[1],
+            chunks.stage_bytes, chunks.n_stages)
+
+
+def _launch_level(single, mrhs, level, b_pad, chunks):
     """Entry ``single`` on b_pad f[n+1] (checked, on the card), or entry
     ``mrhs`` on b_pad f[n+1, m]: a block per column of the column-major
     copy (a column's rows 1 apart, columns n+1 apart, so each block reads
@@ -169,34 +213,39 @@ def _launch_level(single, mrhs, level, b_pad):
     vals = level[2]
     if b_pad.numel() == 0:
         return torch.zeros_like(b_pad)
+    chunks = _stage_chunks(level, chunks, b_pad.device)
+    args = _level_args(*level[:6], chunks)
     if b_pad.dim() == 1:
         x = torch.zeros_like(b_pad)
-        _launch(single, vals, b_pad, *_level_args(*level), b_pad.data_ptr(), x.data_ptr())
+        _launch(single, vals, b_pad, chunks.stage_bytes, *args, b_pad.data_ptr(), x.data_ptr())
         return x
     m = b_pad.shape[1]
     b_col = b_pad.T.contiguous()
     x = torch.zeros_like(b_col)
-    _launch(mrhs, vals, b_col, *_level_args(*level), m, b_col.shape[1], b_col.data_ptr(),
+    _launch(mrhs, vals, b_col, chunks.stage_bytes, *args, m, b_col.shape[1], b_col.data_ptr(),
             x.data_ptr())
     return x.T
 
 
-def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
+def sptrsv_level_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad, *,
+                      chunks=None):
     """Scheduled SpTRSV over the plan's real lane-steps in the bulk level
     order (``kernels.levels``): row_ids int32[P], col_idx int32[P, W],
     vals f[P, W], diag f[P], accum bool[P], vert_ptr int32[V+1],
     level_ptr int32[L+1], b_pad f[n+1] (one block) or f[n+1, m] (a block
     per column of a column-major copy; x is returned as a view of the
-    column-major result). Bitwise-equal to ``kernels.ref.sptrsv_ref`` on
-    the plan."""
+    column-major result). ``chunks``: the order's ``LevelChunks`` on the
+    device (see the module docstring). Bitwise-equal to
+    ``kernels.ref.sptrsv_ref`` on the plan."""
     level = (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr)
     _check_level(*level, b_pad)
     if b_pad.device.type == "cpu":
         return sptrsv_level_ref(*level, b_pad)
-    return _launch_level("single", "mrhs", level, b_pad)
+    return _launch_level("single", "mrhs", level, b_pad, chunks)
 
 
-def sptrsv_elastic_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad):
+def sptrsv_elastic_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad, *,
+                        chunks=None):
     """Scheduled SpTRSV in ``mode="elastic"``: the level tensors of
     ``sptrsv_level_cuda`` in the level order over runs of the certificate's
     ``slack`` supersteps (``kernels.ops.elastic_kernel_arrays``), b_pad
@@ -206,7 +255,7 @@ def sptrsv_elastic_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr
     _check_level(*level, b_pad)
     if b_pad.device.type == "cpu":
         return sptrsv_level_ref(*level, b_pad)
-    return _launch_level("elastic_single", "elastic_mrhs", level, b_pad)
+    return _launch_level("elastic_single", "elastic_mrhs", level, b_pad, chunks)
 
 
 def _check_range(level, lo, hi, b, x):
@@ -231,7 +280,7 @@ def _check_range(level, lo, hi, b, x):
 
 
 def sptrsv_level_range_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, lo, hi,
-                            b, x):
+                            b, x, *, chunks=None):
     """Walk levels ``[lo, hi)`` of a bound level order (the tensors of
     ``sptrsv_level_cuda``) into ``x``, in place: b and x f[rows] (one
     block, the ``single`` entry) or column-major f[m, rows] (a block per
@@ -246,15 +295,14 @@ def sptrsv_level_range_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level
         return sptrsv_level_range_ref(*level, lo, hi, b, x)
     if hi == lo or b.numel() == 0:
         return x
-    ptrs = _level_args(*level)[:6]
-    # the walk reads absolute vertex bounds from its level_ptr on
-    lp = level_ptr.data_ptr() + lo * level_ptr.element_size()
+    chunks = _stage_chunks(level, chunks, b.device)
+    # the walk reads absolute chunk bounds from its level_chunk on
+    args = _level_args(*level[:6], chunks, lo, hi)
     if b.dim() == 1:
-        _launch("range_single", vals, b, *ptrs, lp, hi - lo, col_idx.shape[1], b.data_ptr(),
-                x.data_ptr())
+        _launch("range_single", vals, b, chunks.stage_bytes, *args, b.data_ptr(), x.data_ptr())
     else:
-        _launch("range_mrhs", vals, b, *ptrs, lp, hi - lo, col_idx.shape[1], b.shape[0],
-                b.shape[1], b.data_ptr(), x.data_ptr())
+        _launch("range_mrhs", vals, b, chunks.stage_bytes, *args, b.shape[0], b.shape[1],
+                b.data_ptr(), x.data_ptr())
     return x
 
 
@@ -284,7 +332,7 @@ def _check_bank(level_off, n_levels, lane_idx, b_col, level):
 
 
 def sptrsv_level_bank_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr,
-                           level_off, n_levels, lane_idx, b_col):
+                           level_off, n_levels, lane_idx, b_col, *, chunks=None):
     """Scheduled SpTRSV over a bank of plans of one width class
     (``kernels.ops.LevelBank``): the lanes' level tensors concatenated,
     level_off and n_levels int32[lanes] (lane l walks ``level_ptr[
@@ -292,15 +340,21 @@ def sptrsv_level_bank_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_
     host, b_col f[m, n+1] column-major (a column's rows contiguous, the
     scratch entry last). Column j is solved on lane ``lane_idx[j]``, one
     block per column, in one launch; returns x f[m, n+1] in b_col's
-    layout. Bitwise ``sptrsv_level_cuda`` on each column's plan alone."""
+    layout. ``chunks``: the bank's ``LevelChunks`` (``LevelBank.chunks``),
+    whose ``level_chunk`` the lane tables index as they index
+    ``level_ptr``. Bitwise ``sptrsv_level_cuda`` on each column's plan
+    alone."""
     level = (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr)
     _check_bank(level_off, n_levels, lane_idx, b_col, level)
     if b_col.device.type == "cpu":
         return sptrsv_level_bank_ref(*level, level_off, n_levels, lane_idx, b_col)
+    chunks = _stage_chunks(level, chunks, b_col.device)
     x = torch.zeros_like(b_col)
     m = b_col.shape[0]
     lanes = lane_idx.to(device=b_col.device, dtype=torch.int32)
-    ptrs = [t.data_ptr() for t in (*level, level_off, n_levels, lanes)]
-    _launch("bank", vals, b_col, *ptrs, col_idx.shape[1], m, b_col.shape[1],
-            b_col.data_ptr(), x.data_ptr())
+    ptrs = [t.data_ptr() for t in (*level[:6], chunks.chunk_ptr, chunks.level_chunk, level_off,
+                                   n_levels, lanes)]
+    _launch("bank", vals, b_col, chunks.stage_bytes, *ptrs, col_idx.shape[1],
+            chunks.stage_bytes, chunks.n_stages, m, b_col.shape[1], b_col.data_ptr(),
+            x.data_ptr())
     return x

@@ -181,7 +181,8 @@ def launch_round(mesh, plan_args, r, bs, xs, used) -> int:
         if hi > lo:
             busy += 1
             with mesh.on((d, j)):
-                sptrsv_level_range_cuda(*rl.la[:7], lo, hi, bs[d][j], xs[d][j])
+                sptrsv_level_range_cuda(*rl.la[:7], lo, hi, bs[d][j], xs[d][j],
+                                        chunks=rl.la.chunks)
     return busy
 
 

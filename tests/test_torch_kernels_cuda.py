@@ -11,6 +11,12 @@ adds no pass there). On the card run it with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
+Every entry of the level walk (single, m-RHS, range, elastic, bank; f32 and
+f64) is also held bitwise to the plain version over three stage layouts: a
+plan whose widest levels split into several chunks, chunks cut by bytes
+under a smaller shared-memory budget (with vertices that take the
+fallback), and a vertex wider than any stage at the card's budget.
+
 ``chip_smoke.py`` makes the same comparison at the main path's shapes.
 The kernels must match the plain version run on the CPU bit for bit: both
 chain fused multiply-adds left to right over W and divide correctly
@@ -24,14 +30,17 @@ import torch
 
 import repro_torch
 from repro_torch.core import elastic_transform
-from repro_torch.kernels import spmv, sptrsv
+from repro_torch.kernels import levels, spmv, sptrsv
 from repro_torch.kernels.ops import (
+    LevelArrays,
     elastic_kernel_arrays,
     level_plan_arrays,
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
+    stack_level_bank,
 )
 from repro_torch.kernels.ref import (
+    sptrsv_level_bank_ref,
     spmv_ell_rows_ref,
     spmv_sliced_ref,
     sptrsv_level_ref,
@@ -518,3 +527,92 @@ def test_serve_on_card_launches_the_bank_kernel(cuda):
         banked = snap["grouped_batches"] + snap["slots"]["passes"]
         assert launches["bank"] == banked > 0, (kw, launches, snap["batches"])
         assert launches["mrhs"] == snap["batches"] - banked, (kw, launches)
+
+
+# ------------------------------------------- the staged walk, every entry
+def _wide_vertex_levels(dtype, device, K=40_000):
+    """Level tensors with a vertex wider than any stage: level 0 finishes
+    rows 0 .. K-1, one step each reading the scratch slot; level 1
+    finishes row K with one vertex of K lane-steps (W = 1) that reads
+    every row of level 0."""
+    n = K + 1
+    rng = np.random.default_rng(21)
+    p = np.arange(2 * K)
+    row_ids = np.where(p < K, p, K)
+    col_idx = np.where(p < K, n, p - K)[:, None]
+    vals = np.where(p < K, 0.0, rng.uniform(-1, 1, 2 * K))[:, None]
+    diag = rng.uniform(0.5, 2, 2 * K)
+    accum = np.where(p < K, False, p < 2 * K - 1)
+    vert_ptr = np.append(np.arange(K + 1), 2 * K)
+    level_ptr = np.array([0, K, K + 1])
+
+    def put(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+
+    return LevelArrays(
+        row_ids=put(row_ids, torch.int32), col_idx=put(col_idx, torch.int32),
+        vals=put(vals, dtype), diag=put(diag, dtype), accum=put(accum, torch.bool),
+        vert_ptr=put(vert_ptr, torch.int32), level_ptr=put(level_ptr, torch.int32),
+        perm=put(p, torch.int64), n=n,
+        chunks=sptrsv.device_chunks(levels.level_chunks(vert_ptr, level_ptr, 1, dtype.itemsize),
+                                    device))
+
+
+def _walk_entries_match_plain(la_cpu, la, cuda, dtype):
+    """Every entry of the level walk on ``la`` (on the card, its bound
+    chunk table) against the plain version on ``la_cpu``, bitwise: one and
+    five right-hand sides, range launches over two ranges, the elastic
+    entries on the same tensors, and a bank of two lanes (the plan and its
+    values halved)."""
+    n, L = la.n, la.level_ptr.numel() - 1
+    rng = np.random.default_rng(22)
+    for m in (None, 5):
+        b_pad = pad_rhs(torch.as_tensor(
+            rng.standard_normal(n if m is None else (n, m)), dtype=dtype))
+        x_ref = sptrsv_level_ref(*la_cpu[:7], b_pad)
+        b = b_pad.to(cuda)
+        for fn in (sptrsv.sptrsv_level_cuda, sptrsv.sptrsv_elastic_cuda):
+            assert _bits_equal(fn(*la[:7], b, chunks=la.chunks), x_ref)
+        b_r = b if m is None else b.T.contiguous()
+        x_r = torch.zeros_like(b_r)
+        for lo, hi in ((0, L // 2), (L // 2, L)):
+            sptrsv.sptrsv_level_range_cuda(*la[:7], lo, hi, b_r, x_r, chunks=la.chunks)
+        assert _bits_equal(x_r if m is None else x_r.T, x_ref)
+    rows = torch.arange(n)
+    las = [la, la._replace(vals=la.vals * 0.5)]
+    bank = stack_level_bank(las, [rows.to(cuda)] * 2, [rows.to(cuda)] * 2)
+    cpu_bank = stack_level_bank([la_cpu, la_cpu._replace(vals=la_cpu.vals * 0.5)],
+                                [rows] * 2, [rows] * 2)
+    lane_idx = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    b_col = torch.as_tensor(rng.standard_normal((4, n + 1)), dtype=dtype)
+    b_col[:, n] = 0
+    x_cpu = sptrsv_level_bank_ref(*cpu_bank[:9], lane_idx, b_col)
+    x_gpu = sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col.to(cuda),
+                                          chunks=bank.chunks)
+    assert _bits_equal(x_gpu, x_cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["wide_levels", "small_stages", "wide_vertex"])
+def test_every_walk_entry_staged_matches_plain_bitwise(cuda, monkeypatch, layout, dtype):
+    """"wide_levels": levels of several thousand vertices, each several
+    chunks; "small_stages": two stages of 2 KB, chunks cut by bytes and the
+    dense rows' vertices read in place; "wide_vertex": one vertex wider
+    than a stage at the card's budget, beside staged chunks."""
+    if layout == "wide_vertex":
+        la_cpu, la = (_wide_vertex_levels(dtype, d) for d in ("cpu", cuda))
+    else:
+        if layout == "small_stages":
+            monkeypatch.setattr(levels, "SMEM_BYTES", 2 * (levels.STAGE_HEAD_BYTES + 4 * 1024))
+        L = erdos_renyi_lower(20000, 2e-5, seed=1) if layout == "wide_levels" else _arrow()
+        plan = repro_torch.TriangularSolver.plan(L, k=8, width=2, device="cpu").exec_plan
+        la_cpu = level_plan_arrays(plan, dtype=dtype, device="cpu")
+        la = level_plan_arrays(plan, dtype=dtype, device=cuda)
+    st = la.chunks.stats()
+    split = (np.diff(la.chunks.level_chunk.cpu().numpy()) > 1).any()
+    assert split or layout == "wide_vertex"
+    if layout == "wide_levels":
+        assert st["chunks_staged"] == st["chunks"]
+    else:  # some chunks take the fallback, the others are staged
+        assert 0 < st["chunks_staged"] < st["chunks"]
+    _walk_entries_match_plain(la_cpu, la, cuda, dtype)

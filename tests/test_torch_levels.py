@@ -26,7 +26,16 @@
     4, 8}, bitwise, the pad columns +0 and dropped again, the scratch row
     +0, C = 1 the column-major copy), and its plain version
     ``sptrsv_groups_ref`` == ``sptrsv_ref`` == the JAX scan executor,
-    bitwise, in f32 and f64, signed zeros included.
+    bitwise, in f32 and f64, signed zeros included;
+  * the level walk's chunk table and stage layout
+    (``kernels.levels.level_chunks``) on ER-like and IC(0) plans, wide
+    synthetic levels and a bank of two lanes, f32 and f64: the chunks cover
+    every vertex once and in order, none crosses a level or holds more than
+    992 vertices (the kernel's consumer threads), every staged chunk's
+    slices, rounded out to 16 bytes as the kernel copies them, fit its
+    stage, ``level_chunk`` sliced by a
+    level range or a lane's offset gives that range's or lane's chunks,
+    and a vertex wider than a stage is a chunk of its own, not staged.
 """
 import dataclasses
 import functools
@@ -45,6 +54,7 @@ from repro.solver.executor import plan_arrays as jplan_arrays
 from repro.solver.executor import solve_with_plan as jsolve_with_plan
 from repro_torch.convert import csr_from_numpy, exec_plan_from_numpy
 from repro_torch.kernels import level_sweep, ops, sptrsv
+from repro_torch.kernels import levels
 from repro_torch.kernels.levels import level_order
 from repro_torch.kernels.ops import level_plan_arrays
 from repro_torch.kernels.ref import sptrsv_level_bank_ref, sptrsv_level_ref, sptrsv_ref
@@ -376,9 +386,9 @@ def test_front_door_mrhs_through_level_wrapper_bitwise_vs_jax(monkeypatch, name)
     L = _jax_matrix(name)
     calls = []
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         calls.append(tuple(args[-1].shape))
-        return sptrsv.sptrsv_level_cuda(*args)
+        return sptrsv.sptrsv_level_cuda(*args, **kwargs)
 
     monkeypatch.setattr(ops, "sptrsv_level_cuda", spy)
     ts = repro_torch.TriangularSolver.plan(
@@ -548,3 +558,156 @@ def test_level_bank_wrapper_checks():
     meta = ops.LevelBank(*(t.to("meta") for t in bank[:9]), bank.perm, bank.inv, n)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         sptrsv.sptrsv_level_bank_cuda(*meta[:9], good, torch.zeros((2, n + 1), device="meta"))
+
+
+# ------------------------------------------------- the level walk's chunks
+def _stage_copies(lo, hi, W, itemsize, bases):
+    """The kernel's copies of chunk [lo, hi) (vertex, lane-step bounds), as
+    csrc/level.cuh::issue makes them from tensors at byte addresses
+    ``bases``: (aligned source, bytes, stage offset) per slice."""
+    (v0, p0), (v1, p1) = lo, hi
+    nv, np_ = v1 - v0, p1 - p0
+    starts = (4 * v0, 4 * p0 * W, itemsize * p0 * W, 4 * p0, itemsize * p0, p0)
+    lens = (4 * (nv + 1), 4 * np_ * W, itemsize * np_ * W, 4 * np_, itemsize * np_, np_)
+    out, at = [], 0
+    for base, start, n in zip(bases, starts, lens):
+        a = base + start
+        a0, end = a // 16 * 16, -(-(a + n) // 16) * 16
+        out.append((a0, end - a0, at))
+        at += end - a0
+    return out
+
+
+def _check_chunks(ch, vert_ptr, level_ptr, W, itemsize):
+    vp, lp = np.asarray(vert_ptr, np.int64), np.asarray(level_ptr, np.int64)
+    cp, lc = np.asarray(ch.chunk_ptr, np.int64), np.asarray(ch.level_chunk, np.int64)
+    C = cp.shape[0] - 1
+    # every vertex once, in order; lane-step bounds read off vert_ptr
+    assert cp[0, 0] == lp[0] == 0 and cp[-1, 0] == lp[-1]
+    assert (np.diff(cp[:, 0]) > 0).all() and np.array_equal(cp[:, 1], vp[cp[:, 0]])
+    # no chunk crosses a level: each level is exactly its chunks
+    assert lc[0] == 0 and lc[-1] == C and (np.diff(lc) > 0).all()
+    assert np.array_equal(cp[lc, 0], lp)
+    assert (np.diff(cp[:, 0]) <= levels.CHUNK_VERTICES).all()
+    # the stage layout fits the block's shared memory
+    assert levels.MIN_STAGES <= ch.n_stages <= levels.MAX_STAGES
+    assert ch.stage_bytes % 16 == 0
+    # the stage layout fits half the block's shared memory: the rest stays L1
+    assert levels.STAGE_HEAD_BYTES + ch.n_stages * ch.stage_bytes <= levels.SMEM_BYTES // 2
+    # a staged chunk's copies fit its stage, 16-byte aligned, wherever the
+    # tensors start; an unstaged chunk is a single vertex
+    nv, np_ = np.diff(cp[:, 0]), np.diff(cp[:, 1])
+    assert ch.staged.shape == (C,)
+    assert np.array_equal(ch.staged, levels.stage_need(nv, np_, W, itemsize) <= ch.stage_bytes)
+    assert (nv[~ch.staged] == 1).all()
+    for shift in (0, 4, 8, 12):
+        bases = [4096 * (i + 1) + shift * (itemsize if i in (2, 4) else 1) // 4 * 4
+                 for i in range(6)]
+        for c in np.flatnonzero(ch.staged):
+            copies = _stage_copies(cp[c], cp[c + 1], W, itemsize, bases)
+            assert all(a % 16 == 0 and n % 16 == 0 and at % 16 == 0 for a, n, at in copies)
+            assert sum(n for _, n, _ in copies) <= ch.stage_bytes
+    return cp, lc
+
+
+def _synthetic_levels(seed, widths, max_steps):
+    """vert_ptr / level_ptr of levels of the given widths whose vertices
+    take 1 to ``max_steps`` lane-steps."""
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(1, max_steps + 1, int(sum(widths)))
+    return (np.concatenate([[0], np.cumsum(steps)]).astype(np.int32),
+            np.concatenate([[0], np.cumsum(widths)]).astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name,k,width", [("er", 8, None), ("er", 4, 2), ("ichol", 8, None),
+                                          ("ichol", 16, 3), ("wide", 12, 1), ("wide", 12, 3)])
+def test_level_chunks_cover_levels_and_fit_stages(name, k, width, dtype):
+    """The chunk table of plans and of wide synthetic levels ("wide": W =
+    k, levels of up to 5,000 vertices of 1 to ``width`` lane-steps, cut by
+    the vertex count and by the stage's bytes)."""
+    itemsize = torch.empty(0, dtype=_TORCH[dtype]).element_size()
+    if name == "wide":
+        W = k
+        vert_ptr, level_ptr = _synthetic_levels(5, [1, 5000, 700, 992, 993, 3], width)
+    else:
+        order = level_order(_port_plan(name, k, width))
+        W = _port_plan(name, k, width).W
+        vert_ptr, level_ptr = order.vert_ptr, order.level_ptr
+    ch = levels.level_chunks(vert_ptr, level_ptr, W, itemsize)
+    cp, lc = _check_chunks(ch, vert_ptr, level_ptr, W, itemsize)
+    assert ch.staged.all()  # no vertex of these is wider than a stage
+    assert ch.stats() == {"stages": ch.n_stages, "stage_bytes": ch.stage_bytes,
+                          "chunks": cp.shape[0] - 1, "chunks_staged": cp.shape[0] - 1,
+                          "levels": len(level_ptr) - 1}
+    # a level range's chunks are level_chunk sliced as level_ptr is sliced
+    L = len(level_ptr) - 1
+    for lo, hi in ((0, L), (1, max(1, L // 2)), (L // 2, L), (L - 1, L)):
+        c_lo, c_hi = lc[lo], lc[hi]
+        assert cp[c_lo, 0] == level_ptr[lo] and cp[c_hi, 0] == level_ptr[hi]
+    if name == "wide":  # the wide levels are cut: by 992 vertices, and by bytes at W = 12
+        assert (np.diff(lc) > 1).any()
+    # bound with the level tensors, on the device the tensors are on
+    if name != "wide":
+        la = level_plan_arrays(_port_plan(name, k, width), dtype=_TORCH[dtype], device="cpu")
+        assert la.chunks.stage_bytes == ch.stage_bytes and la.chunks.n_stages == ch.n_stages
+        assert np.array_equal(la.chunks.chunk_ptr.numpy(), ch.chunk_ptr)
+        assert np.array_equal(la.chunks.level_chunk.numpy(), ch.level_chunk)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_level_chunks_leave_a_vertex_wider_than_a_stage_unstaged(dtype):
+    itemsize = torch.empty(0, dtype=_TORCH[dtype]).element_size()
+    W = 12
+    # level 1 holds a vertex of 5,000 lane-steps, more than the stages'
+    # room, between vertices of one step
+    steps = np.array([1, 1, 1, 5000, 1, 1, 1])
+    vert_ptr = np.concatenate([[0], np.cumsum(steps)]).astype(np.int32)
+    level_ptr = np.array([0, 2, 7], np.int32)
+    ch = levels.level_chunks(vert_ptr, level_ptr, W, itemsize)
+    cp, _ = _check_chunks(ch, vert_ptr, level_ptr, W, itemsize)
+    assert ch.n_stages == levels.MIN_STAGES  # the stage is as large as the room allows
+    wide = int(np.flatnonzero(cp[:-1, 0] == 3)[0])
+    assert cp[wide + 1, 0] == 4 and not ch.staged[wide]
+    assert ch.staged.sum() == ch.staged.size - 1
+    assert ch.stats()["chunks_staged"] == ch.stats()["chunks"] - 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["er", "nb"])
+def test_level_bank_chunks_are_each_lanes_chunks(name, dtype):
+    """A bank of two lanes: lane l's ``level_chunk[level_off[l] ..
+    level_off[l] + n_levels[l]]`` names its own chunks, shifted by its
+    vertex and lane-step offsets; one stage layout fits every lane."""
+    las, perms, invs, _ = _bank_members(name, dtype)
+    las, perms, invs = las[:2], perms[:2], invs[:2]
+    bank = ops.stack_level_bank(las, perms, invs)
+    itemsize = bank.vals.element_size()
+    W = bank.col_idx.shape[1]
+    cp, lc = _check_chunks(bank.chunks, bank.vert_ptr, bank.level_ptr, W, itemsize)
+    v_off = p_off = 0
+    for lane, la in enumerate(las):
+        l0, nl = int(bank.level_off[lane]), int(bank.n_levels[lane])
+        own = la.chunks
+        mine = cp[lc[l0] : lc[l0 + nl] + 1]
+        assert np.array_equal(mine, own.chunk_ptr.numpy() + [v_off, p_off])
+        assert own.stage_bytes <= bank.chunks.stage_bytes
+        assert own.n_stages >= bank.chunks.n_stages
+        v_off += la.vert_ptr.shape[0] - 1
+        p_off += la.row_ids.shape[0]
+    assert bank.chunks.staged.all()
+
+
+@pytest.mark.parametrize("mode", ["bsp", "elastic"])
+@pytest.mark.parametrize("name", ["er", "ichol"])
+def test_kernel_bound_describes_its_staging(name, mode):
+    """``describe()["staging"]``: the bound order's chunk table as the
+    kernel walks it; every chunk of these plans is staged."""
+    L = {"er": lambda: erdos_renyi_lower(2000, 2e-3, seed=3),
+         "ichol": lambda: ichol0(poisson2d_matrix(45))}[name]()
+    d = repro_torch.TriangularSolver.plan(L, device="cpu", mode=mode).bound.describe()
+    st = d["staging"]
+    assert set(st) == {"stages", "stage_bytes", "chunks", "chunks_staged", "levels"}
+    assert st["levels"] == d["n_levels"] and st["chunks"] >= st["levels"]
+    assert st["chunks_staged"] == st["chunks"]
+    assert levels.STAGE_HEAD_BYTES + st["stages"] * st["stage_bytes"] <= levels.SMEM_BYTES // 2
