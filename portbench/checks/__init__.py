@@ -12,7 +12,7 @@ first check that has one gives the cell's control. They use only
 import torch
 
 # the step below each stated precision that a later change might take
-PRECISION_BELOW = {"float32": torch.bfloat16}
+PRECISION_BELOW = {"float64": torch.float32, "float32": torch.bfloat16}
 
 
 def columns(ts) -> torch.Tensor:

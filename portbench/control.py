@@ -33,7 +33,8 @@ def control_reading(spec, seed: int, calls: int, device) -> dict:
     ctl = next(c.control for c in checks.values() if hasattr(c, "control"))
     driver = harness.load_module("traffic", spec.traffic["driver"])
     matrix = inputs.make_matrix(spec.config, seed)
-    pool = driver.make_pool(spec.traffic, matrix.n, seed, device)
+    pool = driver.make_pool(spec.traffic, matrix.n, seed, device,
+                             getattr(torch, spec.config["dtype"]))
     rhs = [driver.rhs(pool, i) for i in range(calls)]
     t = time.perf_counter()
     outs = ctl(matrix, rhs, spec.config, device)

@@ -10,12 +10,27 @@ configuration's file, ``traffic/<mix>.json`` and the driver it names
 for ``<stem>.<cell kind>`` one ``metrics/<stem>.py`` shared). A cell, mix,
 configuration or metric is added as files and entries; no file here names
 one.
+
+A new configuration brings, as new files:
+- ``configs/<config>.json``: the sizes, the ``generator`` and the keys of
+  its arguments, the ``values`` rule, the ``dtype`` (one that
+  ``roofline.VALUE_BYTES`` counts), the program's ``system`` and its
+  options, and ``test_sizes`` (``small`` and ``tiny``: the keys that the
+  CPU tests override);
+- where no generator it can name exists, ``reference/generators/<name>.py``
+  (a frozen plain-NumPy copy of the port's: ``generate``, ``PORT``,
+  ``CASES``; ``inputs.generator``);
+- where its values are neither ``seed`` nor ``fixed``,
+  ``reference/values/<rule>.py`` (``draw(rng, m)``; ``inputs.make_matrix``);
+- for each cell, ``cells/<cell>.json``, and the traffic mix, checks and
+  metric readers that do not exist yet;
+- entries in ``BENCHMARK.json``: the configuration, its cells, and each cell
+  in the ``workloads`` lists of the metrics it reports.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import random
 import sys
@@ -25,10 +40,9 @@ from pathlib import Path
 
 import torch
 
-from portbench import devtrace, inputs, peaks
+from portbench import HERE, devtrace, inputs, load_module, peaks
 
-ROOT = Path(__file__).resolve().parents[1]
-HERE = ROOT / "portbench"
+ROOT = HERE.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}  # top-level module names
 
 
@@ -40,16 +54,6 @@ class Spec:
     traffic: dict
     end_to_end: list
     per_layer: list
-
-
-def load_module(kind: str, name: str):
-    """``portbench/<kind>/<name>.py`` (names may hold dots)."""
-    path = HERE / kind / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench.{kind}._{name.replace('.', '_')}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def load_reader(metric: str):
@@ -113,7 +117,8 @@ def run(spec: Spec, *, seed: int, seconds: float, trace: bool, device: torch.dev
 
     t = time.perf_counter()
     matrix = inputs.make_matrix(config, seed)
-    pool = driver.make_pool(traffic, matrix.n, seed, device)
+    pool = driver.make_pool(traffic, matrix.n, seed, device,
+                            getattr(torch, config["dtype"]))
     sync()
     phases = {"inputs_s": time.perf_counter() - t}
     t = time.perf_counter()

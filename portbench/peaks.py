@@ -7,8 +7,10 @@ from __future__ import annotations
 import subprocess
 
 PEAKS = {
-    # H100 SXM: 80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores
-    "NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12, "fp32_flops": 67e12},
+    # H100 SXM: 80 GB HBM3 at 3.35 TB/s; outside the tensor cores 67 TFLOP/s
+    # in float32 and 34 TFLOP/s in float64
+    "NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12, "fp32_flops": 67e12,
+                              "fp64_flops": 34e12},
 }
 
 

@@ -12,6 +12,10 @@ import dataclasses
 
 import numpy as np
 
+# the generators here that a configuration may name; further ones are files
+# of reference/generators/ (inputs.generator)
+GENERATORS = ("erdos_renyi_lower", "poisson2d_matrix")
+
 
 @dataclasses.dataclass(frozen=True)
 class Csr:

@@ -213,7 +213,8 @@ def measure(spec: harness.Spec, seed: int, seconds: float, device: torch.device)
     system_mod = harness.load_module("systems", config["system"])
     driver = harness.load_module("traffic", traffic["driver"])
     matrix = inputs.make_matrix(config, seed)
-    pool = driver.make_pool(traffic, matrix.n, seed, device)
+    pool = driver.make_pool(traffic, matrix.n, seed, device,
+                            getattr(torch, config["dtype"]))
     system = system_mod.System(matrix, config, device)
     system.warmup(driver.rhs(pool, 0))
     calls, _, _ = driver.drive(system.call, pool, seconds, device, lambda i, out: None)

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import harness
+from portbench import harness, inputs, roofline
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -124,6 +124,20 @@ def test_cell_loads_by_name(cell):
     assert callable(driver.make_pool) and callable(driver.drive) and callable(driver.rhs)
     for m in spec.end_to_end + spec.per_layer:
         assert callable(harness.load_reader(m["name"]).read)
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_each_configuration_is_found_by_name(config):
+    entry = next(c for c in BENCH["configs"] if c["name"] == config)
+    cfg = json.loads((ROOT / entry["file"]).read_text())
+    assert callable(inputs.generator(cfg["generator"]))  # found once: raises otherwise
+    rule = cfg.get("values", "fixed")
+    if rule not in ("seed", "fixed"):
+        assert callable(inputs.value_rule(rule).draw)
+    assert cfg["dtype"] in roofline.VALUE_BYTES and cfg["dtype"] in roofline.RATE
+    assert set(cfg["test_sizes"]) == {"small", "tiny"}
+    for sizes in cfg["test_sizes"].values():  # each overrides a size the file has
+        assert sizes and set(sizes) <= set(cfg)
 
 
 def test_a_cg_cell_is_held_to_its_stated_tolerance():

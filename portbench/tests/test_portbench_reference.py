@@ -1,14 +1,26 @@
 """The yardstick: the frozen generators give the port's matrices, the plain
 solves agree with dense float64 algebra, the interval arithmetic and the
 byte counts are right on cases sized by hand."""
+import importlib
+import json
+
 import numpy as np
 import pytest
 import scipy.linalg
 import torch
 
-from portbench import roofline
+from portbench import HERE, inputs, load_module, roofline
 from portbench.reference import intervals, matrices
 from portbench.reference.solve import LevelSolve, Pcg, Spmv, levels
+
+# every generator file: the benchmark's own, and the test configuration's
+# (tests/room/), each with the argument sets it gives
+GENERATOR_FILES = [(kind, p.stem) for kind in ("reference/generators",
+                                               "tests/room/reference/generators")
+                   for p in sorted((HERE / kind).glob("*.py"))]
+GENERATOR_CASES = [pytest.param(kind, name, case, id=f"{name}-{i}")
+                   for kind, name in GENERATOR_FILES
+                   for i, case in enumerate(load_module(kind, name).CASES)]
 
 
 def dense(m):
@@ -24,6 +36,50 @@ def test_er_generator_is_the_ports(n, p, seed):
     want, got = erdos_renyi_lower(n, p, seed=seed), matrices.erdos_renyi_lower(n, p, seed=seed)
     for a in ("indptr", "indices", "data"):
         assert np.array_equal(getattr(want, a), getattr(got, a))
+
+
+@pytest.mark.parametrize("kind,name,case", GENERATOR_CASES)
+def test_each_generator_file_is_the_ports(kind, name, case):
+    mod = load_module(kind, name)
+    module, _, func = mod.PORT.rpartition(".")
+    assert not module.startswith("portbench")
+    want, got = getattr(importlib.import_module(module), func)(**case), mod.generate(**case)
+    assert isinstance(got, matrices.Csr)
+    for a in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(want, a), getattr(got, a))
+
+
+def _matrix_as_before(spec, seed):
+    """``inputs.make_matrix`` as it read before generators and value rules
+    were found by name."""
+    m = getattr(matrices, spec["generator"])(
+        **{param: spec[key] for param, key in spec["generator_args"].items()})
+    if spec.get("values") == "seed":
+        is_diag = m.indices == m.row_of_entry()
+        off, diag = matrices.paper_values(inputs.rng(seed, 1), int((~is_diag).sum()), m.n)
+        data = np.empty(m.nnz)
+        data[~is_diag] = off
+        data[is_diag] = diag
+        m = matrices.Csr(m.n, m.indptr, m.indices, data)
+    return m
+
+
+@pytest.mark.parametrize("config,seed", [("er100k", 0), ("er100k", 2**31 + 12345),
+                                         ("poisson512", 0)])
+def test_the_benchmarks_matrices_and_work_are_unmoved(config, seed):
+    spec = json.loads((HERE / "configs" / f"{config}.json").read_text())
+    got, want = inputs.make_matrix(spec, seed), _matrix_as_before(spec, seed)
+    for a in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(got, a), getattr(want, a))
+    assert spec["dtype"] == "float32"
+    # the tuples the benchmark counted before the count took the dtype
+    if config == "er100k":
+        assert roofline.solve_work(got, 1, "float32") == (5994924, 1098730)
+        assert roofline.solve_work(got, 32, "float32") == (30794924, 35159360)
+    else:
+        assert roofline.pcg_iteration_work(got, "float32") == (34570252, 7856128)
+        assert roofline.solve_work(matrices.lower_triangle(got), 1, "float32") == (9428996,
+                                                                                   1308672)
 
 
 @pytest.mark.parametrize("nx", [5, 16, 24])
@@ -106,6 +162,20 @@ def test_byte_counts_by_hand():
     peak = {"bytes_per_s": 1e3, "fp32_flops": 1e3}
     assert roofline.bound_s((100, 10), peak) == (0.1, "bytes")
     assert roofline.bound_s((10, 100), peak) == (0.1, "operations")
+    # float64: values, b and x 8 bytes; columns and row pointers still 4
+    assert roofline.solve_work(L, 1, "float64") == (5 * 12 + 16 + 2 * 3 * 8, 2 * 2 + 3)
+    assert roofline.solve_work(L, 32, "float64") == (5 * 12 + 16 + 2 * 3 * 8 * 32,
+                                                     (2 * 2 + 3) * 32)
+    assert roofline.pcg_iteration_work(A, "float64") == (
+        (7 * 12 + 16) + 2 * (5 * 12 + 16) + 8 * 3 * 8, 2 * 7 + 2 * (2 * 2 + 3) + 10 * 3)
+    assert roofline.solve_work(L, 1, "float32") == roofline.solve_work(L, 1)
+    # float64 operations against the float64 rate
+    peak64 = {**peak, "fp64_flops": 5e2}
+    assert roofline.bound_s((100, 10), peak64, "float64") == (0.1, "bytes")
+    assert roofline.bound_s((10, 100), peak64, "float64") == (0.2, "operations")
+    assert roofline.bound_s((10, 100), peak64, "float32") == (0.1, "operations")
+    with pytest.raises(KeyError):
+        roofline.solve_work(L, 1, "bfloat16")  # a width the count does not know
 
 
 def test_trace_reduction_on_a_trace_made_by_hand():

@@ -20,14 +20,13 @@ from portbench import control, harness
 
 ROOT = Path(__file__).resolve().parents[2]
 CPU = torch.device("cpu")
-SMALL = {"er100k": {"n": 3000, "p": 2e-3}, "poisson512": {"nx": 64}}
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
 SEED = 2**31 + 12345  # seeds run past 32 bits
 
 
 def small_spec(cell):
     spec = harness.load_spec(cell)
-    spec.config.update(SMALL[spec.config["name"]])
+    spec.config.update(spec.config["test_sizes"]["small"])
     spec.cell["trace_calls"] = min(spec.cell["trace_calls"], 3)
     return spec
 
@@ -146,9 +145,13 @@ def test_an_error_in_a_small_row_is_not_correct(cell, monkeypatch):
     monkeypatch.setattr(harness, "load_module", _broken(small_row))
     res = run_small(spec)
     assert res["correct"] is False and res["failed"] >= 1
-    # max |x - x_ref| / max |x_ref| cannot see it; the componentwise error does
-    assert res["checks"]["x_err"]["value"] <= res["checks"]["x_err"]["limit"]
     assert res["checks"]["x_berr"]["value"] > res["checks"]["x_berr"]["limit"]
+    if spec.config.get("values") == "seed":
+        # under the paper's values |x| spans orders of magnitude (max over
+        # median 1e4-1e5 on ER): max |x - x_ref| / max |x_ref| cannot see
+        # it, the componentwise error does. Values that keep |x| near max
+        # |b| (a dominant diagonal) let both see it.
+        assert res["checks"]["x_err"]["value"] <= res["checks"]["x_err"]["limit"]
 
 
 @pytest.mark.parametrize("cell", [c for c in CELLS if "cg" in harness.load_spec(c).config])

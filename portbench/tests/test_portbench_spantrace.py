@@ -15,7 +15,6 @@ from portbench import devtrace, harness, spantrace
 CELLS = [w["name"] for w in json.loads((harness.ROOT / "BENCHMARK.json").read_text())["workloads"]]
 CPU = torch.device("cpu")
 SEED = 2**31 + 4242
-TINY = {"er100k": {"n": 400, "p": 1e-2}, "poisson512": {"nx": 12}}
 
 
 def x(name, cat, ts, dur, **args):
@@ -104,7 +103,7 @@ def test_without_program_spans_all_idle_is_outside():
 
 def tiny_spec(cell):
     spec = harness.load_spec(cell)
-    spec.config.update(TINY[spec.config["name"]])
+    spec.config.update(spec.config["test_sizes"]["tiny"])
     spec.cell["trace_calls"] = min(spec.cell["trace_calls"], 3)
     return spec
 

@@ -13,15 +13,16 @@ import torch
 from portbench.inputs import SEED_MOD, rng
 
 
-def make_pool(traffic: dict, n: int, seed: int, device) -> torch.Tensor:
-    """f32[pool, n] (one right-hand side a call) or f32[pool, n, rhs], drawn
-    N(0, 1) on ``device`` by one generator seeded from ``seed``, in one
-    call."""
+def make_pool(traffic: dict, n: int, seed: int, device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """f[pool, n] (one right-hand side a call) or f[pool, n, rhs] in the
+    configuration's ``dtype``, drawn N(0, 1) on ``device`` by one generator
+    seeded from ``seed``, in one call."""
     m, pool = int(traffic["rhs"]), int(traffic["pool"])
     gen = torch.Generator(device=device)
     gen.manual_seed(int(rng(seed, 2).integers(SEED_MOD)))
     shape = (pool, n) if m == 1 else (pool, n, m)
-    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype)
 
 
 def rhs(pool: torch.Tensor, i: int) -> torch.Tensor:
