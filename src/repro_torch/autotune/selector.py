@@ -370,7 +370,9 @@ def resolve_auto_full(
       measured trials (skips recompiling the winner).
 
     Both are None on a memo hit — the caller's plan cache already has, or
-    will rebuild, the concrete plan."""
+    will rebuild, the concrete plan. A fresh selection runs inside one
+    ``autotune.resolve`` span (args: the chosen ``strategy``, ``slack`` and
+    ``regime``), its DAG build inside ``inspector.dag``."""
     fp = fp if fp is not None else pattern_fingerprint(a)
     # the binding only keys measured trials (selection_key drops it
     # otherwise); resolving it needs the device, which tune=False never uses
@@ -390,20 +392,23 @@ def resolve_auto_full(
     # costs describe the DAG that will actually be scheduled
     from repro_torch.pipeline.solver import mirror_to_lower
 
-    m0, _ = mirror_to_lower(a, lower)
-    dag = dag_from_lower_csr(m0)
-    with obs.span("autotune.features", cat="autotune", n=m0.n_rows):
-        f = matrix_features(m0, dag=dag)
-    sel, winning_sched = select_schedule(
-        dag, options, features=f, allow_elastic=allow_elastic
-    )
-    winner_solver = None
-    if tune:
-        sel, winner_solver = _timed_refine(
-            a, sel, lower=lower, plan_kwargs=plan_kwargs,
-            allow_elastic=allow_elastic,
+    with obs.span("autotune.resolve", cat="autotune", n=a.n_rows) as sp:
+        m0, _ = mirror_to_lower(a, lower)
+        with obs.span("inspector.dag", cat="inspector", n=m0.n_rows):
+            dag = dag_from_lower_csr(m0)
+        with obs.span("autotune.features", cat="autotune", n=m0.n_rows):
+            f = matrix_features(m0, dag=dag)
+        sel, winning_sched = select_schedule(
+            dag, options, features=f, allow_elastic=allow_elastic
         )
-        winning_sched = None
+        winner_solver = None
+        if tune:
+            sel, winner_solver = _timed_refine(
+                a, sel, lower=lower, plan_kwargs=plan_kwargs,
+                allow_elastic=allow_elastic,
+            )
+            winning_sched = None
+        sp.set(strategy=sel.strategy, slack=sel.options.slack, regime=sel.regime)
 
     if cache is not None:
         cache.store_selection(key, sel)

@@ -34,7 +34,8 @@ numeric values (paper §7.7's regime).
 (``repro_torch.autotune``: DAG features -> rule shortlist -> §2.2 cost
 model; ``tune=True`` adds measured trials on the solver's device); the
 outcome is memoized in the ``PlanCache`` and recorded on
-``Solver.selection``.
+``Solver.selection``. A fresh selection is inspector work: its seconds are
+in ``inspector_seconds`` and, on their own, in ``selection_seconds``.
 
 ``timed=True`` routes every solve through ``solve_timed``: the same bits,
 with per-step timings (``BoundSolve.solve_timed``) kept on
@@ -165,6 +166,7 @@ class TriangularSolver:
         strategy: str,
         lower: bool,
         inspector_seconds: float,
+        selection_seconds: float = 0.0,
         steps_per_tile: int = 8,
         slack: int = 0,
         mesh=None,
@@ -178,6 +180,10 @@ class TriangularSolver:
         self.strategy = strategy
         self.lower = lower
         self.inspector_seconds = inspector_seconds
+        # the part of inspector_seconds a fresh strategy="auto" selection
+        # took (the DAG, the features, every candidate's schedule); 0.0
+        # for a fixed strategy and on a selection memo hit
+        self.selection_seconds = selection_seconds
         self._steps_per_tile = steps_per_tile
         self._slack = slack  # > 0: elastic execution mode
         self._mesh = mesh  # repro_torch.mesh.Mesh (distributed backend)
@@ -329,6 +335,7 @@ class TriangularSolver:
             "lower": self.lower,
             "n_supersteps": self.n_supersteps,
             "inspector_seconds": self.inspector_seconds,
+            "selection_seconds": self.selection_seconds,
             "steps_per_tile": self._steps_per_tile,
             "plan": self.exec_plan.stats(),
             "binding": binding,
@@ -406,7 +413,10 @@ class TriangularSolver:
         rule. The resolved config is memoized per sparsity fingerprint
         (inside ``cache`` when given), and the plan is cached under the
         resolved *concrete* key — so repeated auto plans on one pattern
-        skip both selection and scheduling.
+        skip both selection and scheduling. A solver built after a fresh
+        selection counts it in ``inspector_seconds`` and, on its own, in
+        ``selection_seconds`` (0.0 after a memo hit); the winner's
+        schedule is reused, not run again.
 
         ``validate`` runs the independent static verifier
         (``repro_torch.analysis``) over the freshly built artifacts —
@@ -500,9 +510,11 @@ class TriangularSolver:
         selection = None
         pre_sched = None  # winning Schedule the selector already computed
         pre_solver = None  # winner's trial solver (tune=True measured run)
+        selection_seconds = 0.0  # a fresh auto selection's share of the inspector
         if strategy == "auto" and sched is None:
             from repro_torch.autotune.selector import resolve_auto_full
 
+            t_sel = time.perf_counter()
             selection, pre_sched, pre_solver = resolve_auto_full(
                 a,
                 options=o,
@@ -516,6 +528,9 @@ class TriangularSolver:
                     steps_per_tile=steps_per_tile, mesh=mesh, shard=shard,
                 ),
             )
+            # a memo hit hands back neither artifact: no selection ran
+            if pre_sched is not None or pre_solver is not None:
+                selection_seconds = time.perf_counter() - t_sel
             strategy, o = selection.strategy, selection.options
         elif sched is None:
             get_scheduler(strategy)  # fail fast on an unknown strategy
@@ -589,7 +604,8 @@ class TriangularSolver:
                 fingerprint=fp,
                 strategy=strategy if sched is None else "(prebuilt)",
                 lower=lower,
-                inspector_seconds=time.perf_counter() - t0,
+                inspector_seconds=time.perf_counter() - t0 + selection_seconds,
+                selection_seconds=selection_seconds,
                 steps_per_tile=steps_per_tile,
                 slack=o.slack,
                 mesh=mesh,
@@ -624,7 +640,11 @@ class TriangularSolver:
         # the tuned winner was built and warmed during the measured trials
         # (against a private cache) and carries its Selection — use it as
         # the builder so the work is not redone; it enters the shared
-        # cache fully formed, so no published solver is ever mutated
+        # cache fully formed, so no published solver is ever mutated. Its
+        # own build ran inside the selection, so the selection's seconds
+        # are the whole inspector's
+        if pre_solver is not None:
+            pre_solver.inspector_seconds = pre_solver.selection_seconds = selection_seconds
         builder = build if pre_solver is None else (lambda: pre_solver)
         if cache is None or sched is not None:
             solver = builder()
