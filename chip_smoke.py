@@ -277,13 +277,18 @@ FP32_FLOPS = 67e12  # H100 SXM data sheet, outside the tensor cores
 # kernel name -> (TPU kernel it replaces, CUDA source of its entry point,
 # launch counter, the kernel's body: file and function)
 _LEVEL_1, _LEVEL_M = "level.cuh::sptrsv_level_kernel", "level.cuh::sptrsv_level_cols_kernel"
+# a solve through the front door (TriangularSolver.solve) on the card is one
+# launch of the ordered solve (the walk of _LEVEL_1 / _LEVEL_M between b's
+# gather and x's scatter, one entry for the bulk and the elastic order),
+# counted under these kinds
+_ORDERED = "level.cuh::sptrsv_level_ordered_kernel"
 KERNELS = {
-    "sptrsv_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "single", _LEVEL_1),
-    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "mrhs", _LEVEL_M),
+    "sptrsv_single": ("src/repro/kernels/sptrsv.py:52", "sptrsv.cu", "ordered_single", _ORDERED),
+    "sptrsv_mrhs": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "ordered_mrhs", _ORDERED),
     "sptrsv_elastic_single": (
-        "src/repro/kernels/sptrsv.py:146", "sptrsv_elastic.cu", "elastic_single", _LEVEL_1),
+        "src/repro/kernels/sptrsv.py:146", "sptrsv.cu", "elastic_ordered_single", _ORDERED),
     "sptrsv_elastic_mrhs": (
-        "src/repro/kernels/sptrsv.py:232", "sptrsv_elastic.cu", "elastic_mrhs", _LEVEL_M),
+        "src/repro/kernels/sptrsv.py:232", "sptrsv.cu", "elastic_ordered_mrhs", _ORDERED),
     "spmv": ("src/repro/kernels/spmv.py:32", "spmv.cu", "spmv", "spmv.cu::spmv_sliced_kernel"),
     # the m-RHS kernel's banked launch: the serve layer's width-class grouping
     "sptrsv_bank": ("src/repro/kernels/sptrsv.py:98", "sptrsv.cu", "bank",
@@ -296,6 +301,8 @@ KERNELS = {
                           _LEVEL_M),
 }
 KERNEL_REPLACES = {name: k[0] for name, k in KERNELS.items()}
+FRONT_DOOR = tuple(KERNELS[k][2] for k in (
+    "sptrsv_single", "sptrsv_mrhs", "sptrsv_elastic_single", "sptrsv_elastic_mrhs"))
 MAIN_M = 32
 # a float32 solve against scipy's in float64: ||x - x64|| / ||x64||
 RELERR_VS_SCIPY = 1e-5
@@ -465,10 +472,9 @@ def pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card) -> 
         sync()
         wall = time.perf_counter() - t0
         launches = {**sptrsv.launches, **spmv.launches}
-        # z0 = M(b), then one M(r) per iteration: two solves each; one
-        # matvec per iteration
-        want = {"single": 2 * (iters + 1), "mrhs": 0, "elastic_single": 0,
-                "elastic_mrhs": 0, "bank": 0, "range_single": 0, "range_mrhs": 0,
+        # z0 = M(b), then one M(r) per iteration: two solves each, each one
+        # launch of the ordered walk; one matvec per iteration
+        want = {**{k: 0 for k in sptrsv.launches}, "ordered_single": 2 * (iters + 1),
                 "spmv": iters}
         require(launches == want, f"pcg launches {launches}, want {want}")
         require(x.device.type == dev.type and x.dtype == torch.float32 and x.shape == (n,)
@@ -797,8 +803,8 @@ def strategies_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, mai
         solvers.append((row, gpu))
     launches = dict(sptrsv.launches)
     want = len(rows)
-    require(launches["single"] == want and launches["mrhs"] == want
-            and launches["elastic_single"] == launches["elastic_mrhs"] == 0,
+    require(launches["ordered_single"] == want and launches["ordered_mrhs"] == want
+            and launches["elastic_ordered_single"] == launches["elastic_ordered_mrhs"] == 0,
             f"strategies launches {launches}, want {want} bulk solves of each shape")
     # the kernels alone, after the counters are read
     for row, gpu in solvers:
@@ -878,8 +884,8 @@ def auto_phase(mats, inputs, refs, cuda_times, bitwise_equal, max_abs, main_err,
         rows.append((row, gpu))
     model_launches = dict(sptrsv.launches)
     nb_mode = [r for r, _ in rows if r["matrix"] == "nb"][0]["mode"]
-    require(nb_mode == "elastic" and model_launches["elastic_single"] > 0
-            and model_launches["elastic_mrhs"] > 0,
+    require(nb_mode == "elastic" and model_launches["elastic_ordered_single"] > 0
+            and model_launches["elastic_ordered_mrhs"] > 0,
             f"auto on NB: mode {nb_mode}, launches {model_launches}")
 
     sptrsv.reset_launches()  # the measured trials' launches start here
@@ -1023,7 +1029,7 @@ def validate_phase(mats, inputs, answers, bitwise_equal, card) -> dict:
         rows.append(row)
     launches = dict(sptrsv.launches)
     per_kind = 2 * len(mats)  # before and after numeric_update, as unvalidated
-    for kind in ("single", "mrhs", "elastic_single", "elastic_mrhs"):
+    for kind in FRONT_DOOR:
         require(launches[kind] == per_kind,
                 f"validated {kind} launches {launches[kind]}: one a solve")
     require(findings == 0, f"{findings} findings on pristine plans")
@@ -1443,8 +1449,8 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
     launches = row["launches"]
     # ER's bulk plan on the m-RHS kernel, NB's elastic pick on the elastic
     # m-RHS kernel: a microbatch is one plan, so no bank
-    require(launches["mrhs"] > 0 and launches["bank"] == 0
-            and (launches["elastic_mrhs"] > 0) == (modes["nb"] == "elastic"),
+    require(launches["ordered_mrhs"] > 0 and launches["bank"] == 0
+            and (launches["elastic_ordered_mrhs"] > 0) == (modes["nb"] == "elastic"),
             f"serve microbatch launches {launches}, modes {modes}")
     require((True, 1) in versions and (True, 0) in versions,
             f"serve microbatch: ER versions served {versions}")
@@ -1468,7 +1474,8 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
     launches = row["launches"]
     plain_batches = snap["batches"] - snap["grouped_batches"]
     require(launches["bank"] == snap["grouped_batches"] > 0
-            and launches["mrhs"] == plain_batches and launches["elastic_mrhs"] == 0,
+            and launches["ordered_mrhs"] == plain_batches
+            and launches["elastic_ordered_mrhs"] == 0,
             f"serve width_class launches {launches}, batches {snap['batches']}, "
             f"grouped {snap['grouped_batches']}")
     require(lanes == 8, f"serve width_class: a bank of {lanes} lanes, want 8")
@@ -1484,8 +1491,8 @@ def serve_phase(mats, inputs, er_solver, auto_cache, cuda_times, bitwise_equal, 
         row.update(check_served("continuous", kept, grouped=True), engine=eng.describe(),
                    n_slots=eng.n_slots, device_window=device_window(svc, pool))
     launches = row["launches"]
-    require(launches["bank"] == snap["slots"]["passes"] > 0 and launches["mrhs"] == 0
-            and launches["elastic_mrhs"] == 0,
+    require(launches["bank"] == snap["slots"]["passes"] > 0 and launches["ordered_mrhs"] == 0
+            and launches["elastic_ordered_mrhs"] == 0,
             f"serve continuous launches {launches}, passes {snap['slots']['passes']}")
     rows.append(row)
 
@@ -2537,11 +2544,12 @@ def main() -> int:
     from repro_torch.core import elastic_transform
     from repro_torch.kernels import build, spmv, sptrsv
     from repro_torch.kernels.levels import level_order
-    from repro_torch.kernels.ops import elastic_kernel_arrays, level_plan_arrays
+    from repro_torch.kernels.ops import elastic_kernel_arrays, level_plan_arrays, ordered_walk
     from repro_torch.kernels.ref import (
         spmv_ell_rows_ref,
         spmv_sliced_ref,
         sptrsv_level_ref,
+        sptrsv_ordered_ref,
         sptrsv_ref,
     )
     from repro_torch.launch.dryrun import dominant_values, nvidia_smi_line, sptrsv_work
@@ -2854,7 +2862,7 @@ def main() -> int:
     for kname in ("sptrsv_elastic_single", "sptrsv_elastic_mrhs"):
         require(elastic_launches[KERNELS[kname][2]] > 0,
                 f"{kname} was not launched on the elastic path")
-    require(elastic_launches["single"] == elastic_launches["mrhs"] == 0,
+    require(elastic_launches["ordered_single"] == elastic_launches["ordered_mrhs"] == 0,
             "the elastic path launched a bulk kernel")
     emit({"phase": "main_path_elastic", "matrices": rows, "launches": elastic_launches,
           "bitwise_vs_bulk": True, "max_abs_err": {
@@ -2890,7 +2898,7 @@ def main() -> int:
     emit({"phase": "main_path_spmv", "matrices": rows, "launches": spmv_launches,
           "bitwise_vs_cpu_plain": True, "max_abs_err": main_err["spmv"], **card})
     path_launches = {**main_launches, **{k: elastic_launches[k] for k in (
-        "elastic_single", "elastic_mrhs")}, **spmv_launches}
+        "elastic_ordered_single", "elastic_ordered_mrhs")}, **spmv_launches}
     for key, v in validated["launches"].items():  # the validated paths'
         path_launches[key] = path_launches.get(key, 0) + v
 
@@ -2910,7 +2918,7 @@ def main() -> int:
     # ------------------------------------------------------------ pcg
     pcg = pcg_phase(args, dev, cuda_times, bitwise_equal, max_abs, main_err, card)
     # the kernels' path launches add this path's
-    path_launches["single"] += pcg["launches"]["single"]
+    path_launches["ordered_single"] += pcg["launches"]["ordered_single"]
     path_launches["spmv"] += pcg["launches"]["spmv"]
 
     # ---------------------------------------------------------- serve
@@ -2988,6 +2996,23 @@ def main() -> int:
         shape = (n + 1,) if m is None else (n + 1, m)
         return torch.randn(shape, generator=torch.Generator().manual_seed(7)).to(dev)
 
+    def ordered_timing(solver, la, rhs, elastic, what):
+        """The main path's kernel at this shape: the ordered solve (b and x
+        in the caller's row order, one launch) on ``rhs`` over ``la`` and
+        the solver's row order, its ms, and its plain version's once, both
+        answers bitwise the front door's."""
+        walk = ordered_walk(la, solver._perm, elastic=elastic)
+        ms = statistics.median(cuda_times(lambda: sptrsv.sptrsv_ordered_cuda(walk, rhs), 3, 20))
+        x = sptrsv.sptrsv_ordered_cuda(walk, rhs)
+        x_plain = []
+        plain = cuda_times(lambda: x_plain.append(
+            sptrsv_ordered_ref(*la[:7], solver._perm, rhs)), 0, 1)
+        require(bitwise_equal(x, x_plain[0]), f"{what}: timed ordered solve != plain")
+        require(bitwise_equal(x, solver.solve(rhs)), f"{what}: ordered solve != front door")
+        return {"ordered_ms": ms, "ordered_plain_ms": statistics.median(plain),
+                "ordered_grid": min(max(rhs.shape[1] if rhs.dim() == 2 else 1,
+                                        sptrsv.ORDERED_SPREAD), sptrsv.ordered_columns(walk))}
+
     timing = {}
     for name, gpu in solvers.items():
         plan = gpu.exec_plan
@@ -3046,6 +3071,8 @@ def main() -> int:
             else:  # the wrapper's column-major copy of b, part of ms
                 copy_in = cuda_times(lambda: b_pad.T.contiguous(), 3, 20)
                 rec.update(blocks=cols, copy_in_ms=statistics.median(copy_in))
+            # the same bound: the ordered solve reads b and writes x once too
+            rec.update(ordered_timing(gpu, la, rhs, False, f"{name} {kname}"))
             timing[(name, kname)] = rec
             emit({"phase": "timing", **rec})
         # the range kernels: the bulk order cut at each superstep, walked by
@@ -3101,6 +3128,7 @@ def main() -> int:
             ms = statistics.median(cuda_times(
                 lambda: sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad, chunks=la.chunks), 3, 20))
             x = sptrsv.sptrsv_elastic_cuda(*la[:7], b_pad, chunks=la.chunks)
+            ordered = ordered_timing(el, la, b_pad[:-1].contiguous(), True, f"{name} {kname}")
             # the plain version once: it launches tens of operations per level
             x_plain = []
             plain = cuda_times(lambda: x_plain.append(sptrsv_level_ref(*la[:7], b_pad)), 0, 1)
@@ -3126,7 +3154,7 @@ def main() -> int:
                    "plain_ms": statistics.median(plain), "plain_reps": len(plain),
                    # the same system and right-hand side as the bulk record
                    "library_ms": bulk["library_ms"], "library": bulk["library"],
-                   "library_error": bulk["library_error"], **card}
+                   "library_error": bulk["library_error"], **ordered, **card}
             timing[(name, kname)] = rec
             emit({"phase": "timing", **rec})
 
@@ -3281,14 +3309,18 @@ def main() -> int:
     summary = []
     for kname, (replaces, source, counter, body) in KERNELS.items():
         rec = timing[("er", kname)]
-        summary.append({
+        row = {
             "name": kname, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "body": f"src/repro_torch/csrc/{body}",
             "replaces": replaces, "launches": path_launches[counter],
             "max_abs_err": main_err[kname], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_us"] / 1e3, "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
-        })
+        }
+        if counter in FRONT_DOOR:  # the main path's kernel, and the walk alone
+            row.update(ms=rec["ordered_ms"], plain_ms=rec["ordered_plain_ms"],
+                       walk_ms=rec["ms"], walk_plain_ms=rec["plain_ms"])
+        summary.append(row)
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

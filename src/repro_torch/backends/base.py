@@ -16,6 +16,11 @@
         bound solve sharing the (read-only) index tensors; the old bound is
         untouched;
       - ``describe()`` — a JSON-ready dict for telemetry;
+      - ``take_row_order(perm)`` — where the bound can (the ``kernel``
+        backend on the card), it takes the caller's row permutation once
+        and from then on ``solve_ordered(b)`` solves b in the caller's row
+        order, bitwise ``solve(b[perm])[inv]``, and ``front_door`` reads
+        ``"ordered"``; elsewhere it declines and the front door gathers;
       - where ``supports_grouped``: classmethods that solve one rhs per
         plan of one width class in one dispatch (``solve_grouped``), over
         a bank stacked once (``stack_bank`` / ``solve_bank``), and over a
@@ -96,6 +101,22 @@ class BoundSolve(abc.ABC):
     # ``stack_bank`` / ``solve_bank`` (the serving path —
     # ``repro_torch.pipeline.GroupBank`` dispatches through them).
     supports_grouped: bool = False
+
+    # "ordered": solve_ordered takes b in the caller's row order (after
+    # take_row_order); "gather": the front door permutes around solve
+    front_door: str = "gather"
+
+    def take_row_order(self, perm: torch.Tensor) -> None:
+        """Take the caller's row permutation ``perm`` (int64[n]: plan row
+        i is the caller's row ``perm[i]``) where this bound can, so that
+        ``solve_ordered`` serves b in the caller's order and ``front_door``
+        reads ``"ordered"``; here it cannot, and ``front_door`` stays
+        ``"gather"``."""
+
+    def solve_ordered(self, b: torch.Tensor) -> torch.Tensor:
+        """Solve for ``b`` f[n] or f[n, m] in the caller's row order (where
+        ``front_door`` reads ``"ordered"``); x in the caller's row order."""
+        raise self._unsupported("solves in the caller's row order")
 
     @classmethod
     def _unsupported(cls, what: str):

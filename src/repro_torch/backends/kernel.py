@@ -11,7 +11,10 @@ walk over a ``LevelBank``, each column on its own plan; it overrides every
 bank method of the scan bound it subclasses that solves, so none reaches
 the plain executor. CPU tensors take the kernels' plain version. A timed
 solve is that one launch, timed as one step: the kernel, not the scan's
-segments."""
+segments. On the card a bound takes the solver's row permutation
+(``take_row_order``), and the front door's solve is then one cooperative
+launch that takes b and returns x in the caller's row order
+(``solve_ordered``; ``describe()["front_door"]`` reads ``"ordered"``)."""
 from __future__ import annotations
 
 import torch
@@ -28,11 +31,14 @@ from repro_torch.kernels.ops import (
     elastic_kernel_arrays,
     kernel_plan_arrays,
     level_plan_arrays,
+    ordered_walk,
+    solve_ordered,
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
     solve_with_level_bank,
     stack_level_bank,
 )
+from repro_torch.kernels.sptrsv import ordered_columns
 from repro_torch.solver.executor import elastic_plan_arrays
 
 
@@ -61,10 +67,44 @@ class _KernelTimed:
     is one launch, so it is timed as one step (``BoundSolve.solve_timed``),
     as the JAX package's Pallas backend does. The runtime block counts the
     timed solves and the levels they walked (every launch walks all of its
-    level order's levels), in the kernel's own unit, not macro-steps."""
+    level order's levels), in the kernel's own unit, not macro-steps.
+
+    Also the front door's ordered solve: on the card ``take_row_order``
+    binds the level tensors and the solver's row permutation once, and
+    ``solve_ordered`` is then one launch a solve (more right-hand sides
+    than the card holds blocks at once gather around ``solve``); a value
+    refresh keeps the row order. A timed solve stays in plan row order."""
+
+    _elastic_walk = False  # the ordered solve's launch kinds: bulk or elastic
+    _perm = None  # the row permutation, int64[n]
+    _walk = None  # and the ordered solve bound with it
 
     def _start_runtime(self):
         self._kernel_runtime = {"timed_solves": 0, "levels_walked": 0}
+
+    def take_row_order(self, perm) -> None:
+        # the ordered solve is a kernel: on the CPU the front door gathers
+        if self._la.vals.device.type == "cuda":
+            self._bind_row_order(perm)
+
+    def _bind_row_order(self, perm) -> None:
+        self._walk = ordered_walk(self._la, perm, elastic=self._elastic_walk)
+        self._perm = torch.as_tensor(perm).to(device=self._la.vals.device, dtype=torch.int64)
+        self.front_door = "ordered"
+
+    def _keep_row_order(self, old):
+        """After a value refresh: ``old``'s row order over this bound's
+        values."""
+        if old._walk is not None:
+            self._bind_row_order(old._perm)
+        return self
+
+    def solve_ordered(self, b):
+        if b.dim() == 2 and b.shape[1] > ordered_columns(self._walk):
+            x = torch.empty_like(b)
+            x[self._perm] = self.solve(b[self._perm])
+            return x
+        return solve_ordered(self._walk, b)
 
     def _n_levels(self) -> int:
         return self._la.level_ptr.numel() - 1
@@ -82,6 +122,9 @@ class _KernelTimed:
         ch = self._la.chunks
         out["n_levels"] = self._n_levels()
         out["device_bytes"] += _device_bytes((*self._la[:8], ch.chunk_ptr, ch.level_chunk))
+        out["front_door"] = self.front_door
+        if self._walk is not None:
+            out["device_bytes"] += _device_bytes((self._walk.tensors[7],))
         out["runtime"] = {**rt, "predicted_levels": out["n_levels"]}
         # how often the kernel's stages engage (kernels.levels.LevelChunks)
         out["staging"] = ch.stats()
@@ -138,7 +181,7 @@ class KernelBoundSolve(_KernelTimed, ScanBoundSolve):
             self._val_src,  # index tensors shared, read-only
             self._diag_src,
             n_entries=self.n_entries,
-        )
+        )._keep_row_order(self)
 
     def describe(self) -> dict:
         return self._describe_levels(super().describe())
@@ -158,6 +201,7 @@ class ElasticKernelBoundSolve(_KernelTimed, ElasticScanBoundSolve):
     # as the JAX package's elastic bounds: no grouped twin (its inherited
     # bank methods raise)
     supports_grouped = False
+    _elastic_walk = True
 
     def __init__(self, arrays, elastic, val_src, diag_src, *, n_entries):
         ea, self._la = arrays
@@ -175,7 +219,7 @@ class ElasticKernelBoundSolve(_KernelTimed, ElasticScanBoundSolve):
             self._val_src,  # index tensors shared, read-only
             self._diag_src,
             n_entries=self.n_entries,
-        )
+        )._keep_row_order(self)
 
     def describe(self) -> dict:
         # the level order's runs: slack counts supersteps here, plan steps

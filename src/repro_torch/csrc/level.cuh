@@ -57,6 +57,33 @@
 // block's shared memory, and it is written inside the kernel, so it is read
 // through a plain pointer (no __ldg, no const __restrict__).
 //
+// The ordered solve (sptrsv_level_ordered_kernel; the front door's, through
+// kernels/sptrsv.py, sptrsv_ordered_cuda) takes b and returns x in the
+// caller's row order in one launch: a cooperative grid of at least m
+// blocks (128 where the card holds them: kernels/sptrsv.py,
+// ORDERED_SPREAD), all resident at once, gathers b into plan row order in a
+// column-major scratch (b_col[c][r] = b[perm[r]][c], perm the solver's row
+// permutation), meets at a grid barrier, walks column c in block c with the
+// walk above, unchanged, meets again, and scatters x back (out[perm[r]][c]
+// = x_col[c][r]); for m columns the moves go through 32 x 32 tiles in
+// shared memory, so both sides of each are whole lines. The walk's block
+// touches 4 bytes of each 128-byte row of the caller's row-major b and x, so
+// done by the walk itself they cost a scattered access per row and column,
+// all on one SM: measured there, 9-31% of the walk on the paper's ER set, a
+// Poisson factor and 32 columns (stored in the level loop, the caller's
+// rows cost most), against 1-9% spread over the grid (PERF.md). The walk
+// reads the gathered b with plain loads: the launch wrote it, so the
+// read-only path may not serve it. The scatter writes every row; the
+// gather sets the scratch slot x[n] = +0 and the walk writes every other row
+// of x before it reads it (levels.py), so the caller allocates both without
+// a fill. The blocks that do not walk wait at the second grid barrier, so
+// the grid holds its SMs until the walk ends: the scatter then runs spread
+// over them. Letting them leave would leave the scatter to the walking
+// blocks, the 9-31% above, or to a second launch. Work on other streams
+// gets the SMs the grid leaves free, and a second ordered solve on another
+// stream starts when its whole grid fits (a cooperative launch's blocks
+// are all resident), so solves on two streams run one after the other.
+//
 // Bound on this card. A solve reads each real plan entry and lane-step once,
 // reads b and writes x: those bytes over the H100's 3.35 TB/s are the least
 // time the card could take. The real limit is latency: a level costs its
@@ -67,6 +94,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <atomic>
 
@@ -220,11 +249,13 @@ __device__ __forceinline__ void issue(const Plan<T>& pl, int W, int2 lo, int2 hi
   }
 }
 
-// The gather of b at the row of this thread's vertex's finishing step.
-template <typename T>
+// The gather of b at the row of this thread's vertex's finishing step;
+// through the read-only path, or, where the launch itself wrote b
+// (kWrittenB: the ordered solve's scratch, behind a grid barrier), a plain
+// load, which L1 may cache as the read-only path does.
+template <typename T, bool kWrittenB>
 __device__ __forceinline__ T preload(const Plan<T>& pl, const Head& h,
-                                     const unsigned char* stage, const T* __restrict__ b,
-                                     int64_t stride) {
+                                     const unsigned char* stage, const T* b, int64_t stride) {
   const int i = threadIdx.x;
   if (i >= h.nv) return T(0);
   int row;
@@ -234,7 +265,11 @@ __device__ __forceinline__ T preload(const Plan<T>& pl, const Head& h,
   } else {
     row = __ldg(pl.row_ids + __ldg(pl.vert_ptr + h.v0 + i + 1) - 1);
   }
-  return __ldg(b + row * stride);
+  if constexpr (kWrittenB) {
+    return b[row * stride];
+  } else {
+    return __ldg(b + row * stride);
+  }
 }
 
 // Vertex i of a chunk: its steps in order, the operands read through the
@@ -296,12 +331,13 @@ __device__ __forceinline__ void produce(const Plan<T>& pl, const int2* __restric
 // at b[r * stride] and x[r * stride] for row r. The block's last warp
 // produces (one thread of it); the others consume, a vertex a thread, and
 // end each level in a barrier of their own (named barrier 1), so the
-// producer's work is never on their path.
-template <typename T>
+// producer's work is never on their path. kWrittenB: b was written in this
+// launch (preload).
+template <typename T, bool kWrittenB = false>
 __device__ __forceinline__ void walk(const Plan<T>& pl, const int2* __restrict__ chunk_ptr,
                                      const int32_t* __restrict__ level_chunk, int n_levels,
-                                     int W, int stage_bytes, int n_stages,
-                                     const T* __restrict__ b, T* x, int64_t stride) {
+                                     int W, int stage_bytes, int n_stages, const T* b, T* x,
+                                     int64_t stride) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
@@ -328,7 +364,7 @@ __device__ __forceinline__ void walk(const Plan<T>& pl, const int2* __restrict__
   int s = 0;
   uint32_t parity = 0;
   mbar_wait(full, 0);
-  T bv = preload(pl, head[0], stages, b, stride);
+  T bv = preload<T, kWrittenB>(pl, head[0], stages, b, stride);
   for (int c = c0; c < c1; ++c) {
     const Head h = head[s];
     if (tid < h.nv) {
@@ -355,7 +391,7 @@ __device__ __forceinline__ void walk(const Plan<T>& pl, const int2* __restrict__
     const uint32_t parity1 = s1 == 0 ? parity ^ 1u : parity;
     if (c + 1 < c1) {
       mbar_wait(full + s1, parity1);
-      bv = preload(pl, head[s1], stages + s1 * stage_bytes, b, stride);
+      bv = preload<T, kWrittenB>(pl, head[s1], stages + s1 * stage_bytes, b, stride);
     }
     // a level's last chunk ends the level among the consumers: its x rows
     // are visible to the next; inside a level the warps run on
@@ -414,6 +450,115 @@ __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_bank_kernel(
   const int64_t c = static_cast<int64_t>(blockIdx.x) * rows;
   walk(pl, chunk_ptr, level_chunk + __ldg(level_off + lane), __ldg(n_levels + lane), W,
        stage_bytes, n_stages, b + c, x + c, int64_t{1});
+}
+
+// The ordered solve's moves of b and x between the caller's row-major
+// f[n, m] (f[n] for one column) and the column-major scratch f[m, n + 1] in
+// plan row order, by every thread of the grid: plan row r is the caller's
+// row perm[r]. For m > 1 (kCols) 32 x 32 tiles of (plan row, column) go
+// through shared memory (`tile`, kTiles of 32 x 33 elements), so a warp
+// reads or writes 32 columns of one caller row and 32 plan rows of one
+// column; a block moves kTiles tiles down the rows at once, their loads in
+// flight together.
+//
+// The caller's b is read-only for the launch (__ldg); the scratch, written
+// in it by other blocks, is read through L2 (__ldcg), never the read-only
+// path.
+constexpr int kTile = 32;
+constexpr int kTiles = 8;
+template <typename T, bool kCols, bool kToPlan>
+__device__ __forceinline__ void move_rows(const T* from, T* to, const int32_t* __restrict__ perm,
+                                          int64_t n, int m, T* tile) {
+  const int64_t rows = n + 1;
+  if constexpr (!kCols) {
+    const int64_t nt = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; r < n;
+         r += nt) {
+      const int64_t i = __ldg(perm + r);
+      if constexpr (kToPlan) {
+        to[r] = __ldg(from + i);
+      } else {
+        to[i] = __ldcg(from + r);
+      }
+    }
+    return;
+  }
+  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  const int col_tiles = (m + kTile - 1) / kTile;
+  const int64_t span = int64_t{kTile} * kTiles;  // the rows of a pass
+  const int64_t passes = (n + span - 1) / span * col_tiles;
+  for (int64_t t = blockIdx.x; t < passes; t += gridDim.x) {
+    const int64_t r0 = t / col_tiles * span;
+    const int c0 = static_cast<int>(t % col_tiles) * kTile;
+    // thread (ty, tx) of tile u moves caller row r0 + 32u + ty, column
+    // c0 + tx, held in tile u at [ty][tx], and plan row r0 + 32u + tx,
+    // column c0 + ty of the scratch, held at [tx][ty]
+#pragma unroll
+    for (int u = 0; u < kTiles; ++u) {
+      const int64_t r = r0 + u * kTile;
+      T* tl = tile + u * kTile * (kTile + 1);
+      if constexpr (kToPlan) {
+        if (r + ty < n && c0 + tx < m)
+          tl[ty * (kTile + 1) + tx] =
+              __ldg(from + static_cast<int64_t>(__ldg(perm + r + ty)) * m + c0 + tx);
+      } else {
+        if (c0 + ty < m && r + tx < n)
+          tl[tx * (kTile + 1) + ty] = __ldcg(from + static_cast<int64_t>(c0 + ty) * rows + r + tx);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kTiles; ++u) {
+      const int64_t r = r0 + u * kTile;
+      const T* tl = tile + u * kTile * (kTile + 1);
+      if constexpr (kToPlan) {
+        if (c0 + ty < m && r + tx < n)
+          to[static_cast<int64_t>(c0 + ty) * rows + r + tx] = tl[tx * (kTile + 1) + ty];
+      } else {
+        if (r + ty < n && c0 + tx < m)
+          to[static_cast<int64_t>(__ldg(perm + r + ty)) * m + c0 + tx] = tl[ty * (kTile + 1) + tx];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The ordered solve, a cooperative launch of at least m blocks: b and out
+// the caller's f[n] (one column) or row-major f[n, m] (kCols), b_col and
+// x_col two column-major f[m, n + 1] scratches (b, then x, in plan row
+// order), uninitialised. Block c < m walks column c. One column has its own
+// instantiation, as the unordered walk has (sptrsv_level_kernel): its walk
+// reads both scratches straight from the launch's parameters and holds the
+// registers it holds in a kernel of its own (54 float32, 56 float64, against
+// 54 / 55 there; on an H100 the same time). Sharing the m-column kernel's
+// per-block offset, it held 64, the cap at 1,024 threads, and the float64
+// walk ran 5-8% slower.
+template <typename T, bool kCols>
+__global__ void __launch_bounds__(kThreads, 1) sptrsv_level_ordered_kernel(
+    Plan<T> pl, const int2* __restrict__ chunk_ptr, const int32_t* __restrict__ level_chunk,
+    int n_levels, int W, int stage_bytes, int n_stages, int m, int64_t n,
+    const int32_t* __restrict__ perm, const T* __restrict__ b, T* out, T* b_col, T* x_col) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the tiles lie past the walk's mbarriers, in its stages' room
+  T* tile = reinterpret_cast<T*>(smem + kHeadBytes);
+  const int64_t rows = n + 1;
+  // the scratch slot the padding slots read, x[n] = +0 in each column
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < m) x_col[threadIdx.x * rows + n] = T(0);
+  move_rows<T, kCols, true>(b, b_col, perm, n, m, tile);
+  cooperative_groups::this_grid().sync();
+  if constexpr (kCols) {
+    if (static_cast<int>(blockIdx.x) < m) {
+      const int64_t c = static_cast<int64_t>(blockIdx.x) * rows;
+      walk<T, true>(pl, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b_col + c,
+                    x_col + c, int64_t{1});
+    }
+  } else {
+    if (blockIdx.x == 0)
+      walk<T, true>(pl, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b_col, x_col,
+                    int64_t{1});
+  }
+  cooperative_groups::this_grid().sync();
+  move_rows<T, kCols, false>(x_col, out, perm, n, m, tile);
 }
 
 // The host side, with internal linkage: each library that includes this
@@ -506,6 +651,85 @@ int launch_bank(const void* row_ids, const void* col_idx, const void* vals,
       static_cast<const int32_t*>(lane_idx), W, stage_bytes, n_stages, rows,
       static_cast<const T*>(b), static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The ordered solve's dynamic shared memory: the walk's, and for m columns
+// room past the head for the tiles.
+template <typename T, bool kCols>
+int ordered_smem(int stage_bytes, int n_stages) {
+  const int smem = smem_bytes(stage_bytes, n_stages);
+  const int tile = kHeadBytes + kTiles * kTile * (kTile + 1) * static_cast<int>(sizeof(T));
+  return smem == 0 || !kCols ? smem : (smem > tile ? smem : tile);
+}
+
+template <typename T, bool kCols>
+std::atomic<uint64_t>& ordered_done() {
+  static std::atomic<uint64_t> done{0};
+  return done;
+}
+
+template <typename T, bool kCols>
+cudaError_t ordered_per_sm(int stage_bytes, int n_stages, int* per_sm) {
+  const int smem = ordered_smem<T, kCols>(stage_bytes, n_stages);
+  if (smem == 0) return cudaErrorInvalidValue;
+  if (cudaError_t err = allow_smem(sptrsv_level_ordered_kernel<T, kCols>, ordered_done<T, kCols>()))
+    return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, sptrsv_level_ordered_kernel<T, kCols>, kThreads, smem);
+}
+
+// The most blocks of the ordered solve, of one column or of m, resident at
+// once on the current device (its SMs times the blocks an SM holds), for
+// the stage layout: what a cooperative launch may take.
+template <typename T>
+int ordered_blocks(int stage_bytes, int n_stages, int* blocks) {
+  int dev = 0, sms = 0, one = 0, cols = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = ordered_per_sm<T, false>(stage_bytes, n_stages, &one);
+  if (err == cudaSuccess) err = ordered_per_sm<T, true>(stage_bytes, n_stages, &cols);
+  *blocks = (one < cols ? one : cols) * sms;
+  return static_cast<int>(err);
+}
+
+template <typename T, bool kCols>
+int launch_ordered_as(Plan<T> pl, const int2* cp, const int32_t* lc, int n_levels, int W,
+                      int stage_bytes, int n_stages, int m, int grid, int64_t n,
+                      const int32_t* pp, const T* bp, T* op, T* sp, cudaStream_t stream) {
+  const int smem = ordered_smem<T, kCols>(stage_bytes, n_stages);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t err = allow_smem(sptrsv_level_ordered_kernel<T, kCols>, ordered_done<T, kCols>()))
+    return static_cast<int>(err);
+  T* xp = sp + static_cast<int64_t>(m) * (n + 1);
+  void* args[] = {&pl, &cp, &lc, &n_levels, &W, &stage_bytes, &n_stages, &m, &n,
+                  &pp, &bp, &op, &sp, &xp};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(sptrsv_level_ordered_kernel<T, kCols>), dim3(grid),
+      dim3(kThreads), args, static_cast<size_t>(smem), stream));
+}
+
+// The ordered solve on `grid` blocks, m <= grid <= ordered_blocks: b and
+// out the caller's f[n] or row-major f[n, m], perm int32[n], scratch
+// 2 * m * (n + 1) elements. One column takes its own instantiation.
+template <typename T>
+int launch_ordered(const void* row_ids, const void* col_idx, const void* vals, const void* diag,
+                   const void* accum, const void* vert_ptr, const void* chunk_ptr,
+                   const void* level_chunk, int n_levels, int W, int stage_bytes, int n_stages,
+                   int m, int grid, int64_t n, const void* perm, const void* b, void* out,
+                   void* scratch, void* stream) {
+  if (m < 1 || n < 1 || grid < m) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan<T> pl = plan_of<T>(row_ids, col_idx, vals, diag, accum, vert_ptr);
+  const auto* cp = static_cast<const int2*>(chunk_ptr);
+  const auto* lc = static_cast<const int32_t*>(level_chunk);
+  const auto* pp = static_cast<const int32_t*>(perm);
+  const auto* bp = static_cast<const T*>(b);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (m == 1)
+    return launch_ordered_as<T, false>(pl, cp, lc, n_levels, W, stage_bytes, n_stages, m, grid,
+                                       n, pp, bp, static_cast<T*>(out),
+                                       static_cast<T*>(scratch), st);
+  return launch_ordered_as<T, true>(pl, cp, lc, n_levels, W, stage_bytes, n_stages, m, grid, n,
+                                    pp, bp, static_cast<T*>(out), static_cast<T*>(scratch), st);
 }
 
 }  // namespace

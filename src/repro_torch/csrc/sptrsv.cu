@@ -63,6 +63,11 @@
 // kernels/level_sweep.py builds and times them (csrc/sweep/groups.cu);
 // PERF.md holds the numbers.
 //
+// The ordered entries (sptrsv_ordered_*) take b and x in the caller's row
+// order: one cooperative launch moves b into plan row order, walks, and
+// moves x back, on many SMs (level.cuh), so the front door's solve is one
+// launch, with no gather, padding or fill around it.
+//
 // Done: staging the plan's operands in shared memory ahead of each barrier
 // (level.cuh). Left for later: skipping padding slots (with an acc + 0
 // where padding stood), more than one block for a level wider than one
@@ -113,6 +118,39 @@ int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
   return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
                                  level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b,
                                  x, stream);
+}
+
+// The ordered solve (level.cuh, sptrsv_level_ordered_kernel): b and x in the
+// caller's row order, f[n] (m = 1) or row-major f[n, m], perm int32[n] the
+// caller's row of each plan row, scratch 2 * m * (n + 1) elements,
+// uninitialised; one cooperative launch of `grid` blocks, m <= grid <= what
+// sptrsv_ordered_blocks_* reports. The front door's solve.
+int sptrsv_ordered_f32(const void* row_ids, const void* col_idx, const void* vals,
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, int m, int grid, int64_t n, const void* perm,
+                const void* b, void* out, void* scratch, void* stream) {
+  return level::launch_ordered<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                    level_chunk, n_levels, W, stage_bytes, n_stages, m, grid, n,
+                                    perm, b, out, scratch, stream);
+}
+
+int sptrsv_ordered_blocks_f32(int stage_bytes, int n_stages, int* blocks) {
+  return level::ordered_blocks<float>(stage_bytes, n_stages, blocks);
+}
+
+int sptrsv_ordered_f64(const void* row_ids, const void* col_idx, const void* vals,
+                const void* diag, const void* accum, const void* vert_ptr,
+                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                int stage_bytes, int n_stages, int m, int grid, int64_t n, const void* perm,
+                const void* b, void* out, void* scratch, void* stream) {
+  return level::launch_ordered<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
+                                    level_chunk, n_levels, W, stage_bytes, n_stages, m, grid, n,
+                                    perm, b, out, scratch, stream);
+}
+
+int sptrsv_ordered_blocks_f64(int stage_bytes, int n_stages, int* blocks) {
+  return level::ordered_blocks<double>(stage_bytes, n_stages, blocks);
 }
 
 // A bank of plans of one width class, m right-hand sides column-major:

@@ -12,7 +12,10 @@ the elastic kernels take the order over runs of the certificate's
 block barrier per level. A bank of plans of one width class
 (``LevelBank``, ``stack_level_bank``) takes the serve layer's grouped and
 resident-slot solves, each column on its own plan, in one launch of the
-banked kernel (``solve_with_level_bank``). A distributed solve binds each position's
+banked kernel (``solve_with_level_bank``). The front door's solve on the
+card takes b and returns x in the caller's row order: the level tensors
+and the solver's row permutation bound once (``ordered_walk``), one
+launch a solve (``solve_ordered``). A distributed solve binds each position's
 plan (a lane of the plan, or a shard of its rows) in the bulk level order
 with the level range of each exchange round (``round_level_arrays``), and
 walks one range per round (``kernels.sptrsv.sptrsv_level_range_cuda``).
@@ -39,10 +42,13 @@ from repro_torch.kernels.levels import (
     round_ranges,
 )
 from repro_torch.kernels.sptrsv import (
+    OrderedWalk,
+    bind_ordered_walk,
     device_chunks,
     sptrsv_elastic_cuda,
     sptrsv_level_bank_cuda,
     sptrsv_level_cuda,
+    sptrsv_ordered_cuda,
 )
 from repro_torch.solver.executor import PlanArrays, pad_rhs, plan_arrays, pow2_lanes
 
@@ -90,7 +96,6 @@ class LevelArrays(NamedTuple):
     # the order's chunk table on the device and its stage layout
     # (``kernels.levels.level_chunks``): what the kernel stages
     chunks: LevelChunks | None = None
-
 
 
 def level_plan_arrays(
@@ -170,6 +175,29 @@ def solve_with_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.Tensor:
     with obs.span("kernel.solve", cat="kernel"):
         b_pad = pad_rhs(b.to(la.vals.dtype))
         return sptrsv_level_cuda(*la[:7], b_pad, chunks=la.chunks)[: la.n]
+
+
+def ordered_walk(la: LevelArrays, perm, *, elastic: bool = False) -> OrderedWalk:
+    """The ordered solve bound over ``la`` (of the elastic order where
+    ``elastic``) under the row permutation ``perm`` (int[n]: plan row r is
+    the caller's row ``perm[r]``), its tensors checked once
+    (``kernels.sptrsv.bind_ordered_walk``). Raises unless ``perm`` is a
+    permutation of the n rows, which the kernel indexes unchecked."""
+    n = la.n
+    perm = torch.as_tensor(perm).to(device=la.vals.device, dtype=torch.int64)
+    if perm.shape != (n,) or (n and (int(perm.min()) < 0 or int(perm.max()) >= n)):
+        raise ValueError(f"perm must hold the rows of [0, n={n}), n of them")
+    if n and not bool((torch.bincount(perm, minlength=n) == 1).all()):
+        raise ValueError("perm must be a permutation of the rows")
+    return bind_ordered_walk(*la[:7], perm.to(torch.int32), n, chunks=la.chunks, elastic=elastic)
+
+
+def solve_ordered(walk: OrderedWalk, b: torch.Tensor) -> torch.Tensor:
+    """The front door's solve on the card: b f[n] or f[n, m] in the
+    caller's row order (contiguous, the walk's dtype and device), one
+    launch of the ordered solve; x a new tensor in the caller's row order."""
+    with obs.span("kernel.solve", cat="kernel"):
+        return sptrsv_ordered_cuda(walk, b)
 
 
 class LevelBank(NamedTuple):

@@ -5,7 +5,8 @@ the scan executor's step bodies run as a loop of eager PyTorch operations
 (it is not a second implementation), and the function every SpTRSV kernel
 computes bit for bit. ``sptrsv_level_ref`` is the plain version of the
 level-ordered kernels (the bulk and the elastic ones, one and m right-hand
-sides), ``sptrsv_level_range_ref`` that of a launch over a range of levels
+sides), ``sptrsv_ordered_ref`` that of the ordered solve (b and x in the
+caller's row order), ``sptrsv_level_range_ref`` that of a launch over a range of levels
 (the distributed backend's rounds), ``sptrsv_level_bank_ref`` that of the banked one (each column on
 its own plan of a bank), and ``spmv_sliced_ref`` that of the SpMV kernel, y = A x on the
 sliced layout. ``spmv_ell_ref`` is the plain version of the JAX package's
@@ -52,6 +53,21 @@ def sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b
     x = torch.zeros_like(b_pad)
     _walk_levels(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr.tolist(), b_pad, x)
     return x
+
+
+def sptrsv_ordered_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, perm, b):
+    """Plain version of the ordered solve (``kernels.sptrsv.sptrsv_ordered_cuda``):
+    b f[n] or f[n, m] in the caller's row order, ``perm`` int[n] the
+    caller's row of each plan row; returns x in the caller's row order. b
+    gathered into plan row order (the scratch row +0), solved by
+    ``sptrsv_level_ref``, x scattered back."""
+    perm = perm.long()
+    b_pad = b.new_zeros((b.shape[0] + 1, *b.shape[1:]))
+    b_pad[:-1] = b[perm]
+    x = sptrsv_level_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b_pad)
+    out = torch.empty_like(b)
+    out[perm] = x[:-1]
+    return out
 
 
 def sptrsv_level_range_ref(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, lo, hi,

@@ -32,6 +32,16 @@ no kernel of its own: the level walk reads absolute chunk bounds from
 ``level_chunk[0]`` on and keeps no state across launches, so the range is
 the walk started at ``level_chunk + lo`` with ``hi - lo`` levels.
 
+``sptrsv_ordered_cuda`` is the front door's solve
+(``pipeline.TriangularSolver.solve`` on the card): one cooperative launch
+(``csrc/level.cuh``, ``sptrsv_level_ordered_kernel``) takes b and returns
+x in the caller's row order, with no gather, padding or fill around it.
+``bind_ordered_walk`` checks the level tensors, the chunk table and the
+row permutation once, at bind, and fixes the launch's arguments; a solve
+checks only b and allocates x and the scratch (``torch.empty``, no fill).
+It takes CUDA tensors only: on the CPU the front door keeps the gathers
+and the plain version (``kernels.ref.sptrsv_ordered_ref`` states it).
+
 Every entry also takes the level order's chunk table and stage layout
 (``kernels.levels.LevelChunks``, the kernel's stages in shared memory):
 ``chunks=`` the one bound with the level tensors (``LevelArrays.chunks``,
@@ -48,6 +58,7 @@ import ctypes
 import functools
 import operator
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -61,7 +72,8 @@ from repro_torch.kernels.ref import (
 )
 
 launches = {"single": 0, "mrhs": 0, "elastic_single": 0, "elastic_mrhs": 0, "bank": 0,
-            "range_single": 0, "range_mrhs": 0}
+            "range_single": 0, "range_mrhs": 0, "ordered_single": 0, "ordered_mrhs": 0,
+            "elastic_ordered_single": 0, "elastic_ordered_mrhs": 0}
 # the serve layer launches from worker threads and its slot dispatcher at
 # once; a count is a read-modify-write, so it takes the lock
 _COUNT_LOCK = threading.Lock()
@@ -73,11 +85,22 @@ _I64 = ctypes.c_int64
 _SINGLE = [_P] * 8 + [_I] * 4 + [_P] * 3
 _COLS = [_P] * 8 + [_I] * 5 + [_I64] + [_P] * 3
 _BANK = [_P] * 11 + [_I] * 4 + [_I64] + [_P] * 3
+# the ordered solve: the level tensors but level_ptr and the chunk table;
+# level count, W, stage layout, m, grid; n; perm, b, out, scratch, stream
+_ORDERED = [_P] * 8 + [_I] * 6 + [_I64] + [_P] * 5
 _ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "elastic_single": _SINGLE, "elastic_mrhs": _COLS,
-             "bank": _BANK}
-# a range launch runs the bulk entry point of its layout; it is counted
-# under its own kind
-_ENTRY_OF = {"range_single": "single", "range_mrhs": "mrhs"}
+             "bank": _BANK, "ordered": _ORDERED}
+# a range launch runs the bulk entry point of its layout, and an ordered
+# solve of one or m columns, of the bulk or the elastic order, the one
+# ordered entry; each is counted under its own kind
+_ENTRY_OF = {"range_single": "single", "range_mrhs": "mrhs", "ordered_single": "ordered",
+             "ordered_mrhs": "ordered", "elastic_ordered_single": "ordered",
+             "elastic_ordered_mrhs": "ordered"}
+# the fewest blocks of an ordered launch where the card holds them: they
+# share its moves of b and x (a block walks each column). On an H100 the
+# solve of one column took 1.5% over the walk alone at 32 blocks and 0.8%
+# at 128, of 32 columns 23.6% and 9.0% (the paper's ER set, PERF.md)
+ORDERED_SPREAD = 128
 
 
 def reset_launches() -> None:
@@ -103,12 +126,11 @@ def _entry(kind: str, dtype: torch.dtype):
     return fn
 
 
-def _launch(kind, vals, b, stage_bytes, *args):
-    """Launch ``kind`` on ``b``'s device (a CUDA device: ``_stage_chunks``
-    checked it) and current stream; the guard makes that device current
-    for the call and restores the caller's."""
-    device = b.device
-    entry = _entry(kind, vals.dtype)
+def _launch(kind, dtype, device, stage_bytes, *args):
+    """Launch ``kind`` for ``dtype`` on ``device`` (a CUDA device) and its
+    current stream; the guard makes that device current for the call and
+    restores the caller's."""
+    entry = _entry(kind, dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         with obs.span("kernel.launch", cat="kernel", kind=kind, stage_bytes=stage_bytes):
@@ -118,21 +140,42 @@ def _launch(kind, vals, b, stage_bytes, *args):
     _count(kind)
 
 
+def _check_placed(tensors: dict, device, where: str) -> None:
+    """Each of ``tensors`` (name -> value) a contiguous tensor on
+    ``device`` (``where`` names what sets the device)."""
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, {where} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b):
     """The level tensors' device, layout, types and shapes, and those of
     the right-hand side ``b`` (f[n+1] or f[n+1, m]); index contents are
     checked at bind time by ``kernels.ops.level_plan_arrays``."""
+    if not isinstance(b, torch.Tensor):
+        raise TypeError("b must be a torch.Tensor")
+    if not b.is_contiguous():
+        raise ValueError("b must be contiguous")
+    _check_level_tensors(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b.device, "b")
+    if b.dtype != vals.dtype:
+        raise TypeError(f"b is {b.dtype}, vals is {vals.dtype}")
+    if b.dim() not in (1, 2) or b.shape[0] < 1:
+        raise ValueError(f"b must be [n+1] or [n+1, m]; got {tuple(b.shape)}")
+
+
+def _check_level_tensors(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, device,
+                         where="vals"):
+    """The level tensors' device (``device``, set by ``where``), layout,
+    types and shapes."""
     tensors = dict(
         row_ids=row_ids, col_idx=col_idx, vals=vals, diag=diag, accum=accum,
-        vert_ptr=vert_ptr, level_ptr=level_ptr, b=b,
+        vert_ptr=vert_ptr, level_ptr=level_ptr,
     )
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.device != b.device:
-            raise ValueError(f"{name} is on {t.device}, b on {b.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_placed(tensors, device, where)
     for name in ("row_ids", "col_idx", "vert_ptr", "level_ptr"):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {tensors[name].dtype}")
@@ -140,9 +183,8 @@ def _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b):
         raise TypeError(f"accum must be bool, got {accum.dtype}")
     if vals.dtype not in _SUFFIX:
         raise TypeError(f"vals must be float32 or float64, got {vals.dtype}")
-    for name in ("diag", "b"):
-        if tensors[name].dtype != vals.dtype:
-            raise TypeError(f"{name} is {tensors[name].dtype}, vals is {vals.dtype}")
+    if diag.dtype != vals.dtype:
+        raise TypeError(f"diag is {diag.dtype}, vals is {vals.dtype}")
     for name in ("row_ids", "diag", "accum", "vert_ptr", "level_ptr"):
         if tensors[name].dim() != 1:
             raise ValueError(f"{name} must be 1-D, got {tuple(tensors[name].shape)}")
@@ -155,8 +197,6 @@ def _check_level(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, b):
         raise ValueError(f"diag and accum must be [P={P}]")
     if vert_ptr.shape[0] < 1 or level_ptr.shape[0] < 1:
         raise ValueError("vert_ptr and level_ptr must not be empty")
-    if b.dim() not in (1, 2) or b.shape[0] < 1:
-        raise ValueError(f"b must be [n+1] or [n+1, m]; got {tuple(b.shape)}")
 
 
 def device_chunks(host: LevelChunks, device) -> LevelChunks:
@@ -176,6 +216,11 @@ def _stage_chunks(level, chunks, device):
     if chunks is None:
         chunks = device_chunks(level_chunks(vert_ptr.cpu().numpy(), level_ptr.cpu().numpy(),
                                             vals.shape[1], vals.element_size()), device)
+    return _check_chunks(chunks, level_ptr, device)
+
+
+def _check_chunks(chunks, level_ptr, device):
+    """``chunks`` (a ``LevelChunks``) on ``device``, fitting ``level_ptr``."""
     if not isinstance(chunks, LevelChunks):
         raise TypeError("chunks must be a kernels.levels.LevelChunks")
     for name in ("chunk_ptr", "level_chunk"):
@@ -217,13 +262,14 @@ def _launch_level(single, mrhs, level, b_pad, chunks):
     args = _level_args(*level[:6], chunks)
     if b_pad.dim() == 1:
         x = torch.zeros_like(b_pad)
-        _launch(single, vals, b_pad, chunks.stage_bytes, *args, b_pad.data_ptr(), x.data_ptr())
+        _launch(single, vals.dtype, b_pad.device, chunks.stage_bytes, *args, b_pad.data_ptr(),
+                x.data_ptr())
         return x
     m = b_pad.shape[1]
     b_col = b_pad.T.contiguous()
     x = torch.zeros_like(b_col)
-    _launch(mrhs, vals, b_col, chunks.stage_bytes, *args, m, b_col.shape[1], b_col.data_ptr(),
-            x.data_ptr())
+    _launch(mrhs, vals.dtype, b_col.device, chunks.stage_bytes, *args, m, b_col.shape[1],
+            b_col.data_ptr(), x.data_ptr())
     return x.T
 
 
@@ -299,10 +345,11 @@ def sptrsv_level_range_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level
     # the walk reads absolute chunk bounds from its level_chunk on
     args = _level_args(*level[:6], chunks, lo, hi)
     if b.dim() == 1:
-        _launch("range_single", vals, b, chunks.stage_bytes, *args, b.data_ptr(), x.data_ptr())
+        _launch("range_single", vals.dtype, b.device, chunks.stage_bytes, *args, b.data_ptr(),
+                x.data_ptr())
     else:
-        _launch("range_mrhs", vals, b, chunks.stage_bytes, *args, b.shape[0], b.shape[1],
-                b.data_ptr(), x.data_ptr())
+        _launch("range_mrhs", vals.dtype, b.device, chunks.stage_bytes, *args, b.shape[0],
+                b.shape[1], b.data_ptr(), x.data_ptr())
     return x
 
 
@@ -354,7 +401,102 @@ def sptrsv_level_bank_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_
     lanes = lane_idx.to(device=b_col.device, dtype=torch.int32)
     ptrs = [t.data_ptr() for t in (*level[:6], chunks.chunk_ptr, chunks.level_chunk, level_off,
                                    n_levels, lanes)]
-    _launch("bank", vals, b_col, chunks.stage_bytes, *ptrs, col_idx.shape[1],
+    _launch("bank", vals.dtype, b_col.device, chunks.stage_bytes, *ptrs, col_idx.shape[1],
             chunks.stage_bytes, chunks.n_stages, m, b_col.shape[1], b_col.data_ptr(),
             x.data_ptr())
     return x
+
+
+
+class OrderedWalk(NamedTuple):
+    """A level order bound for the ordered solve (``bind_ordered_walk``):
+    what a solve launches, checked once."""
+
+    # the level tensors, the row permutation and the chunk table: alive while
+    # ``args`` points at them
+    tensors: tuple
+    args: tuple  # the entry's leading arguments, up to the stage layout
+    perm: int  # the row permutation's pointer
+    # the launch kinds, one right-hand side and m: ordered_* for the bulk
+    # order, elastic_ordered_* for the elastic one (one entry point)
+    single: str
+    mrhs: str
+    n: int
+    dtype: torch.dtype
+    device: torch.device
+    stage_bytes: int
+    n_stages: int
+
+
+def bind_ordered_walk(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, perm, n, *,
+                      chunks, elastic=False) -> OrderedWalk:
+    """Check the level tensors of ``sptrsv_level_cuda`` (of the elastic
+    order where ``elastic``), their chunk table ``chunks`` and ``perm``
+    int32[n] (plan row r is the caller's row ``perm[r]``;
+    ``kernels.ops.ordered_walk`` checks that it is a permutation) once, and
+    fix the launch's arguments but those of a solve."""
+    device = vals.device
+    level = (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr)
+    _check_level_tensors(*level, device)
+    chunks = _check_chunks(chunks, level_ptr, device)
+    _check_placed({"perm": perm}, device, "vals")
+    n = operator.index(n)
+    if perm.dtype != torch.int32 or perm.shape != (n,) or n < 1:
+        raise ValueError(f"perm must be int32[n={n}], n >= 1; got {perm.dtype}{tuple(perm.shape)}")
+    ptrs = [t.data_ptr() for t in (*level[:6], chunks.chunk_ptr, chunks.level_chunk)]
+    args = (*ptrs, level_ptr.shape[0] - 1, col_idx.shape[1], chunks.stage_bytes, chunks.n_stages)
+    prefix = "elastic_" if elastic else ""
+    return OrderedWalk(tensors=(*level, perm, chunks.chunk_ptr, chunks.level_chunk), args=args,
+                       perm=perm.data_ptr(), single=f"{prefix}ordered_single",
+                       mrhs=f"{prefix}ordered_mrhs", n=n,
+                       dtype=vals.dtype, device=device, stage_bytes=chunks.stage_bytes,
+                       n_stages=chunks.n_stages)
+
+
+@functools.lru_cache(maxsize=None)
+def _ordered_blocks(dtype, device, stage_bytes, n_stages) -> int:
+    """The most blocks of the ordered entry resident at once on ``device``
+    for the stage layout: what its cooperative launch may take."""
+    fn = getattr(build.load("sptrsv"), f"sptrsv_ordered_blocks_{_SUFFIX[dtype]}")
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], ctypes.c_int
+    blocks = _I(0)
+    with torch.cuda.device(device):
+        err = fn(stage_bytes, n_stages, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"sptrsv_ordered_blocks: CUDA error {err}")
+    return blocks.value
+
+
+def ordered_columns(walk: OrderedWalk) -> int:
+    """The most right-hand sides one ordered launch takes: a block each,
+    all resident at once."""
+    return _ordered_blocks(walk.dtype, walk.device, walk.stage_bytes, walk.n_stages)
+
+
+def sptrsv_ordered_cuda(walk: OrderedWalk, b):
+    """Solve for ``b`` f[n] or f[n, m] in the caller's row order, one
+    cooperative launch (``bind_ordered_walk``; m at most
+    ``ordered_columns(walk)``); returns x, a new tensor shaped like ``b``,
+    in the caller's row order. Bitwise ``sptrsv_level_cuda`` on ``b``
+    gathered into plan row order, with its x gathered back
+    (``kernels.ref.sptrsv_ordered_ref``). ``b`` must be a contiguous
+    tensor of the walk's dtype on its device (CUDA)."""
+    if not isinstance(b, torch.Tensor):
+        raise TypeError("b must be a torch.Tensor")
+    if b.device != walk.device or b.dtype != walk.dtype:
+        raise ValueError(f"b must be {walk.dtype} on {walk.device}; got {b.dtype} on {b.device}")
+    if b.dim() not in (1, 2) or b.shape[0] != walk.n or not b.is_contiguous():
+        raise ValueError(f"b must be a contiguous [n] or [n, m] with n={walk.n}; got "
+                         f"{tuple(b.shape)}")
+    out = torch.empty_like(b)
+    if b.numel() == 0:
+        return out
+    m = 1 if b.dim() == 1 else b.shape[1]
+    blocks = ordered_columns(walk)
+    if m > blocks:
+        raise ValueError(f"an ordered launch takes at most {blocks} columns; got {m}")
+    scratch = b.new_empty(2 * m * (walk.n + 1))  # b, then x, in plan row order
+    _launch(walk.single if b.dim() == 1 else walk.mrhs, walk.dtype, walk.device,
+            walk.stage_bytes, *walk.args, m, min(max(m, ORDERED_SPREAD), blocks), walk.n,
+            walk.perm, b.data_ptr(), out.data_ptr(), scratch.data_ptr())
+    return out

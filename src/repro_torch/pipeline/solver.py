@@ -8,7 +8,12 @@
 and returns a bound solver whose ``solve(b)`` applies and undoes every
 permutation internally — callers never see reordered indices. ``b`` may be
 ``f[n]`` or batched ``f[n, m]`` (multi-RHS; one plan traversal), as numpy
-or torch; the result is a torch tensor on the solver's device.
+or torch; the result is a new torch tensor on the solver's device. With
+the ``"kernel"`` backend on the card the permutation rides inside the
+kernel: the bound takes it once (``BoundSolve.take_row_order``) and a
+solve is b's checks and one launch (``describe()["front_door"]`` reads
+``"ordered"``); elsewhere, and in ``solve_timed``, the front door gathers
+b into plan row order and x back (``"gather"``).
 
 The solver runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises when CUDA is not available;
@@ -204,6 +209,10 @@ class TriangularSolver:
         be = get_backend(backend)
         mesh_kw = dict(mesh=mesh, shard=shard) if "mesh" in be.requires() else {}
         self._bound = be.bind(exec_plan, dtype=dtype, device=device, slack=slack, **mesh_kw)
+        # where the bound can, it solves b in the caller's row order: the
+        # gathers leave the solve path (front_door "ordered"); a value
+        # refresh keeps it
+        self._bound.take_row_order(self._perm)
 
     @property
     def bound(self):
@@ -257,8 +266,10 @@ class TriangularSolver:
         if self.timed:
             return self.solve_timed(b)[0]
         with obs.span("executor.solve", cat="executor", n=self.n):
-            x = self._bound.solve(self._permute(self._check_b(b)))
-            return self._unpermute(x)
+            b = self._check_b(b)
+            if self._bound.front_door == "ordered":
+                return self._bound.solve_ordered(b.contiguous())
+            return self._unpermute(self._bound.solve(self._permute(b)))
 
     def solve_timed(self, b):
         """``solve`` with per-step timing: returns ``(x, steps)``, where

@@ -357,7 +357,10 @@ def test_sptrsv_cuda_on_cpu_takes_plain_path():
     sptrsv.sptrsv_level_range_cuda(*la[:7], 0, la.level_ptr.numel() - 1, b1, xr)
     assert torch.equal(xr, x1)
     assert set(sptrsv.launches) == {"single", "mrhs", "elastic_single", "elastic_mrhs", "bank",
-                                    "range_single", "range_mrhs"}
+                                    "range_single", "range_mrhs", "ordered_single",
+                                    "ordered_mrhs", "elastic_ordered_single",
+                                    "elastic_ordered_mrhs"}
+    assert solver.info()["binding"]["front_door"] == "gather"  # the CPU keeps the gathers
     assert not any(sptrsv.launches.values()) and spmv.launches == {"spmv": 0}
     assert torch.equal(xm[:, 0], x1)
     pa = plan_arrays(solver.exec_plan, device="cpu")

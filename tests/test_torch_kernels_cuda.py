@@ -11,8 +11,15 @@ adds no pass there). On the card run it with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Every entry of the level walk (single, m-RHS, range, elastic, bank; f32 and
-f64) is also held bitwise to the plain version over three stage layouts: a
+The front door's solve is one launch of the ordered walk (b read and x
+written in the caller's row order): bitwise the gather, the unordered
+kernel and the gather back, on ER, NB and both IC(0) factors, bulk and
+elastic, one and 32 right-hand sides, f32 and f64; one device operation
+under torch.profiler; a new x every call.
+
+Every entry of the level walk (single, m-RHS, range, elastic, bank,
+ordered; f32 and f64) is also held bitwise to the plain version over three
+stage layouts: a
 plan whose widest levels split into several chunks, chunks cut by bytes
 under a smaller shared-memory budget (with vertices that take the
 fallback), and a vertex wider than any stage at the card's budget.
@@ -35,12 +42,14 @@ from repro_torch.kernels.ops import (
     LevelArrays,
     elastic_kernel_arrays,
     level_plan_arrays,
+    ordered_walk,
     solve_with_elastic_kernel_arrays,
     solve_with_kernel_arrays,
     stack_level_bank,
 )
 from repro_torch.kernels.ref import (
     sptrsv_level_bank_ref,
+    sptrsv_ordered_ref,
     spmv_ell_rows_ref,
     spmv_sliced_ref,
     sptrsv_level_ref,
@@ -52,6 +61,7 @@ from repro_torch.sparse import (
     CSRMatrix,
     csr_from_coo,
     erdos_renyi_lower,
+    ichol0,
     narrow_band_lower,
     poisson2d_matrix,
 )
@@ -336,9 +346,9 @@ def test_pcg_on_card_matches_cpu_plain(cuda, dtype):
     x, iters, relres, info = pcg_ichol(A, b, k=8, strategy="growlocal", tol=1e-6,
                                        maxiter=2000, dtype=dtype)
     torch.cuda.synchronize()
-    assert dict(sptrsv.launches) == {"single": 2 * (iters + 1), "mrhs": 0,
-                                     "elastic_single": 0, "elastic_mrhs": 0, "bank": 0,
-                                     "range_single": 0, "range_mrhs": 0}
+    # every factor solve is one launch of the ordered walk (the front door)
+    assert dict(sptrsv.launches) == {**{k: 0 for k in sptrsv.launches},
+                                     "ordered_single": 2 * (iters + 1)}
     assert spmv.launches == {"spmv": iters}
     # the CPU plain PCG: the kernels' plain versions (bitwise the scan's)
     xc, ic, rc, info_c = pcg_ichol(A, b, k=8, strategy="growlocal", tol=1e-6,
@@ -389,7 +399,8 @@ def test_every_strategy_kernel_matches_plain_bitwise(cuda, strategy, gen, m):
     sptrsv.reset_launches()
     x = gpu.solve(b)
     torch.cuda.synchronize()
-    assert sptrsv.launches["single" if m is None else "mrhs"] == 1
+    assert sptrsv.launches["ordered_single" if m is None else "ordered_mrhs"] == 1
+    assert sum(sptrsv.launches.values()) == 1
     assert _bits_equal(x, cpu.solve(b))
 
 
@@ -523,10 +534,10 @@ def test_serve_on_card_launches_the_bank_kernel(cuda):
                 assert np.array_equal(
                     x, direct_reference(t.served_by, b, t.batch_width, t.batch_position))
         # a grouped batch or a pass is one bank launch; a homogeneous batch
-        # takes the m-RHS kernel
+        # takes the front door's ordered m-RHS walk
         banked = snap["grouped_batches"] + snap["slots"]["passes"]
         assert launches["bank"] == banked > 0, (kw, launches, snap["batches"])
-        assert launches["mrhs"] == snap["batches"] - banked, (kw, launches)
+        assert launches["ordered_mrhs"] == snap["batches"] - banked, (kw, launches)
 
 
 # ------------------------------------------- the staged walk, every entry
@@ -562,8 +573,8 @@ def _walk_entries_match_plain(la_cpu, la, cuda, dtype):
     """Every entry of the level walk on ``la`` (on the card, its bound
     chunk table) against the plain version on ``la_cpu``, bitwise: one and
     five right-hand sides, range launches over two ranges, the elastic
-    entries on the same tensors, and a bank of two lanes (the plan and its
-    values halved)."""
+    entries on the same tensors, a bank of two lanes (the plan and its
+    values halved), and the ordered entries under a random row order."""
     n, L = la.n, la.level_ptr.numel() - 1
     rng = np.random.default_rng(22)
     for m in (None, 5):
@@ -590,6 +601,16 @@ def _walk_entries_match_plain(la_cpu, la, cuda, dtype):
     x_gpu = sptrsv.sptrsv_level_bank_cuda(*bank[:9], lane_idx, b_col.to(cuda),
                                           chunks=bank.chunks)
     assert _bits_equal(x_gpu, x_cpu)
+    # the ordered solve, bulk and elastic kinds, under a random row order:
+    # b and x in the caller's order, one column, five and 40 (a second tile
+    # of columns)
+    perm = torch.as_tensor(rng.permutation(n))
+    for m in (None, 5, 40):
+        b = torch.as_tensor(rng.standard_normal(n if m is None else (n, m)), dtype=dtype)
+        x_ref = sptrsv_ordered_ref(*la_cpu[:7], perm, b)
+        for elastic in (False, True):
+            x = sptrsv.sptrsv_ordered_cuda(ordered_walk(la, perm, elastic=elastic), b.to(cuda))
+            assert _bits_equal(x, x_ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -616,3 +637,123 @@ def test_every_walk_entry_staged_matches_plain_bitwise(cuda, monkeypatch, layout
     else:  # some chunks take the fallback, the others are staged
         assert 0 < st["chunks_staged"] < st["chunks"]
     _walk_entries_match_plain(la_cpu, la, cuda, dtype)
+
+
+# ------------------------------------------- the front door's ordered walk
+def _front_door_solver(gen, mode, dtype, device):
+    kw = dict(device=device, dtype=dtype, mode=mode, slack=3 if mode == "elastic" else 0)
+    if gen.startswith("poisson"):
+        fwd, bwd = repro_torch.factor_pair(ichol0(poisson2d_matrix(48)), **kw)
+        return fwd if gen == "poisson_fwd" else bwd
+    L = (erdos_renyi_lower(3000, 1e-3, seed=8) if gen == "er"
+         else narrow_band_lower(3000, 0.14, 10, seed=9))
+    return repro_torch.TriangularSolver.plan(L, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [None, 32])
+@pytest.mark.parametrize("mode", ["bsp", "elastic"])
+@pytest.mark.parametrize("gen", ["er", "nb", "poisson_fwd", "poisson_bwd"])
+def test_ordered_solve_is_permute_kernel_unpermute_bitwise(cuda, gen, mode, m, dtype):
+    """The front door's one launch against the path it replaces: b gathered
+    into plan row order, the unordered kernel, x gathered back."""
+    s = _front_door_solver(gen, mode, dtype, cuda)
+    assert s.info()["binding"]["front_door"] == "ordered"
+    b = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        s.n if m is None else (s.n, m)), dtype=dtype, device=cuda)
+    sptrsv.reset_launches()
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    kind = ("elastic_" if mode == "elastic" else "") + (
+        "ordered_single" if m is None else "ordered_mrhs")
+    assert {k: v for k, v in sptrsv.launches.items() if v} == {kind: 1}
+    x_gather = s.bound.solve(b[s._perm])[s._inv]
+    assert x.shape == b.shape and _bits_equal(x, x_gather)
+    la = s.bound._la
+    assert _bits_equal(x, sptrsv_ordered_ref(*(t.cpu() for t in la[:7]), s._perm.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("m", [None, 32])
+def test_front_door_solve_is_one_device_operation(cuda, m):
+    """Under torch.profiler a solve is the ordered solve's one launch: no
+    gather, padding, fill or copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = _front_door_solver("er", "bsp", torch.float32, cuda)
+    b = torch.randn(s.n if m is None else (s.n, m), device=cuda)
+    s.solve(b)
+    torch.cuda.synchronize()
+    solves = 4
+    sptrsv.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(solves):
+            s.solve(b)
+        torch.cuda.synchronize()
+    events = prof.events()
+    # the runtime's launches and copies: one cooperative launch a solve
+    api = [e.name for e in events if e.name.startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset"))]
+    assert api == ["cudaLaunchCooperativeKernel"] * solves, api
+    # the device's operations: the ordered solve's kernel alone (the profiler
+    # may drop a record now and then, so at most one a solve)
+    ops_ = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(ops_) <= solves and all("sptrsv_level_ordered_kernel" in o for o in ops_), ops_
+    assert sptrsv.launches["ordered_single" if m is None else "ordered_mrhs"] == solves
+
+
+def test_front_door_past_the_resident_blocks_gathers(cuda):
+    """More right-hand sides than the card holds blocks of the ordered
+    solve at once: the gather path, one launch of the m-RHS walk."""
+    s = _front_door_solver("er", "bsp", torch.float32, cuda)
+    m = sptrsv.ordered_columns(s.bound._walk) + 1
+    B = torch.randn(s.n, m, device=cuda)
+    sptrsv.reset_launches()
+    x = s.solve(B)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in sptrsv.launches.items() if v} == {"mrhs": 1}
+    assert _bits_equal(x, s.bound.solve(B[s._perm])[s._inv])
+
+
+def test_front_door_solves_do_not_alias(cuda):
+    s = _front_door_solver("nb", "bsp", torch.float32, cuda)
+    rng = np.random.default_rng(11)
+    b1, b2 = (torch.as_tensor(rng.standard_normal(s.n), dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    x1 = s.solve(b1)
+    kept = x1.clone()
+    x2 = s.solve(b2)
+    x1_again = s.solve(b1)
+    torch.cuda.synchronize()
+    assert len({x1.data_ptr(), x2.data_ptr(), x1_again.data_ptr()}) == 3
+    assert _bits_equal(x1, kept) and _bits_equal(x1_again, kept)
+    assert not _bits_equal(x2, kept)
+
+
+def test_front_door_solves_on_two_streams_at_once(cuda):
+    """Two solvers' ordered solves, each launch a grid of up to 128 blocks
+    that hold their SMs until the walk ends, queued on two streams at once:
+    each launch waits for room on the card, none deadlocks, and every
+    answer is the one a lone solve gives."""
+    import time
+
+    solvers = [_front_door_solver("er", "bsp", torch.float32, cuda),
+               _front_door_solver("nb", "elastic", torch.float64, cuda)]
+    rng = np.random.default_rng(12)
+    rhs = [torch.as_tensor(rng.standard_normal((s.n, m)), dtype=s.dtype, device=cuda)
+           for s, m in zip(solvers, (32, 1))]
+    alone = [s.solve(b) for s, b in zip(solvers, rhs)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in solvers]
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, b, st) in enumerate(zip(solvers, rhs, streams)):
+            with torch.cuda.stream(st):
+                outs[i].append(s.solve(b))
+    done = [torch.cuda.Event() for _ in streams]
+    for ev, st in zip(done, streams):
+        ev.record(st)
+    deadline = time.monotonic() + 60.0
+    while not all(ev.query() for ev in done):
+        assert time.monotonic() < deadline, "solves on two streams did not finish in 60 s"
+        time.sleep(0.01)
+    for x_alone, xs in zip(alone, outs):
+        assert all(_bits_equal(x, x_alone) for x in xs)

@@ -15,7 +15,11 @@
   * spans on the profiler's clock: under ``obs.tracing()`` and a CPU
     ``torch.profiler`` session, a solve and a ``cg_solve`` put each span
     into the profiler's trace as a ``user_annotation`` range inside its
-    parent's, one for each ``SpanRecord``; with tracing off, none.
+    parent's, one for each ``SpanRecord``; with tracing off, none;
+  * the ordered front door (the card's path, its launch faked on the CPU):
+    ``executor.solve`` -> ``kernel.solve`` -> ``kernel.launch`` of an
+    ordered kind, one launch with the solve's m, grid and tensors, and no
+    ``executor.permute`` / ``executor.unpermute``.
 """
 import json
 
@@ -325,3 +329,51 @@ def test_front_door_span_holds_the_check_of_b():
         s.solve(np.zeros(s.n + 1))
     assert [(r.name, r.args.get("error")) for r in buf.spans()] == [
         ("executor.solve", "ValueError")]
+
+
+@pytest.mark.parametrize("m", [None, 3])
+@pytest.mark.parametrize("mode", ["bsp", "elastic"])
+def test_ordered_front_door_nests_one_launch(monkeypatch, mode, m):
+    """The front door's ordered solve, which runs on the card: here its
+    bound takes the row order on the CPU and the C entry is a stand-in, so
+    the spans of the one path are those the card records."""
+    import contextlib
+    import types
+
+    from repro_torch.backends.kernel import _KernelTimed
+    from repro_torch.kernels import sptrsv
+
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    # the bound's device test passed over: on the CPU it keeps the gathers
+    monkeypatch.setattr(_KernelTimed, "take_row_order", _KernelTimed._bind_row_order)
+    monkeypatch.setattr(sptrsv, "_entry", lambda kind, dtype: entry)
+    monkeypatch.setattr(sptrsv, "_ordered_blocks", lambda *key: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    s = _plan("kernel", mode)
+    assert s.info()["binding"]["front_door"] == "ordered"
+    b = _rhs(s.n, m)
+    sptrsv.reset_launches()
+    buf = obs.TraceBuffer("ordered")
+    with obs.tracing(buf):
+        x = s.solve(b)
+    assert x.shape == b.shape and x.dtype == s.dtype
+    kind = ("elastic_" if mode == "elastic" else "") + (
+        "ordered_single" if m is None else "ordered_mrhs")
+    assert {k: v for k, v in sptrsv.launches.items() if v} == {kind: 1} and len(calls) == 1
+    # m, the grid (at least sptrsv.ORDERED_SPREAD blocks), n, the permutation
+    # bound once, then b and x as the caller holds them
+    walk = s.bound._walk
+    assert calls[0][:12] == walk.args
+    assert calls[0][12:16] == (1 if m is None else m, sptrsv.ORDERED_SPREAD, s.n, walk.perm)
+    assert calls[0][17] == x.data_ptr() and len(calls[0]) == 20
+    records = sorted(buf.spans(), key=lambda r: (r.t0_ns, r.t0_ns - r.t1_ns))
+    assert [r.name for r in records] == ["executor.solve", "kernel.solve", "kernel.launch"]
+    assert _innermost_parents([(r.t0_ns, r.t1_ns) for r in records]) == [None, 0, 1]
+    assert records[2].args["kind"] == kind
