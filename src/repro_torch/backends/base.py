@@ -37,12 +37,14 @@ never registers into the JAX package's.
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.elastic import elastic_transform
 from repro_torch.device import timed_us
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -84,6 +86,27 @@ def expected_entry_count(exec_plan) -> int:
     if exec_plan.diag_src is not None and exec_plan.diag_src.size:
         hi = max(hi, int(exec_plan.diag_src.max()))
     return hi + 1
+
+
+def bind_checks(exec_plan, slack: int):
+    """What a one-device bind checks of ``exec_plan`` before it moves
+    anything, and the plan it binds: the value-source maps present, the
+    entry count ``update_values`` data must match, and for ``slack > 0``
+    the plan with an elastic certificate at that slack (``plan.elastic``
+    where it has that slack, else ``core.elastic.elastic_transform``).
+    Returns ``(exec_plan, n_entries)``."""
+    if exec_plan.val_src is None or exec_plan.diag_src is None:
+        raise ValueError("the plan carries no value-source maps")
+    n_entries = expected_entry_count(exec_plan)
+    ep = exec_plan.elastic
+    if slack > 0 and (ep is None or ep.slack != slack):
+        exec_plan = dataclasses.replace(exec_plan, elastic=elastic_transform(exec_plan, slack))
+    return exec_plan, n_entries
+
+
+def device_bytes(tensors) -> int:
+    """The bytes ``tensors`` hold: a bound's ``describe()["device_bytes"]``."""
+    return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
 class BoundSolve(abc.ABC):

@@ -40,13 +40,14 @@ from repro_torch import obs
 from repro_torch.backends.base import (
     Backend,
     BoundSolve,
+    device_bytes,
     expected_entry_count,
-    masked_value_gather,
     numpy_dtype,
 )
 from repro_torch.backends.registry import register_backend
 from repro_torch.core.elastic import elastic_transform
 from repro_torch.device import resolve_device, timed_us
+from repro_torch.kernels.ops import refresh_level_values
 from repro_torch.solver import distributed as dist
 from repro_torch.solver import rowsharded as rows
 from repro_torch.solver.executor import pad_rhs
@@ -75,18 +76,13 @@ def _refresh(plan_args, data: np.ndarray):
         t = on_dev.get(str(dev))
         if t is None:
             t = on_dev[str(dev)] = torch.from_numpy(data).to(dev)
-        vals, diag = masked_value_gather(t, rl.val_src, rl.la.vals, rl.diag_src, rl.la.diag)
-        new[id(rl)] = rl._replace(la=rl.la._replace(vals=vals, diag=diag))
+        new[id(rl)] = rl._replace(la=refresh_level_values(rl.la, rl.val_src, rl.diag_src, t))
     return [[new[id(v)] for v in row] for row in plan_args]
 
 
-def _bytes(tensors) -> int:
-    return int(sum(t.numel() * t.element_size() for t in tensors))
-
-
 def _level_bytes(plan_args) -> int:
-    return _bytes(t for rl in _distinct(plan_args)
-                  for t in (*rl.la[:8], rl.val_src, rl.diag_src))
+    return device_bytes(t for rl in _distinct(plan_args)
+                        for t in (*rl.la[:8], rl.val_src, rl.diag_src))
 
 
 def _launches_per_solve(plan_args, mesh) -> dict:
@@ -251,7 +247,7 @@ class DistributedBoundSolve(_MeshBound):
             "slack_unit": "supersteps",
             "n_levels": [rl.la.level_ptr.numel() - 1 for rl in self._args[0]],
             "launches_per_solve": _launches_per_solve(self._args, self._mesh),
-            "device_bytes": _level_bytes(self._args) + _bytes(
+            "device_bytes": _level_bytes(self._args) + device_bytes(
                 t for g in self._gather for grid in (g.rows, g.all_rows)
                 for t in _distinct(grid)),
             "exchange": exchange,
@@ -418,7 +414,7 @@ class RowShardedBoundSolve(_MeshBound):
             "slack_unit": "supersteps",
             "n_levels": [rl.la.level_ptr.numel() - 1 for rl in self._plan_args[0]],
             "launches_per_solve": _launches_per_solve(self._plan_args, self._mesh),
-            "device_bytes": _level_bytes(self._plan_args) + _bytes(halo_tables),
+            "device_bytes": _level_bytes(self._plan_args) + device_bytes(halo_tables),
             "exchange": exchange,
         }
 

@@ -7,8 +7,6 @@ in one traversal, grouped, banked and over resident slots (``"grouped"``
 and ``"slots"``); the elastic bound does not."""
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -16,12 +14,12 @@ from repro_torch import obs
 from repro_torch.backends.base import (
     Backend,
     BoundSolve,
-    expected_entry_count,
+    bind_checks,
+    device_bytes,
     masked_value_gather,
     numpy_dtype,
 )
 from repro_torch.backends.registry import register_backend
-from repro_torch.core.elastic import elastic_transform
 from repro_torch.device import resolve_device
 from repro_torch.solver import executor
 from repro_torch.solver.executor import (
@@ -38,10 +36,6 @@ from repro_torch.solver.executor import (
 
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
-
-
-def _device_bytes(tensors) -> int:
-    return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
 class ScanBoundSolve(BoundSolve):
@@ -132,7 +126,7 @@ class ScanBoundSolve(BoundSolve):
             "W": W,
             "dtype": _dtype_name(self._pa.vals),
             "device": str(self._pa.vals.device),
-            "device_bytes": _device_bytes(
+            "device_bytes": device_bytes(
                 (*self._pa[:6], self._val_src, self._diag_src)
             ),
         }
@@ -210,7 +204,7 @@ class ElasticScanBoundSolve(ScanBoundSolve):
             "W": W,
             "dtype": _dtype_name(self._ea.vals),
             "device": str(self._ea.vals.device),
-            "device_bytes": _device_bytes(
+            "device_bytes": device_bytes(
                 (*self._ea[:5], self._val_src, self._diag_src)
             ),
             # the certificate's barrier and step accounting
@@ -232,20 +226,6 @@ class ScanBackend(Backend):
     ``bind(slack=s)`` binds the elastic macro-step loop."""
 
     name = "scan"
-    bound_cls = ScanBoundSolve
-    elastic_bound_cls = ElasticScanBoundSolve
-
-    @staticmethod
-    def plan_arrays(exec_plan, *, dtype, device):
-        return plan_arrays(exec_plan, dtype=dtype, device=device)
-
-    @staticmethod
-    def elastic_arrays(exec_plan, *, dtype, device):
-        """The first argument of ``elastic_bound_cls``: here the plan in
-        macro-step layout (``ElasticArrays``)."""
-        return elastic_plan_arrays(
-            exec_plan, slack=exec_plan.elastic.slack, dtype=dtype, device=device
-        )
 
     def capabilities(self):
         return ("grouped", "elastic", "slots")
@@ -260,26 +240,19 @@ class ScanBackend(Backend):
         device = resolve_device(device)
         with obs.span("backend.bind", cat="backend", backend=self.name,
                       n=exec_plan.n, slack=slack):
-            if exec_plan.val_src is None or exec_plan.diag_src is None:
-                raise ValueError("the plan carries no value-source maps")
-            n_entries = expected_entry_count(exec_plan)
+            exec_plan, n_entries = bind_checks(exec_plan, slack)
             if slack > 0:
-                return self._bind_elastic(
-                    exec_plan, dtype=dtype, device=device, slack=slack,
-                    n_entries=n_entries,
-                )
-            return self.bound_cls(
-                self.plan_arrays(exec_plan, dtype=dtype, device=device),
+                return self._bind_elastic(exec_plan, dtype=dtype, device=device,
+                                          n_entries=n_entries)
+            return ScanBoundSolve(
+                plan_arrays(exec_plan, dtype=dtype, device=device),
                 torch.as_tensor(np.asarray(exec_plan.val_src, np.int32)).to(device),
                 torch.as_tensor(np.asarray(exec_plan.diag_src, np.int32)).to(device),
                 n_entries=n_entries,
             )
 
-    def _bind_elastic(self, exec_plan, *, dtype, device, slack, n_entries):
+    def _bind_elastic(self, exec_plan, *, dtype, device, n_entries):
         ep = exec_plan.elastic
-        if ep is None or ep.slack != slack:
-            ep = elastic_transform(exec_plan, slack)
-            exec_plan = dataclasses.replace(exec_plan, elastic=ep)
         M, S = ep.n_macro_steps, ep.slack
         pad = M * S - exec_plan.n_steps
 
@@ -289,7 +262,7 @@ class ScanBackend(Backend):
             a = _pad_to_window(np.asarray(a, np.int32), pad, -1)
             return torch.as_tensor(a.reshape(M, S, *a.shape[1:])).to(device)
 
-        return self.elastic_bound_cls(
-            self.elastic_arrays(exec_plan, dtype=dtype, device=device),
+        return ElasticScanBoundSolve(
+            elastic_plan_arrays(exec_plan, slack=S, dtype=dtype, device=device),
             ep, src(exec_plan.val_src), src(exec_plan.diag_src), n_entries=n_entries,
         )

@@ -4,7 +4,7 @@ A NumPy copy of the JAX package's ``core/elastic.py``;
 ``tests/test_torch_elastic.py`` holds every certificate array equal to
 the original's. The executor names below are the reference's: in this
 package the macro-step loop is ``solver.executor.solve_with_elastic``;
-the CUDA kernels (``csrc/sptrsv_elastic.cu``) read only the certificate's
+the CUDA kernels (``csrc/sptrsv.cu``) read only the certificate's
 ``slack``: they walk the plan level by level over runs of ``slack``
 supersteps (``kernels/levels.py``), one block barrier per level, where the
 TPU kernel walks readiness waves.

@@ -1,8 +1,11 @@
-// Scheduled sparse triangular solve (bulk-synchronous) for NVIDIA Hopper.
+// Scheduled sparse triangular solve for NVIDIA Hopper, bulk-synchronous and
+// under a staleness bound (mode="elastic"): one library for both level orders.
 //
 // Replaces the TPU kernels of the JAX package:
-//   src/repro/kernels/sptrsv.py::_sptrsv_kernel       (one right-hand side)
-//   src/repro/kernels/sptrsv.py::_sptrsv_mrhs_kernel  (m right-hand sides)
+//   src/repro/kernels/sptrsv.py::_sptrsv_kernel               (one right-hand side)
+//   src/repro/kernels/sptrsv.py::_sptrsv_mrhs_kernel          (m right-hand sides)
+//   src/repro/kernels/sptrsv.py::_sptrsv_elastic_kernel       (elastic, one)
+//   src/repro/kernels/sptrsv.py::_sptrsv_elastic_mrhs_kernel  (elastic, m)
 // and computes the function the JAX scan executor defines bit for bit
 // (src/repro/solver/executor.py::_step_single / _step_mrhs): for every plan
 // step t and lane l,
@@ -28,8 +31,16 @@
 // paper's ER set at n = 100,000 and 2,020 on its NB set, against T = 13,561
 // and 16,635 plan steps. Each chunk's plan operands are staged in shared
 // memory ahead of it (level.cuh), so a level waits only on its x gathers.
-// mode="elastic" launches the same code over runs of supersteps
-// (csrc/sptrsv_elastic.cu).
+//
+// mode="elastic" launches the same entries over another level order: the
+// supersteps grouped into runs of `slack`, one level numbering spanning a
+// run (kernels/levels.py). A vertex reads only rows of an earlier run or of
+// a lower level of its own run, both complete behind an earlier barrier, so
+// the bits are the bulk order's with fewer barriers (38 levels on ER and
+// 1,460 on NB at slack 8). The TPU kernels walk a VMEM tile of `slack` plan
+// steps in readiness waves; on this card a wave is about one plan step
+// (GrowLocal keeps dependency chains on one lane), so a wave kernel would
+// pay a block barrier and a dependent gather per plan step.
 //
 // Single right-hand side: one block of 1,024 threads (31 consumer warps and
 // the producer warp).

@@ -4,10 +4,11 @@ card (CUDA events and the host clock, one process, one call).
     PYTHONPATH=src python3 -m repro_torch.kernels.front_door_sweep \\
         --parent-src DIR [--out FILE.jsonl] [--reps 20]
 
-Builds ``csrc/sptrsv.cu`` and ``csrc/sptrsv_elastic.cu`` as they ship and,
-from ``--parent-src`` (a directory with the previous commit's
-``sptrsv.cu``, ``sptrsv_elastic.cu``, ``level.cuh`` and ``rn.cuh``), the
-parent's, which have no ordered solve. On the benchmark's shapes:
+Builds ``csrc/sptrsv.cu`` as it ships (one library for both level orders)
+and, from ``--parent-src`` (a directory with the previous commit's
+``sptrsv.cu``, ``level.cuh``, ``rn.cuh`` and, where it has one,
+``sptrsv_elastic.cu``), the parent's, which have no ordered solve. On the
+benchmark's shapes:
 
   er      ER n = 100,000, p = 1e-4, growlocal, k = 8, bulk, float32, m = 1
           and m = 32
@@ -81,13 +82,13 @@ def _cells():
 
 
 class _Unordered:
-    """One build's unordered entry of a solver's walk: ``call(b_pad, x)``."""
+    """One build's unordered entry of a solver's walk, ``prefix`` naming
+    it in ``lib``: ``call(b_pad, x)``."""
 
-    def __init__(self, lib, solver, m):
-        elastic = solver.info()["mode"] == "elastic"
-        kind = ("elastic_" if elastic else "") + ("single" if m is None else "mrhs")
+    def __init__(self, lib, prefix, solver, m):
+        kind = "single" if m is None else "mrhs"
         la = solver.bound._la
-        self.fn = getattr(lib, f"sptrsv_{kind}_{_SUFFIX[la.vals.dtype]}")
+        self.fn = getattr(lib, f"{prefix}_{kind}_{_SUFFIX[la.vals.dtype]}")
         self.fn.argtypes, self.fn.restype = (_SINGLE if m is None else _COLS), _I
         ch = la.chunks
         self.args = (*[t.data_ptr() for t in la[:6]], ch.chunk_ptr.data_ptr(),
@@ -123,7 +124,7 @@ def _host_ms(fn, warmup=3, reps=20):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-src", type=Path, required=True,
-                    help="directory with the previous sptrsv.cu, sptrsv_elastic.cu and headers")
+                    help="directory with the previous sptrsv.cu (sptrsv_elastic.cu) and headers")
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -148,11 +149,13 @@ def main(argv=None) -> int:
     work = build.BUILD_DIR.parent / "front_door_sweep"
     work.mkdir(parents=True, exist_ok=True)
     src = args.parent_src.resolve()
-    jobs = [(name, src / f"{name}.cu", work) for name in ("sptrsv", "sptrsv_elastic")]
-    with ThreadPoolExecutor(len(jobs) + 2) as pool:
-        shipped = [pool.submit(build.load, name) for name in ("sptrsv", "sptrsv_elastic")]
+    # a parent with its own elastic library builds that too
+    names = ["sptrsv"] + (["sptrsv_elastic"] if (src / "sptrsv_elastic.cu").exists() else [])
+    jobs = [(name, src / f"{name}.cu", work) for name in names]
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        shipped = pool.submit(build.load, "sptrsv")
         built = list(pool.map(nvcc_job, jobs))
-        libs = {name: f.result() for name, f in zip(("sptrsv", "sptrsv_elastic"), shipped)}
+        lib_new = shipped.result()
     parent = {}
     for name, rc, sec, so, log in built:
         emit({"build": f"parent_{name}", "rc": rc, "s": round(sec, 2)})
@@ -166,7 +169,8 @@ def main(argv=None) -> int:
     emit({"plans_s": round(time.perf_counter() - t0, 1)})
     failed = []
     for cell, (solver, ms) in cells.items():
-        lib = "sptrsv_elastic" if solver.info()["mode"] == "elastic" else "sptrsv"
+        elastic = solver.info()["mode"] == "elastic"
+        par = "sptrsv_elastic" if elastic and "sptrsv_elastic" in parent else "sptrsv"
         bound, n, dtype = solver.bound, solver.n, solver.dtype
         for m in ms:
             rng = np.random.default_rng(34)
@@ -175,8 +179,8 @@ def main(argv=None) -> int:
             b_plan = pad_rhs(b[solver._perm])
             b_in = b_plan if m is None else b_plan.T.contiguous()
             x_par, x_new = torch.zeros_like(b_in), torch.zeros_like(b_in)
-            unordered = {"kernel_parent": (_Unordered(parent[lib], solver, m), x_par),
-                         "kernel_unordered": (_Unordered(libs[lib], solver, m), x_new)}
+            unordered = {"kernel_parent": (_Unordered(parent[par], par, solver, m), x_par),
+                         "kernel_unordered": (_Unordered(lib_new, "sptrsv", solver, m), x_new)}
             cols = 1 if m is None else m
             out_o = torch.empty_like(b)
             scratch = b.new_empty(2 * cols * (n + 1))

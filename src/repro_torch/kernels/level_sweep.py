@@ -4,12 +4,12 @@ timed side by side on the card (CUDA events, one process, one call).
     PYTHONPATH=src python3 -m repro_torch.kernels.level_sweep \\
         [--parent-src DIR] [--out FILE.jsonl]
 
-Builds ``csrc/sptrsv.cu`` and ``csrc/sptrsv_elastic.cu`` as they ship,
-``csrc/sweep/groups.cu`` (the column-group walk, which only this sweep
-builds) and, given ``--parent-src`` (a directory with the previous
-commit's ``sptrsv.cu``, ``sptrsv_elastic.cu``, ``level.cuh`` and
-``rn.cuh``), those too, all at once (one nvcc each), and prints each
-build's registers per kernel (``-Xptxas -v``).
+Builds ``csrc/sptrsv.cu`` as it ships (one library for both level
+orders), ``csrc/sweep/groups.cu`` (the column-group walk, which only this
+sweep builds) and, given ``--parent-src`` (a directory with the previous
+commit's ``sptrsv.cu``, ``level.cuh``, ``rn.cuh`` and, where it has one,
+``sptrsv_elastic.cu``), those too, all at once (one nvcc each), and
+prints each build's registers per kernel (``-Xptxas -v``).
 
 The column groups: b f[n+1, m] packed to f[G, n+1, C] (``pack_groups``,
 G = ceil(m / C), the C entries of a row contiguous, pad columns +0); block
@@ -221,7 +221,7 @@ class _Lib:
         return _LEVEL, (*[t.data_ptr() for t in la[:7]], L, W)
 
     def single(self, entry, la, b_pad):
-        """One RHS: ``sptrsv_single`` or ``sptrsv_elastic_single``."""
+        """One RHS: ``sptrsv_single`` (or a parent's ``sptrsv_elastic_single``)."""
         x = torch.zeros_like(b_pad)
         types, args = self._level(la)
         self._call(entry, b_pad.dtype, types + [_P, _P, _P], *args, b_pad.data_ptr(),
@@ -241,7 +241,7 @@ class _Lib:
         return x
 
     def cols(self, entry, la, b_col, strides=False):
-        """The column grid (``sptrsv_mrhs`` or ``sptrsv_elastic_mrhs``) on
+        """The column grid (``sptrsv_mrhs``, a parent's ``sptrsv_elastic_mrhs``) on
         column-major b f[m, n+1]; ``strides``: the parent's entry, which
         takes the row and the column stride."""
         x = torch.zeros_like(b_col)
@@ -265,7 +265,7 @@ class _Lib:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-src", type=Path,
-                    help="directory with the previous sptrsv.cu, sptrsv_elastic.cu and headers")
+                    help="directory with the previous sptrsv.cu (sptrsv_elastic.cu) and headers")
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -289,13 +289,12 @@ def main(argv=None) -> int:
 
     work = build.BUILD_DIR.parent / "level_sweep"
     work.mkdir(parents=True, exist_ok=True)
-    jobs = [("bulk", build.CSRC / "sptrsv.cu", work),
-            ("elastic", build.CSRC / "sptrsv_elastic.cu", work),
-            ("groups", GROUPS_SRC, work)]
+    jobs = [("bulk", build.CSRC / "sptrsv.cu", work), ("groups", GROUPS_SRC, work)]
     if args.parent_src:
         src = args.parent_src.resolve()
-        jobs += [("parent_bulk", src / "sptrsv.cu", work),
-                 ("parent_elastic", src / "sptrsv_elastic.cu", work)]
+        jobs.append(("parent_bulk", src / "sptrsv.cu", work))
+        if (src / "sptrsv_elastic.cu").exists():  # a parent with its own elastic library
+            jobs.append(("parent_elastic", src / "sptrsv_elastic.cu", work))
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(nvcc_job, jobs))
     libs = {}
@@ -305,9 +304,14 @@ def main(argv=None) -> int:
         if rc != 0:
             print(log[-3000:], file=sys.stderr)
             return 1
-        libs[name] = _Lib(name, so, staged=name in ("bulk", "elastic"))
+        libs[name] = _Lib(name, so, staged=name == "bulk")
     parent = "parent_bulk" in libs
-    new, new_el, grp = libs["bulk"], libs["elastic"], libs["groups"]
+    new, grp = libs["bulk"], libs["groups"]
+    # each build's elastic entries: its library and their prefix
+    elastic = {"": (new, "sptrsv")}
+    if parent:
+        elastic["parent_"] = ((libs["parent_elastic"], "sptrsv_elastic") if "parent_elastic" in libs
+                              else (libs["parent_bulk"], "sptrsv"))
 
     def walk(la_s, packed):
         """The walk over column groups: the column grid that ships at
@@ -337,11 +341,10 @@ def main(argv=None) -> int:
             if parent:
                 out["parent_single"] = lambda: libs["parent_bulk"].single(
                     "sptrsv_single", la[1], b_pad)
-                out[f"parent_elastic_single_s{s8}"] = lambda: libs["parent_elastic"].single(
-                    "sptrsv_elastic_single", la[s8], b_pad)
+                out[f"parent_elastic_single_s{s8}"] = lambda: elastic["parent_"][0].single(
+                    f"{elastic['parent_'][1]}_single", la[s8], b_pad)
             out["single"] = lambda: new.single("sptrsv_single", la[1], b_pad)
-            out[f"elastic_single_s{s8}"] = lambda: new_el.single(
-                "sptrsv_elastic_single", la[s8], b_pad)
+            out[f"elastic_single_s{s8}"] = lambda: new.single("sptrsv_single", la[s8], b_pad)
             return b_pad, out
         extras = dtype == torch.float32 and m != WIDE_M
         if parent and extras:
@@ -368,11 +371,10 @@ def main(argv=None) -> int:
                 if C > 1:
                     out[f"elastic_groups_s{s8}_c{C}"] = with_copies(la[s8], C)
         if extras:  # each build's elastic column grid with the copies it ships with
-            for tag, lib in (("parent_", libs.get("parent_elastic")), ("", new_el)):
-                if lib is not None:
-                    out[f"{tag}elastic_s{s8}"] = lambda lib=lib, tag=tag: lib.cols(
-                        "sptrsv_elastic_mrhs", la[s8], b_pad.T.contiguous(),
-                        strides=bool(tag)).T.contiguous()
+            for tag, (lib, pre) in elastic.items():
+                out[f"{tag}elastic_s{s8}"] = lambda lib=lib, pre=pre, tag=tag: lib.cols(
+                    f"{pre}_mrhs", la[s8], b_pad.T.contiguous(),
+                    strides=bool(tag)).T.contiguous()
         return b_pad, out
 
     def check(plan, dtype, m, full):

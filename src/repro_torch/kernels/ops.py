@@ -19,6 +19,9 @@ launch a solve (``solve_ordered``). A distributed solve binds each position's
 plan (a lane of the plan, or a shard of its rows) in the bulk level order
 with the level range of each exchange round (``round_level_arrays``), and
 walks one range per round (``kernels.sptrsv.sptrsv_level_range_cuda``).
+Every bound of level tensors refreshes its values on the device the same
+way: new entry data gathered through the plan's value sources in the same
+level order (``level_sources``, ``refresh_level_values``).
 
 This module is the device half of the ``kernel`` entry in
 ``repro_torch.backends`` — bind through the registry
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.backends.base import masked_value_gather
 from repro_torch.core.plan import ExecPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.levels import (
@@ -50,7 +54,7 @@ from repro_torch.kernels.sptrsv import (
     sptrsv_level_cuda,
     sptrsv_ordered_cuda,
 )
-from repro_torch.solver.executor import PlanArrays, pad_rhs, plan_arrays, pow2_lanes
+from repro_torch.solver.executor import pad_rhs, pow2_lanes
 
 
 def check_plan_indices(plan: ExecPlan) -> None:
@@ -65,16 +69,6 @@ def check_plan_indices(plan: ExecPlan) -> None:
     sb = np.asarray(plan.step_bounds)
     if sb.ndim != 1 or sb.size < 1 or sb[0] != 0 or sb[-1] != T or (np.diff(sb) < 0).any():
         raise ValueError(f"plan.step_bounds must rise monotonically from 0 to T={T}")
-
-
-def kernel_plan_arrays(
-    plan: ExecPlan, *, dtype=torch.float32, device=None
-) -> PlanArrays:
-    """The padded plan tensors on ``device`` (``None``: the card, raising
-    without CUDA), index contents checked: no kernel reads them; the
-    ``kernel`` backend keeps them as the source of its value refresh."""
-    check_plan_indices(plan)
-    return plan_arrays(plan, dtype=dtype, device=device)
 
 
 class LevelArrays(NamedTuple):
@@ -145,6 +139,30 @@ class RoundLevels(NamedTuple):
     diag_src: torch.Tensor  # int32[P]
 
 
+def level_sources(plan: ExecPlan, order: LevelOrder, *, device=None):
+    """``(val_src, diag_src)``: ``plan``'s value sources gathered into the
+    level order ``order`` on ``device`` (``None``: the card, raising
+    without CUDA), int32[P, W] and int32[P], -1 marking padding: what
+    ``refresh_level_values`` gathers new entry data through."""
+    device = resolve_device(device)
+
+    def put(a, shape):
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(a, np.int32).reshape(shape)[order.perm])).to(device)
+
+    return put(plan.val_src, (-1, plan.W)), put(plan.diag_src, (-1,))
+
+
+def refresh_level_values(la: LevelArrays, val_src, diag_src, data) -> LevelArrays:
+    """``la`` with its values gathered from ``data`` (the new matrix's
+    entry values in the plan dtype, on ``la``'s device) through its
+    level-ordered sources (``level_sources``), the old value kept at
+    padding; new tensors, ``la`` untouched. The value refresh of every
+    bound that holds level tensors."""
+    vals, diag = masked_value_gather(data, val_src, la.vals, diag_src, la.diag)
+    return la._replace(vals=vals, diag=diag)
+
+
 def round_level_arrays(plan: ExecPlan, bounds, *, dtype=torch.float32,
                        device=None) -> RoundLevels:
     """``plan`` in the bulk level order on ``device`` (``None``: the card,
@@ -153,18 +171,9 @@ def round_level_arrays(plan: ExecPlan, bounds, *, dtype=torch.float32,
     its level-ordered value sources."""
     order = level_order(plan)
     la = level_plan_arrays(plan, dtype=dtype, device=device, order=order)
-    W, perm = plan.W, order.perm
-
-    def src(a, shape):
-        return torch.as_tensor(np.ascontiguousarray(
-            np.asarray(a, np.int32).reshape(shape)[perm])).to(la.vals.device)
-
-    return RoundLevels(
-        la=la,
-        ranges=tuple(int(v) for v in round_ranges(order, bounds)),
-        val_src=src(plan.val_src, (-1, W)),
-        diag_src=src(plan.diag_src, (-1,)),
-    )
+    val_src, diag_src = level_sources(plan, order, device=la.vals.device)
+    return RoundLevels(la=la, ranges=tuple(int(v) for v in round_ranges(order, bounds)),
+                       val_src=val_src, diag_src=diag_src)
 
 
 def solve_with_kernel_arrays(la: LevelArrays, b: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""The SpTRSV kernels on the card: wrappers over ``csrc/sptrsv.cu`` (bulk)
-and ``csrc/sptrsv_elastic.cu`` (``mode="elastic"``). Every kernel is a
-level walk of ``csrc/level.cuh`` over the plan in level order
-(``kernels.levels``).
+"""The SpTRSV kernels on the card: wrappers over ``csrc/sptrsv.cu``, one
+library for both level orders. Every kernel is a level walk of
+``csrc/level.cuh`` over the plan in level order (``kernels.levels``); the
+bulk and the elastic order differ only in the level tensors it is handed.
 
 ``sptrsv_level_cuda`` (one or m right-hand sides, the bulk level order)
 replaces the JAX package's ``sptrsv_pallas`` (the TPU kernels
@@ -88,14 +88,13 @@ _BANK = [_P] * 11 + [_I] * 4 + [_I64] + [_P] * 3
 # the ordered solve: the level tensors but level_ptr and the chunk table;
 # level count, W, stage layout, m, grid; n; perm, b, out, scratch, stream
 _ORDERED = [_P] * 8 + [_I] * 6 + [_I64] + [_P] * 5
-_ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "elastic_single": _SINGLE, "elastic_mrhs": _COLS,
-             "bank": _BANK, "ordered": _ORDERED}
-# a range launch runs the bulk entry point of its layout, and an ordered
-# solve of one or m columns, of the bulk or the elastic order, the one
-# ordered entry; each is counted under its own kind
-_ENTRY_OF = {"range_single": "single", "range_mrhs": "mrhs", "ordered_single": "ordered",
-             "ordered_mrhs": "ordered", "elastic_ordered_single": "ordered",
-             "elastic_ordered_mrhs": "ordered"}
+_ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "bank": _BANK, "ordered": _ORDERED}
+# an elastic or a range launch runs the entry point of its layout, and an
+# ordered solve of one or m columns, of the bulk or the elastic order, the
+# one ordered entry; each is counted under its own kind
+_ENTRY_OF = {"elastic_single": "single", "elastic_mrhs": "mrhs", "range_single": "single",
+             "range_mrhs": "mrhs", "ordered_single": "ordered", "ordered_mrhs": "ordered",
+             "elastic_ordered_single": "ordered", "elastic_ordered_mrhs": "ordered"}
 # the fewest blocks of an ordered launch where the card holds them: they
 # share its moves of b and x (a block walks each column). On an H100 the
 # solve of one column took 1.5% over the walk alone at 32 blocks and 0.8%
@@ -119,8 +118,7 @@ def _count(kind: str) -> None:
 def _entry(kind: str, dtype: torch.dtype):
     """The C entry point of ``kind`` for ``dtype``, typed once per process."""
     kind = _ENTRY_OF.get(kind, kind)
-    lib = build.load("sptrsv_elastic" if kind.startswith("elastic") else "sptrsv")
-    fn = getattr(lib, f"sptrsv_{kind}_{_SUFFIX[dtype]}")
+    fn = getattr(build.load("sptrsv"), f"sptrsv_{kind}_{_SUFFIX[dtype]}")
     fn.argtypes = _ARGTYPES[kind]
     fn.restype = ctypes.c_int
     return fn

@@ -11,6 +11,9 @@ plan carried across with ``convert.exec_plan_from_numpy``:
   * ``update_values`` == a fresh bind, and == the JAX scan bound's
     ``update_values``, bitwise (for the kernel backend also its level-order
     tensors, and on data holding explicit and signed zeros);
+  * a kernel bound holds its plan once, in level order, bulk and elastic:
+    ``describe()``'s keys, and ``device_bytes`` the level tensors, their
+    chunk table and their level-ordered value sources;
   * the kernel wrapper's input checks (m right-hand sides).
 """
 import dataclasses
@@ -31,10 +34,17 @@ from repro.solver.executor import solve_with_plan as jsolve_with_plan
 from repro_torch.backends import get_backend
 from repro_torch.convert import exec_plan_from_numpy
 from repro_torch.kernels import level_sweep
-from repro_torch.kernels.ops import check_plan_indices, level_plan_arrays
+from repro_torch.kernels.levels import level_order
+from repro_torch.kernels.ops import check_plan_indices, level_plan_arrays, level_sources
 from repro_torch.kernels.ref import sptrsv_ref
 from repro_torch.kernels.sptrsv import sptrsv_level_cuda
-from repro_torch.solver.executor import pad_rhs, plan_arrays, solve_with_plan
+from repro_torch.solver.executor import (
+    ElasticArrays,
+    PlanArrays,
+    pad_rhs,
+    plan_arrays,
+    solve_with_plan,
+)
 
 
 def _matrix(name):
@@ -181,6 +191,16 @@ def test_update_values_rejects_wrong_length():
         bound.update_values(np.ones(bound.n_entries + 1))
 
 
+def _level_bytes(plan, slack):
+    """The bytes of what a kernel bound of ``plan`` holds: the level
+    tensors in its level order, their chunk table and the level-ordered
+    value sources."""
+    la = level_plan_arrays(plan, device="cpu", order=level_order(plan, slack=max(slack, 1)))
+    held = (*la[:8], la.chunks.chunk_ptr, la.chunks.level_chunk,
+            *level_sources(plan, la.order, device="cpu"))
+    return sum(t.numel() * t.element_size() for t in held)
+
+
 def test_describe_reports_binding():
     _, _, jp = _jax_plan("nb", 4, 3)
     d = get_backend("kernel").bind(_port_plan(jp), device="cpu").describe()
@@ -188,8 +208,31 @@ def test_describe_reports_binding():
     assert (d["n"], d["n_steps"], d["k"], d["W"]) == (jp.n, jp.n_steps, 4, 3)
     assert d["dtype"] == "float32" and d["device"] == "cpu"
     assert d["n_levels"] > 0
-    scan = get_backend("scan").bind(_port_plan(jp), device="cpu").describe()
-    assert d["device_bytes"] > scan["device_bytes"]  # the level-order tensors
+    # the level tensors, their chunk table and their value sources
+    assert d["device_bytes"] == _level_bytes(_port_plan(jp), 0)
+
+
+_BOUND_KEYS = {"backend", "n", "n_steps", "k", "W", "dtype", "device", "device_bytes",
+               "n_levels", "front_door", "runtime", "staging"}
+_ELASTIC_KEYS = {"mode", "n_macro_steps", "slack", "slack_unit", "certificate"}
+
+
+@pytest.mark.parametrize("slack", [0, 3])
+@pytest.mark.parametrize("name", ["er", "nb", "ichol"])
+def test_kernel_bound_holds_only_level_tensors(name, slack):
+    """A kernel bound holds the plan once, in its level order: no padded
+    plan ([T, k, W]) or macro-step tensors ([M, S, k, W]) beside the level
+    tensors, in either mode, and ``describe()`` reports that."""
+    _, _, jp = _jax_plan(name, 8, 2)
+    plan = _port_plan(jp)
+    bound = get_backend("kernel").bind(plan, device="cpu", slack=slack)
+    d = bound.describe()
+    assert set(d) == _BOUND_KEYS | (_ELASTIC_KEYS if slack else set())
+    assert d["device_bytes"] == _level_bytes(plan, slack)
+    held = [v for v in vars(bound).values() if isinstance(v, tuple)]
+    assert not any(isinstance(v, (PlanArrays, ElasticArrays)) for v in held)
+    tensors = [v for v in (*vars(bound).values(), *bound._la) if isinstance(v, torch.Tensor)]
+    assert tensors and all(t.dim() <= 2 for t in tensors)
 
 
 def test_check_plan_indices_rejects_bad_plans():

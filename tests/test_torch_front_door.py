@@ -27,7 +27,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.backends.kernel import KernelBoundSolve, _KernelTimed
+from repro_torch.backends.kernel import KernelBoundSolve, _KernelBound
 from repro_torch.kernels import ops, sptrsv
 from repro_torch.kernels.ref import sptrsv_level_ref, sptrsv_ordered_ref
 from repro_torch.solver.executor import pad_rhs
@@ -165,7 +165,7 @@ def test_ordered_solve_checks_b_before_any_launch():
 def _as_on_the_card(monkeypatch):
     """The bound takes the row order as on the card: its device test
     passed over."""
-    monkeypatch.setattr(_KernelTimed, "take_row_order", _KernelTimed._bind_row_order)
+    monkeypatch.setattr(_KernelBound, "take_row_order", _KernelBound._bind_row_order)
 
 
 @pytest.mark.parametrize("mode", ["bsp", "elastic"])

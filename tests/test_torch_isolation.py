@@ -17,11 +17,12 @@ from repro_torch import backends
 from repro_torch.backends import get_backend
 from repro_torch.core import elastic_transform
 from repro_torch.kernels import build, ops, spmv, sptrsv
+from repro_torch.kernels.levels import level_order
 from repro_torch.kernels.ops import (
     bind_kernel_solver,
     elastic_kernel_arrays,
-    kernel_plan_arrays,
     level_plan_arrays,
+    level_sources,
 )
 from repro_torch.kernels.ref import sptrsv_ref
 from repro_torch.solver.executor import (
@@ -175,8 +176,8 @@ def _registry_bind(plan):
     return backends.bind("kernel", plan)
 
 
-def _kernel_plan_arrays(plan):
-    return kernel_plan_arrays(plan)
+def _level_sources(plan):
+    return level_sources(plan, level_order(plan))
 
 
 def _level_plan_arrays(plan):
@@ -319,7 +320,7 @@ def _train_state_from_numpy(plan):
 @pytest.mark.parametrize(
     "entry",
     [_bind_kernel, _bind_scan, _registry_bind, plan_arrays, make_solver,
-     _kernel_plan_arrays, _level_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
+     _level_sources, _level_plan_arrays, _bind_kernel_solver, _elastic_plan_arrays,
      _elastic_kernel_arrays, _bind_kernel_elastic, _bind_scan_elastic, _spmv,
      _ell_operator, _cg_solve, _pcg_ichol, _serve_register, _serve_cli, _make_mesh,
      _bind_distributed_on_card_mesh, _lm_init_params, _lm_batch, _lm_decode_cache,

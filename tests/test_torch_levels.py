@@ -35,7 +35,11 @@
     slices, rounded out to 16 bytes as the kernel copies them, fit its
     stage, ``level_chunk`` sliced by a
     level range or a lane's offset gives that range's or lane's chunks,
-    and a vertex wider than a stage is a chunk of its own, not staged.
+    and a vertex wider than a stage is a chunk of its own, not staged;
+  * the value refresh of bounds that hold level tensors
+    (``ops.refresh_level_values`` through ``ops.level_sources``) bitwise
+    the level tensors of the plan refreshed on the host, bulk, elastic and
+    a distributed position's.
 """
 import dataclasses
 import functools
@@ -52,12 +56,14 @@ import repro_torch
 from repro.pipeline import TriangularSolver as JSolver
 from repro.solver.executor import plan_arrays as jplan_arrays
 from repro.solver.executor import solve_with_plan as jsolve_with_plan
+from repro_torch.backends.base import expected_entry_count
 from repro_torch.convert import csr_from_numpy, exec_plan_from_numpy
 from repro_torch.kernels import level_sweep, ops, sptrsv
 from repro_torch.kernels import levels
 from repro_torch.kernels.levels import level_order
 from repro_torch.kernels.ops import level_plan_arrays
 from repro_torch.kernels.ref import sptrsv_level_bank_ref, sptrsv_level_ref, sptrsv_ref
+from repro_torch.solver import distributed as dist
 from repro_torch.solver.executor import pad_rhs, plan_arrays
 from repro_torch.sparse import erdos_renyi_lower, ichol0, narrow_band_lower, poisson2d_matrix
 
@@ -711,3 +717,39 @@ def test_kernel_bound_describes_its_staging(name, mode):
     assert st["levels"] == d["n_levels"] and st["chunks"] >= st["levels"]
     assert st["chunks_staged"] == st["chunks"]
     assert levels.STAGE_HEAD_BYTES + st["stages"] * st["stage_bytes"] <= levels.SMEM_BYTES // 2
+
+
+@pytest.mark.parametrize("order", ["bulk", "elastic", "position"])
+@pytest.mark.parametrize("name", ["er", "nb", "ichol"])
+def test_level_refresh_is_the_refreshed_plans_layout(name, order):
+    """The value refresh of every bound of level tensors
+    (``ops.refresh_level_values`` through ``ops.level_sources``: the
+    kernel bound's and the distributed backend's) gives, bit for bit, the
+    level tensors of the plan refreshed on the host: in the bulk order, the
+    slack-3 elastic order and a distributed position's ``RoundLevels``
+    (lane 1 of the plan), at width 2 (accumulate rows, -1 padding), on data
+    holding signed and explicit zeros."""
+    plan = _port_plan(name, 8, 2)
+    rng = np.random.default_rng(5)
+    data = rng.uniform(-2.0, 2.0, expected_entry_count(plan))
+    data[1::5] = np.where(np.arange(data[1::5].size) % 2, -0.0, 0.0)
+    fresh = dataclasses.replace(plan, vals=plan.vals.copy(), diag=plan.diag.copy())
+    fresh.numeric_update(data)
+    assert (plan.val_src < 0).any()  # padding, which the refresh keeps
+    slack = 3 if order == "elastic" else 1
+    if order == "position":
+        plan, fresh = dist.lane_plan(plan, 1), dist.lane_plan(fresh, 1)
+        rl = ops.round_level_arrays(plan, np.arange(plan.n_supersteps + 1), device="cpu")
+        la, val_src, diag_src = rl.la, rl.val_src, rl.diag_src
+    else:
+        la = level_plan_arrays(plan, device="cpu", order=level_order(plan, slack))
+        val_src, diag_src = ops.level_sources(plan, la.order, device="cpu")
+    old = [t.clone() for t in la[:8]]
+    got = ops.refresh_level_values(la, val_src, diag_src,
+                                   torch.from_numpy(data.astype(np.float32)))
+    want = level_plan_arrays(fresh, device="cpu", order=level_order(fresh, slack))
+    for pair in (*zip(got[:8], want[:8]), *zip(la[:8], old)):  # and its input untouched
+        if pair[0].is_floating_point():
+            _assert_bitwise(*pair)
+        else:
+            assert torch.equal(*pair)

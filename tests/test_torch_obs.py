@@ -340,7 +340,7 @@ def test_ordered_front_door_nests_one_launch(monkeypatch, mode, m):
     import contextlib
     import types
 
-    from repro_torch.backends.kernel import _KernelTimed
+    from repro_torch.backends.kernel import _KernelBound
     from repro_torch.kernels import sptrsv
 
     calls = []
@@ -350,7 +350,7 @@ def test_ordered_front_door_nests_one_launch(monkeypatch, mode, m):
         return 0
 
     # the bound's device test passed over: on the CPU it keeps the gathers
-    monkeypatch.setattr(_KernelTimed, "take_row_order", _KernelTimed._bind_row_order)
+    monkeypatch.setattr(_KernelBound, "take_row_order", _KernelBound._bind_row_order)
     monkeypatch.setattr(sptrsv, "_entry", lambda kind, dtype: entry)
     monkeypatch.setattr(sptrsv, "_ordered_blocks", lambda *key: 132)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
