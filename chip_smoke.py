@@ -2665,9 +2665,12 @@ def main() -> int:
                         b_r = (b_pad if m is None else b_pad.T.contiguous()).to(dev)
                         x_r = torch.zeros_like(b_r)
                         cuts = superstep_ranges(la_gpu.order)
+                        # no levels packed across a range's bounds
+                        cut = level_plan_arrays(plan, device=dev, order=la_gpu.order,
+                                                cuts=cuts).chunks
                         for lo, hi in zip(cuts[:-1], cuts[1:]):
                             sptrsv.sptrsv_level_range_cuda(*la_gpu[:7], lo, hi, b_r, x_r,
-                                                           chunks=la_gpu.chunks)
+                                                           chunks=cut)
                         torch.cuda.synchronize()
                         cells[-1]["range_launches_bitwise_full"] = bitwise_equal(
                             x_r if m is None else x_r.T, x_gpu)
@@ -3054,9 +3057,10 @@ def main() -> int:
                    "entries": work["entries"], "padding_share": work["padding_share"],
                    "bound_padded_plan_us": plan_total / HBM_BYTES_PER_S * 1e6,
                    "padded_plan_bytes": plan_total,
-                   # one block barrier per chunk of a level (per column block
-                   # for m RHS), the plan's operands staged ahead of it
-                   "barriers": la.chunks.stats()["chunks"], "levels": order.n_levels,
+                   # one block barrier per level (per column block for m
+                   # RHS), the plan's operands staged ahead of it a chunk at
+                   # a time
+                   "barriers": order.n_levels, "levels": order.n_levels,
                    "staging": la.chunks.stats(),
                    "level_width_max": stats["level_width_max"],
                    "supersteps": plan.n_supersteps, "level_order_s": level_s,
@@ -3081,6 +3085,8 @@ def main() -> int:
         from repro_torch.kernels.ref import sptrsv_level_range_ref
 
         cuts = superstep_ranges(order)
+        # no levels packed across a range's bounds
+        cut = level_plan_arrays(plan, device=dev, order=order, cuts=cuts).chunks
         for kname, m in (("sptrsv_range_single", None), ("sptrsv_range_mrhs", MAIN_M)):
             b_pad = rhs_pad(gpu.n, m)
             b_r = b_pad if m is None else b_pad.T.contiguous()  # column-major for m
@@ -3091,8 +3097,8 @@ def main() -> int:
                 return x
 
             ms = statistics.median(cuda_times(lambda: ranged(
-                sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r), chunks=la.chunks), 3, 20))
-            x = ranged(sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r), chunks=la.chunks)
+                sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r), chunks=cut), 3, 20))
+            x = ranged(sptrsv.sptrsv_level_range_cuda, torch.zeros_like(b_r), chunks=cut)
             full = sptrsv.sptrsv_level_cuda(*la[:7], b_pad, chunks=la.chunks)
             require(bitwise_equal(x if m is None else x.T, full),
                     f"{name} {kname}: range launches != one full launch")
@@ -3142,9 +3148,10 @@ def main() -> int:
                    **bound(work["bytes"] + 2 * el.n * cols * esize,
                            2 * (work["entries"] + work["finishes"]) * cols),
                    "entries": work["entries"], "slack": ep.slack,
-                   # one block barrier per chunk of a level (per column block
-                   # for m RHS), the plan's operands staged ahead of it
-                   "levels": order.n_levels, "barriers": la.chunks.stats()["chunks"],
+                   # one block barrier per level (per column block for m
+                   # RHS), the plan's operands staged ahead of it a chunk at
+                   # a time
+                   "levels": order.n_levels, "barriers": order.n_levels,
                    "staging": la.chunks.stats(),
                    "level_width_max": stats["level_width_max"],
                    "levels_per_run": stats["levels_per_run"], "level_order_s": level_s,

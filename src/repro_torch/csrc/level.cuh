@@ -1,24 +1,26 @@
 // The level walk: scheduled sparse triangular solve over a plan in level
-// order (src/repro_torch/kernels/levels.py), shared by csrc/sptrsv.cu (the
-// bulk order, a run per superstep) and csrc/sptrsv_elastic.cu (runs of
-// `slack` supersteps, mode="elastic"). Each launches one block for one
-// right-hand side and a block per column for m; csrc/sptrsv.cu also
-// launches a block per column over a bank of plans, each column on its
-// own plan (sptrsv_level_bank_kernel).
+// order (src/repro_torch/kernels/levels.py), launched by csrc/sptrsv.cu over
+// the bulk order (a run per superstep) or the elastic one (runs of `slack`
+// supersteps, mode="elastic"): one block for one right-hand side, a block
+// per column for m, and a block per column over a bank of plans, each
+// column on its own plan (sptrsv_level_bank_kernel).
 //
 // A vertex is a lane's run of accum steps plus the step that finishes it
 // (its last); the host orders the plan's real lane-steps by (run, level,
 // lane, step) and cuts each level into chunks of at most 992 vertices, the
-// block's consumer threads (kernels/levels.py, level_chunks). The consumers
-// walk the chunks in order, a thread a vertex, walking its vertex's steps
+// block's consumer threads, then packs consecutive levels that are each one
+// such chunk into one chunk, as many as fit a stage (kernels/levels.py,
+// level_chunks). The consumers walk the chunks in order and the levels of a
+// chunk in turn, thread t vertex t of a level, walking its vertex's steps
 // with the accumulator in a register:
 //     acc = fma(vals[p,w], x[col_idx[p,w]], acc)   for w = 0..W-1, in order
 //     if !accum[p]:  x[row_ids[p]] = (b[row] - acc) / diag[p]
 // with one fused multiply-add per entry and a correctly rounded subtract and
 // divide (rn.cuh; never --use_fast_math), the scan executor's step body
 // (src/repro_torch/solver/executor.py::_step_single). One barrier of the
-// consumers ends each level and makes its x rows visible to the next;
-// inside a level the warps run from chunk to chunk without one. A vertex
+// consumers ends each level and makes its x rows visible to the next,
+// inside a chunk of packed levels as at a chunk's end; inside a level the
+// warps run from chunk to chunk without one. A vertex
 // reads only rows finished in an earlier run or at a lower level of its own
 // run, both complete behind an earlier barrier (the proof is in
 // levels.py). Every row gets the
@@ -35,15 +37,26 @@
 // the stage's previous chunk on its empty mbarrier. It takes no part in
 // the consumers' barriers, so its work is never on their path. Before it
 // moves on a consumer waits on the next chunk's stage, reads its vertex's
-// finishing row there and starts the gather of b[row] into a register, so
-// after a level's barrier its only memory wait is its x gathers; the
-// operands come from shared memory. Shared memory:
+// finishing row there and starts the gather of b[row] into a register (in
+// a chunk of packed levels, the next level's before the level's barrier),
+// so after a level's barrier its only memory wait is its x gathers; the
+// operands, the level bounds among them, come from shared memory. A deep
+// DAG's narrow levels (tens of vertices) pack many to a chunk, so the ring
+// holds many levels ahead, not n_stages: a stage load's round trip
+// (release, refill, land) is paid once a chunk, not once a level. A chunk
+// of one level (or a piece of one) takes the loop body it took before
+// packing; only a chunk of several levels loops over them, its level
+// bounds staged with it. On an H100, the walk alone on the paper's NB set
+// (f64, 1,176 levels in 155 chunks, not 1,251) ran 13% faster than one
+// level a chunk at most, a Poisson factor 3% faster, ER (wide levels)
+// within 1.5% (PERF.md). Shared memory:
 //
 //     [0, 256)        the stages' full and empty mbarriers (8 B each) and
 //                     heads (Head)
 //     256 + s * stage_bytes, s < n_stages: stage s, a chunk's slices of
 //                     vert_ptr[v0 .. v0 + nv], col_idx, vals, row_ids, diag,
-//                     accum in that order, each copied from its 16-byte
+//                     accum and, for more than one level, level_ptr[lv ..
+//                     lv + nl] in that order, each copied from its 16-byte
 //                     aligned start to its 16-byte aligned end
 //
 // The host sizes the stages from the plan (W, the element size, its widest
@@ -109,16 +122,21 @@ constexpr int kThreads = 1024;
 constexpr int kSmemBytes = 232448;  // dynamic shared memory a block may use
 constexpr int kHeadBytes = 256;     // the mbarriers and heads ahead of the stages
 constexpr int kMaxStages = 4;
-constexpr int kSlices = 6;  // vert_ptr, col_idx, vals, row_ids, diag, accum
+// vert_ptr, col_idx, vals, row_ids, diag, accum, level_ptr (the last only
+// for a chunk of more than one level)
+constexpr int kSlices = 7;
 
 // What the producer leaves in shared memory for the chunk in a stage.
 struct Head {
   int v0, nv;        // first vertex, vertices
-  int p0, np;        // first lane-step, lane-steps
+  int p0;            // first lane-step
+  int e0;            // the end of its first level, a vertex of the chunk (nv for one level)
   int off[kSlices];  // each slice's first element: its byte offset in the stage
-  int staged;        // 0: the chunk is read from global memory
-  int last;          // the chunk ends its level
+  int flags;         // kStaged | kLast | levels << kLevelShift
 };
+constexpr int kStaged = 1;  // else the chunk is read from global memory
+constexpr int kLast = 2;    // the chunk ends its last level
+constexpr int kLevelShift = 2;
 static_assert(kMaxStages * (2 * sizeof(uint64_t) + sizeof(Head)) <= kHeadBytes, "head region");
 
 // The level tensors of one plan.
@@ -132,29 +150,35 @@ struct Plan {
   const int32_t* __restrict__ vert_ptr;  // [V + 1]
 };
 
-// The bytes a stage needs for a chunk of nv vertices and np lane-steps:
-// each slice rounded out to 16-byte bounds wherever it starts
-// (kernels/levels.py, stage_need, is the same sum).
+// The bytes a stage needs for a chunk of nv vertices, np lane-steps and nl
+// levels: each slice rounded out to 16-byte bounds wherever it starts, the
+// level bounds only where nl > 1 (kernels/levels.py, stage_need, is the
+// same sum).
 __device__ __forceinline__ int64_t slice_need(int64_t bytes) {
-  return (bytes + 30) & ~int64_t{15};
+  return bytes == 0 ? 0 : (bytes + 30) & ~int64_t{15};
 }
 
+// The slices of chunk [v0, v0 + nv) x [p0, p0 + np) holding nl levels from
+// level lv on.
 template <typename T>
-__device__ __forceinline__ void slices(const Plan<T>& pl, int W, const Head& h,
+__device__ __forceinline__ void slices(const Plan<T>& pl, const int32_t* level_ptr, int W, int v0,
+                                       int nv, int p0, int np, int lv, int nl,
                                        const char* (&src)[kSlices], int64_t (&len)[kSlices]) {
-  const int64_t pw = static_cast<int64_t>(h.p0) * W, nw = static_cast<int64_t>(h.np) * W;
-  src[0] = reinterpret_cast<const char*>(pl.vert_ptr + h.v0);
+  const int64_t pw = static_cast<int64_t>(p0) * W, nw = static_cast<int64_t>(np) * W;
+  src[0] = reinterpret_cast<const char*>(pl.vert_ptr + v0);
   src[1] = reinterpret_cast<const char*>(pl.col_idx + pw);
   src[2] = reinterpret_cast<const char*>(pl.vals + pw);
-  src[3] = reinterpret_cast<const char*>(pl.row_ids + h.p0);
-  src[4] = reinterpret_cast<const char*>(pl.diag + h.p0);
-  src[5] = reinterpret_cast<const char*>(pl.accum + h.p0);
-  len[0] = 4 * (static_cast<int64_t>(h.nv) + 1);
+  src[3] = reinterpret_cast<const char*>(pl.row_ids + p0);
+  src[4] = reinterpret_cast<const char*>(pl.diag + p0);
+  src[5] = reinterpret_cast<const char*>(pl.accum + p0);
+  src[6] = reinterpret_cast<const char*>(level_ptr + lv);
+  len[0] = 4 * (static_cast<int64_t>(nv) + 1);
   len[1] = 4 * nw;
   len[2] = static_cast<int64_t>(sizeof(T)) * nw;
-  len[3] = 4 * static_cast<int64_t>(h.np);
-  len[4] = static_cast<int64_t>(sizeof(T)) * h.np;
-  len[5] = h.np;
+  len[3] = 4 * static_cast<int64_t>(np);
+  len[4] = static_cast<int64_t>(sizeof(T)) * np;
+  len[5] = np;
+  len[6] = nl > 1 ? 4 * (static_cast<int64_t>(nl) + 1) : 0;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -209,57 +233,64 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// The producer: chunk [lo, hi) (vertex, lane-step bounds) into a stage.
-// The head is a plain store, released to the consumers by the arrive.
+// The producer: chunk [lo, hi) (vertex, lane-step bounds), which holds nl
+// levels from level lv on, into a stage; `last`: it ends its last level.
+// The head is a plain store, released to the consumers by the arrive. A
+// chunk of several levels that does not fit its stage is a fault of the
+// chunk table (kernels/levels.py packs only levels that fit): it traps.
 template <typename T>
-__device__ __forceinline__ void issue(const Plan<T>& pl, int W, int2 lo, int2 hi, int last,
+__device__ __forceinline__ void issue(const Plan<T>& pl, const int32_t* level_ptr, int W,
+                                      int2 lo, int2 hi, int lv, int nl, int last,
                                       unsigned char* stage, int stage_bytes, Head* head,
                                       uint64_t* bar) {
   Head h;
   h.v0 = lo.x;
   h.nv = hi.x - lo.x;
   h.p0 = lo.y;
-  h.np = hi.y - lo.y;
-  h.last = last;
+  h.e0 = nl > 1 ? __ldg(level_ptr + lv + 1) - lo.x : h.nv;
   const char* src[kSlices];
   int64_t len[kSlices];
-  slices(pl, W, h, src, len);
+  slices(pl, level_ptr, W, h.v0, h.nv, h.p0, hi.y - lo.y, lv, nl, src, len);
   int64_t need = 0;
 #pragma unroll
   for (int k = 0; k < kSlices; ++k) need += slice_need(len[k]);
-  h.staged = need <= stage_bytes;
+  const bool staged = need <= stage_bytes;
+  if (!staged && nl > 1) __trap();
+  h.flags = (staged ? kStaged : 0) | (last ? kLast : 0) | (nl << kLevelShift);
   uint32_t at[kSlices], size[kSlices], total = 0;
 #pragma unroll
   for (int k = 0; k < kSlices; ++k) {
     const uintptr_t a = reinterpret_cast<uintptr_t>(src[k]);
     const uintptr_t a0 = a & ~uintptr_t{15};
-    size[k] = static_cast<uint32_t>(((a + len[k] + 15) & ~uintptr_t{15}) - a0);
+    size[k] = len[k] == 0 ? 0u : static_cast<uint32_t>(((a + len[k] + 15) & ~uintptr_t{15}) - a0);
     at[k] = total;
     h.off[k] = static_cast<int>(total + (a - a0));
     src[k] = reinterpret_cast<const char*>(a0);
     total += size[k];
   }
   *head = h;
-  if (h.staged) {
+  if (staged) {
     mbar_expect_tx(bar, total);
+    constexpr int kBounds = kSlices - 1;  // the level bounds, copied for nl > 1 only
 #pragma unroll
-    for (int k = 0; k < kSlices; ++k) bulk_copy(stage + at[k], src[k], size[k], bar);
+    for (int k = 0; k < kBounds; ++k) bulk_copy(stage + at[k], src[k], size[k], bar);
+    if (nl > 1) bulk_copy(stage + at[kBounds], src[kBounds], size[kBounds], bar);
   } else {
     mbar_arrive(bar);
   }
 }
 
-// The gather of b at the row of this thread's vertex's finishing step;
-// through the read-only path, or, where the launch itself wrote b
-// (kWrittenB: the ordered solve's scratch, behind a grid barrier), a plain
-// load, which L1 may cache as the read-only path does.
+// The gather of b at the row of the finishing step of the chunk's vertex
+// i, if i < end; through the read-only path, or, where the launch itself
+// wrote b (kWrittenB: the ordered solve's scratch, behind a grid barrier),
+// a plain load, which L1 may cache as the read-only path does.
 template <typename T, bool kWrittenB>
 __device__ __forceinline__ T preload(const Plan<T>& pl, const Head& h,
-                                     const unsigned char* stage, const T* b, int64_t stride) {
-  const int i = threadIdx.x;
-  if (i >= h.nv) return T(0);
+                                     const unsigned char* stage, int i, int end, const T* b,
+                                     int64_t stride) {
+  if (i >= end) return T(0);
   int row;
-  if (h.staged) {
+  if (h.flags & kStaged) {
     const int* vp = reinterpret_cast<const int*>(stage + h.off[0]);
     row = reinterpret_cast<const int*>(stage + h.off[3])[vp[i + 1] - 1 - h.p0];
   } else {
@@ -293,18 +324,35 @@ __device__ __forceinline__ void solve_vertex(const int* __restrict__ vp,
   }
 }
 
+// Vertex i of the chunk in a stage, its operands read there.
+template <typename T>
+__device__ __forceinline__ void staged_vertex(const Head& h, const unsigned char* st, int i, int W,
+                                              T bv, T* x, int64_t stride) {
+  solve_vertex(reinterpret_cast<const int*>(st + h.off[0]),
+               reinterpret_cast<const int32_t*>(st + h.off[1]),
+               reinterpret_cast<const T*>(st + h.off[2]),
+               reinterpret_cast<const int32_t*>(st + h.off[3]),
+               reinterpret_cast<const T*>(st + h.off[4]),
+               reinterpret_cast<const uint8_t*>(st + h.off[5]), i, h.p0, W, bv, x, stride);
+}
+
 // The producer warp's one thread: issues every chunk of [c0, c1) in turn,
 // chunk q into stage (q - c0) % n_stages once the consumer warps have
-// released that stage's previous chunk (its empty mbarrier), and marks the
-// chunk that ends each level (level_chunk).
+// released that stage's previous chunk (its empty mbarrier), with the
+// levels it holds and whether it ends the last of them. level_chunk[l] is
+// the chunk of level l's first vertex, so chunk q holds levels [lv, le):
+// lv, which its first vertex is of, and those that begin in it; it ends
+// level le - 1 where level le begins chunk q + 1 (level_chunk[n_levels] =
+// c1).
 template <typename T>
-__device__ __forceinline__ void produce(const Plan<T>& pl, const int2* __restrict__ chunk_ptr,
+__device__ __forceinline__ void produce(const Plan<T>& pl, const int32_t* __restrict__ level_ptr,
+                                        const int2* __restrict__ chunk_ptr,
                                         const int32_t* __restrict__ level_chunk, int n_levels,
                                         int c0, int c1, int W, int stage_bytes, int n_stages,
                                         unsigned char* stages, Head* head, uint64_t* full,
                                         uint64_t* empty) {
   int2 lo = __ldg(chunk_ptr + c0), hi = __ldg(chunk_ptr + c0 + 1);
-  int lv = 0, lv_end = __ldg(level_chunk + 1);  // the level of chunk q, and its end
+  int lv = 0, next = __ldg(level_chunk + 1);  // the level of chunk q; level_chunk[lv + 1]
   int s = 0;
   uint32_t use = 0;  // the stage's use: the chunk's index among those of stage s
   for (int q = c0; q < c1; ++q) {
@@ -313,9 +361,15 @@ __device__ __forceinline__ void produce(const Plan<T>& pl, const int2* __restric
       // the consumers' generic reads of the stage come before these writes
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     }
-    const int last = q + 1 == lv_end;
-    issue(pl, W, lo, hi, last, stages + s * stage_bytes, stage_bytes, head + s, full + s);
-    if (last && ++lv < n_levels) lv_end = __ldg(level_chunk + lv + 1);
+    int le = lv + 1;
+    while (next == q) next = __ldg(level_chunk + ++le);
+    const int last = next == q + 1;
+    issue(pl, level_ptr, W, lo, hi, lv, le - lv, last, stages + s * stage_bytes, stage_bytes,
+          head + s, full + s);
+    if (last) {
+      lv = le;
+      if (lv < n_levels) next = __ldg(level_chunk + lv + 1);
+    }
     lo = hi;
     if (q + 2 <= c1) hi = __ldg(chunk_ptr + q + 2);
     if (++s == n_stages) {
@@ -325,16 +379,17 @@ __device__ __forceinline__ void produce(const Plan<T>& pl, const int2* __restric
   }
 }
 
-// The level walk of one right-hand side over chunks
-// [level_chunk[0], level_chunk[n_levels]) of chunk_ptr (int2: first vertex,
-// first lane-step; the next entry bounds a chunk): b and x hold its entries
-// at b[r * stride] and x[r * stride] for row r. The block's last warp
-// produces (one thread of it); the others consume, a vertex a thread, and
-// end each level in a barrier of their own (named barrier 1), so the
-// producer's work is never on their path. kWrittenB: b was written in this
-// launch (preload).
+// The level walk of one right-hand side over levels [0, n_levels) of
+// level_ptr, chunks [level_chunk[0], level_chunk[n_levels]) of chunk_ptr
+// (int2: first vertex, first lane-step; the next entry bounds a chunk): b
+// and x hold its entries at b[r * stride] and x[r * stride] for row r. The
+// block's last warp produces (one thread of it); the others consume, a
+// vertex a thread, and end each level in a barrier of their own (named
+// barrier 1), so the producer's work is never on their path. kWrittenB: b
+// was written in this launch (preload).
 template <typename T, bool kWrittenB = false>
-__device__ __forceinline__ void walk(const Plan<T>& pl, const int2* __restrict__ chunk_ptr,
+__device__ __forceinline__ void walk(const Plan<T>& pl, const int32_t* __restrict__ level_ptr,
+                                     const int2* __restrict__ chunk_ptr,
                                      const int32_t* __restrict__ level_chunk, int n_levels,
                                      int W, int stage_bytes, int n_stages, const T* b, T* x,
                                      int64_t stride) {
@@ -357,30 +412,40 @@ __device__ __forceinline__ void walk(const Plan<T>& pl, const int2* __restrict__
   __syncthreads();
   if (tid >= consumers) {
     if (tid == consumers)
-      produce(pl, chunk_ptr, level_chunk, n_levels, c0, c1, W, stage_bytes, n_stages, stages,
-              head, full, empty);
+      produce(pl, level_ptr, chunk_ptr, level_chunk, n_levels, c0, c1, W, stage_bytes, n_stages,
+              stages, head, full, empty);
     return;
   }
   int s = 0;
   uint32_t parity = 0;
   mbar_wait(full, 0);
-  T bv = preload<T, kWrittenB>(pl, head[0], stages, b, stride);
+  T bv = preload<T, kWrittenB>(pl, head[0], stages, tid, head[0].e0, b, stride);
   for (int c = c0; c < c1; ++c) {
     const Head h = head[s];
-    if (tid < h.nv) {
-      if (h.staged) {
-        const unsigned char* st = stages + s * stage_bytes;
-        solve_vertex(reinterpret_cast<const int*>(st + h.off[0]),
-                     reinterpret_cast<const int32_t*>(st + h.off[1]),
-                     reinterpret_cast<const T*>(st + h.off[2]),
-                     reinterpret_cast<const int32_t*>(st + h.off[3]),
-                     reinterpret_cast<const T*>(st + h.off[4]),
-                     reinterpret_cast<const uint8_t*>(st + h.off[5]), tid, h.p0, W, bv, x,
-                     stride);
-      } else {
-        const int64_t pw = static_cast<int64_t>(h.p0) * W;
-        solve_vertex(pl.vert_ptr + h.v0, pl.col_idx + pw, pl.vals + pw, pl.row_ids + h.p0,
-                     pl.diag + h.p0, pl.accum + h.p0, tid, h.p0, W, bv, x, stride);
+    const unsigned char* st = stages + s * stage_bytes;
+    const int nl = h.flags >> kLevelShift;
+    if (nl == 1) {  // one level, or a piece of one: a vertex a thread
+      if (tid < h.nv) {
+        if (h.flags & kStaged) {
+          staged_vertex(h, st, tid, W, bv, x, stride);
+        } else {
+          const int64_t pw = static_cast<int64_t>(h.p0) * W;
+          solve_vertex(pl.vert_ptr + h.v0, pl.col_idx + pw, pl.vals + pw, pl.row_ids + h.p0,
+                       pl.diag + h.p0, pl.accum + h.p0, tid, h.p0, W, bv, x, stride);
+        }
+      }
+    } else {  // whole levels, staged: level k is the chunk's vertices [a, e)
+      const int* lb = reinterpret_cast<const int*>(st + h.off[6]);  // level_ptr[lv ..]
+      for (int k = 1, a = 0, e = h.e0;; ++k) {
+        if (tid < e - a) staged_vertex(h, st, a + tid, W, bv, x, stride);
+        if (k == nl) break;
+        // the next level's b gather in flight across the barrier that
+        // makes this level's x rows visible to it
+        const int e1 = k + 1 == nl ? h.nv : lb[k + 1] - h.v0;
+        bv = preload<T, kWrittenB>(pl, h, st, e + tid, e1, b, stride);
+        asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+        a = e;
+        e = e1;
       }
     }
     // the warp is done with the stage: once every consumer warp is, the
@@ -391,11 +456,12 @@ __device__ __forceinline__ void walk(const Plan<T>& pl, const int2* __restrict__
     const uint32_t parity1 = s1 == 0 ? parity ^ 1u : parity;
     if (c + 1 < c1) {
       mbar_wait(full + s1, parity1);
-      bv = preload<T, kWrittenB>(pl, head[s1], stages + s1 * stage_bytes, b, stride);
+      bv = preload<T, kWrittenB>(pl, head[s1], stages + s1 * stage_bytes, tid, head[s1].e0, b,
+                                 stride);
     }
-    // a level's last chunk ends the level among the consumers: its x rows
+    // a chunk that ends a level ends it among the consumers: its x rows
     // are visible to the next; inside a level the warps run on
-    if (h.last) asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+    if (h.flags & kLast) asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
     s = s1;
     parity = parity1;
   }
@@ -404,11 +470,12 @@ __device__ __forceinline__ void walk(const Plan<T>& pl, const int2* __restrict__
 // One right-hand side, b and x f[n + 1]: one block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_kernel(
-    Plan<T> pl, const int2* __restrict__ chunk_ptr, const int32_t* __restrict__ level_chunk,
-    int n_levels, int W, int stage_bytes, int n_stages,
+    Plan<T> pl, const int32_t* __restrict__ level_ptr, const int2* __restrict__ chunk_ptr,
+    const int32_t* __restrict__ level_chunk, int n_levels, int W, int stage_bytes, int n_stages,
     const T* __restrict__ b,  // [n + 1]
     T* x) {                   // [n + 1], zeroed by the caller
-  walk(pl, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b, x, int64_t{1});
+  walk(pl, level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b, x,
+       int64_t{1});
 }
 
 // m right-hand sides, column-major f[m, rows = n + 1]: block c walks the
@@ -417,12 +484,13 @@ __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_kernel(
 // need no barrier between them.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_cols_kernel(
-    Plan<T> pl, const int2* __restrict__ chunk_ptr, const int32_t* __restrict__ level_chunk,
-    int n_levels, int W, int stage_bytes, int n_stages, int64_t rows,
+    Plan<T> pl, const int32_t* __restrict__ level_ptr, const int2* __restrict__ chunk_ptr,
+    const int32_t* __restrict__ level_chunk, int n_levels, int W, int stage_bytes, int n_stages,
+    int64_t rows,
     const T* __restrict__ b,  // [m, rows]
     T* x) {                   // the same layout, zeroed by the caller
   const int64_t c = static_cast<int64_t>(blockIdx.x) * rows;
-  walk(pl, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b + c, x + c,
+  walk(pl, level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b + c, x + c,
        int64_t{1});
 }
 
@@ -431,15 +499,17 @@ __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_cols_kernel(
 // sptrsv_level_cols_kernel: block c walks column c on ITS OWN lane
 // lane_idx[c]. The bank concatenates its lanes' level tensors and chunk
 // tables (kernels/ops.py, _concat_levels), each lane's vert_ptr shifted by
-// its lane-step offset, its chunk bounds by its vertex and lane-step
-// offsets and its level_chunk by its chunk offset, so lane l's levels are
-// level_chunk[level_off[l] .. level_off[l] + n_levels[l]] and the walk runs
+// its lane-step offset, its level_ptr by its vertex offset, its chunk
+// bounds by its vertex and lane-step offsets and its level_chunk by its
+// chunk offset, so lane l's levels are level_ptr and level_chunk[level_off[l]
+// .. level_off[l] + n_levels[l]] and the walk runs
 // unchanged: a column's bits are those of sptrsv_level_cols_kernel on its
 // lane's plan alone. Lanes share n, T, k, W and the stage layout, not their
 // level counts, so nothing is padded.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_bank_kernel(
-    Plan<T> pl, const int2* __restrict__ chunk_ptr, const int32_t* __restrict__ level_chunk,
+    Plan<T> pl, const int32_t* __restrict__ level_ptr, const int2* __restrict__ chunk_ptr,
+    const int32_t* __restrict__ level_chunk,
     const int32_t* __restrict__ level_off,  // [lanes]
     const int32_t* __restrict__ n_levels,   // [lanes]
     const int32_t* __restrict__ lane_idx,   // [m]
@@ -448,8 +518,9 @@ __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_bank_kernel(
     T* x) {                   // the same layout, zeroed by the caller
   const int lane = __ldg(lane_idx + blockIdx.x);
   const int64_t c = static_cast<int64_t>(blockIdx.x) * rows;
-  walk(pl, chunk_ptr, level_chunk + __ldg(level_off + lane), __ldg(n_levels + lane), W,
-       stage_bytes, n_stages, b + c, x + c, int64_t{1});
+  const int l0 = __ldg(level_off + lane);
+  walk(pl, level_ptr + l0, chunk_ptr, level_chunk + l0, __ldg(n_levels + lane), W, stage_bytes,
+       n_stages, b + c, x + c, int64_t{1});
 }
 
 // The ordered solve's moves of b and x between the caller's row-major
@@ -535,9 +606,10 @@ __device__ __forceinline__ void move_rows(const T* from, T* to, const int32_t* _
 // walk ran 5-8% slower.
 template <typename T, bool kCols>
 __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_ordered_kernel(
-    Plan<T> pl, const int2* __restrict__ chunk_ptr, const int32_t* __restrict__ level_chunk,
-    int n_levels, int W, int stage_bytes, int n_stages, int m, int64_t n,
-    const int32_t* __restrict__ perm, const T* __restrict__ b, T* out, T* b_col, T* x_col) {
+    Plan<T> pl, const int32_t* __restrict__ level_ptr, const int2* __restrict__ chunk_ptr,
+    const int32_t* __restrict__ level_chunk, int n_levels, int W, int stage_bytes, int n_stages,
+    int m, int64_t n, const int32_t* __restrict__ perm, const T* __restrict__ b, T* out,
+    T* b_col, T* x_col) {
   extern __shared__ __align__(128) unsigned char smem[];
   // the tiles lie past the walk's mbarriers, in its stages' room
   T* tile = reinterpret_cast<T*>(smem + kHeadBytes);
@@ -549,20 +621,20 @@ __global__ void __launch_bounds__(kThreads, 1) sptrsv_level_ordered_kernel(
   if constexpr (kCols) {
     if (static_cast<int>(blockIdx.x) < m) {
       const int64_t c = static_cast<int64_t>(blockIdx.x) * rows;
-      walk<T, true>(pl, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b_col + c,
-                    x_col + c, int64_t{1});
+      walk<T, true>(pl, level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages,
+                    b_col + c, x_col + c, int64_t{1});
     }
   } else {
     if (blockIdx.x == 0)
-      walk<T, true>(pl, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b_col, x_col,
-                    int64_t{1});
+      walk<T, true>(pl, level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages,
+                    b_col, x_col, int64_t{1});
   }
   cooperative_groups::this_grid().sync();
   move_rows<T, kCols, false>(x_col, out, perm, n, m, tile);
 }
 
 // The host side, with internal linkage: each library that includes this
-// header (csrc/sptrsv.cu, csrc/sptrsv_elastic.cu) keeps its own flags of
+// header (csrc/sptrsv.cu, and the sweeps' sources) keeps its own flags of
 // allow_smem. A static local of an inline function with external linkage
 // is one object across every library loaded in the process, so one
 // library's flag would stand for another's kernels, which it never set.
@@ -601,7 +673,7 @@ cudaError_t allow_smem(K kernel, std::atomic<uint64_t>& done) {
 
 template <typename T>
 int launch(const void* row_ids, const void* col_idx, const void* vals, const void* diag,
-           const void* accum, const void* vert_ptr, const void* chunk_ptr,
+           const void* accum, const void* vert_ptr, const void* level_ptr, const void* chunk_ptr,
            const void* level_chunk, int n_levels, int W, int stage_bytes, int n_stages,
            const void* b, void* x, void* stream) {
   static std::atomic<uint64_t> done{0};
@@ -610,7 +682,8 @@ int launch(const void* row_ids, const void* col_idx, const void* vals, const voi
   if (cudaError_t err = allow_smem(sptrsv_level_kernel<T>, done)) return static_cast<int>(err);
   sptrsv_level_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       plan_of<T>(row_ids, col_idx, vals, diag, accum, vert_ptr),
-      static_cast<const int2*>(chunk_ptr), static_cast<const int32_t*>(level_chunk), n_levels,
+      static_cast<const int32_t*>(level_ptr), static_cast<const int2*>(chunk_ptr),
+      static_cast<const int32_t*>(level_chunk), n_levels,
       W, stage_bytes, n_stages, static_cast<const T*>(b), static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
 }
@@ -618,7 +691,8 @@ int launch(const void* row_ids, const void* col_idx, const void* vals, const voi
 template <typename T>
 int launch_cols(const void* row_ids, const void* col_idx, const void* vals,
                 const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                const void* level_ptr, const void* chunk_ptr, const void* level_chunk,
+                int n_levels, int W,
                 int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x,
                 void* stream) {
   static std::atomic<uint64_t> done{0};
@@ -628,7 +702,8 @@ int launch_cols(const void* row_ids, const void* col_idx, const void* vals,
     return static_cast<int>(err);
   sptrsv_level_cols_kernel<T><<<m, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       plan_of<T>(row_ids, col_idx, vals, diag, accum, vert_ptr),
-      static_cast<const int2*>(chunk_ptr), static_cast<const int32_t*>(level_chunk), n_levels,
+      static_cast<const int32_t*>(level_ptr), static_cast<const int2*>(chunk_ptr),
+      static_cast<const int32_t*>(level_chunk), n_levels,
       W, stage_bytes, n_stages, rows, static_cast<const T*>(b), static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
 }
@@ -636,7 +711,8 @@ int launch_cols(const void* row_ids, const void* col_idx, const void* vals,
 template <typename T>
 int launch_bank(const void* row_ids, const void* col_idx, const void* vals,
                 const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, const void* level_off,
+                const void* level_ptr, const void* chunk_ptr, const void* level_chunk,
+                const void* level_off,
                 const void* n_levels, const void* lane_idx, int W, int stage_bytes,
                 int n_stages, int m, int64_t rows, const void* b, void* x, void* stream) {
   static std::atomic<uint64_t> done{0};
@@ -646,7 +722,8 @@ int launch_bank(const void* row_ids, const void* col_idx, const void* vals,
     return static_cast<int>(err);
   sptrsv_level_bank_kernel<T><<<m, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       plan_of<T>(row_ids, col_idx, vals, diag, accum, vert_ptr),
-      static_cast<const int2*>(chunk_ptr), static_cast<const int32_t*>(level_chunk),
+      static_cast<const int32_t*>(level_ptr), static_cast<const int2*>(chunk_ptr),
+      static_cast<const int32_t*>(level_chunk),
       static_cast<const int32_t*>(level_off), static_cast<const int32_t*>(n_levels),
       static_cast<const int32_t*>(lane_idx), W, stage_bytes, n_stages, rows,
       static_cast<const T*>(b), static_cast<T*>(x));
@@ -693,15 +770,16 @@ int ordered_blocks(int stage_bytes, int n_stages, int* blocks) {
 }
 
 template <typename T, bool kCols>
-int launch_ordered_as(Plan<T> pl, const int2* cp, const int32_t* lc, int n_levels, int W,
-                      int stage_bytes, int n_stages, int m, int grid, int64_t n,
-                      const int32_t* pp, const T* bp, T* op, T* sp, cudaStream_t stream) {
+int launch_ordered_as(Plan<T> pl, const int32_t* lp, const int2* cp, const int32_t* lc,
+                      int n_levels, int W, int stage_bytes, int n_stages, int m, int grid,
+                      int64_t n, const int32_t* pp, const T* bp, T* op, T* sp,
+                      cudaStream_t stream) {
   const int smem = ordered_smem<T, kCols>(stage_bytes, n_stages);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (cudaError_t err = allow_smem(sptrsv_level_ordered_kernel<T, kCols>, ordered_done<T, kCols>()))
     return static_cast<int>(err);
   T* xp = sp + static_cast<int64_t>(m) * (n + 1);
-  void* args[] = {&pl, &cp, &lc, &n_levels, &W, &stage_bytes, &n_stages, &m, &n,
+  void* args[] = {&pl, &lp, &cp, &lc, &n_levels, &W, &stage_bytes, &n_stages, &m, &n,
                   &pp, &bp, &op, &sp, &xp};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(sptrsv_level_ordered_kernel<T, kCols>), dim3(grid),
@@ -713,23 +791,24 @@ int launch_ordered_as(Plan<T> pl, const int2* cp, const int32_t* lc, int n_level
 // 2 * m * (n + 1) elements. One column takes its own instantiation.
 template <typename T>
 int launch_ordered(const void* row_ids, const void* col_idx, const void* vals, const void* diag,
-                   const void* accum, const void* vert_ptr, const void* chunk_ptr,
-                   const void* level_chunk, int n_levels, int W, int stage_bytes, int n_stages,
-                   int m, int grid, int64_t n, const void* perm, const void* b, void* out,
-                   void* scratch, void* stream) {
+                   const void* accum, const void* vert_ptr, const void* level_ptr,
+                   const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+                   int stage_bytes, int n_stages, int m, int grid, int64_t n, const void* perm,
+                   const void* b, void* out, void* scratch, void* stream) {
   if (m < 1 || n < 1 || grid < m) return static_cast<int>(cudaErrorInvalidValue);
   const Plan<T> pl = plan_of<T>(row_ids, col_idx, vals, diag, accum, vert_ptr);
+  const auto* lp = static_cast<const int32_t*>(level_ptr);
   const auto* cp = static_cast<const int2*>(chunk_ptr);
   const auto* lc = static_cast<const int32_t*>(level_chunk);
   const auto* pp = static_cast<const int32_t*>(perm);
   const auto* bp = static_cast<const T*>(b);
   auto* st = static_cast<cudaStream_t>(stream);
   if (m == 1)
-    return launch_ordered_as<T, false>(pl, cp, lc, n_levels, W, stage_bytes, n_stages, m, grid,
-                                       n, pp, bp, static_cast<T*>(out),
+    return launch_ordered_as<T, false>(pl, lp, cp, lc, n_levels, W, stage_bytes, n_stages, m,
+                                       grid, n, pp, bp, static_cast<T*>(out),
                                        static_cast<T*>(scratch), st);
-  return launch_ordered_as<T, true>(pl, cp, lc, n_levels, W, stage_bytes, n_stages, m, grid, n,
-                                    pp, bp, static_cast<T*>(out), static_cast<T*>(scratch), st);
+  return launch_ordered_as<T, true>(pl, lp, cp, lc, n_levels, W, stage_bytes, n_stages, m, grid,
+                                    n, pp, bp, static_cast<T*>(out), static_cast<T*>(scratch), st);
 }
 
 }  // namespace

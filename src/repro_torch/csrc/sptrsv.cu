@@ -30,7 +30,8 @@
 // per level, chunks of at most 992 vertices between them: 80 levels on the
 // paper's ER set at n = 100,000 and 2,020 on its NB set, against T = 13,561
 // and 16,635 plan steps. Each chunk's plan operands are staged in shared
-// memory ahead of it (level.cuh), so a level waits only on its x gathers.
+// memory ahead of it (level.cuh), so a level waits only on its x gathers;
+// narrow levels pack many to a chunk, so the stages hold many levels ahead.
 //
 // mode="elastic" launches the same entries over another level order: the
 // supersteps grouped into runs of `slack`, one level numbering spanning a
@@ -96,39 +97,37 @@
 extern "C" {
 
 int sptrsv_single_f32(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
-                int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
-  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                            level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+    int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
+  return level::launch<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
 }
 
 int sptrsv_single_f64(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
-                int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
-  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                            level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+    int stage_bytes, int n_stages, const void* b, void* x, void* stream) {
+  return level::launch<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, b, x, stream);
 }
 
 int sptrsv_mrhs_f32(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
-                int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x,
-                void* stream) {
-  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                                 level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b,
-                                 x, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+    int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_cols<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b, x,
+      stream);
 }
 
 int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
-                int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x,
-                void* stream) {
-  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                                 level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b,
-                                 x, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+    int stage_bytes, int n_stages, int m, int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_cols<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, m, rows, b, x,
+      stream);
 }
 
 // The ordered solve (level.cuh, sptrsv_level_ordered_kernel): b and x in the
@@ -137,13 +136,13 @@ int sptrsv_mrhs_f64(const void* row_ids, const void* col_idx, const void* vals,
 // uninitialised; one cooperative launch of `grid` blocks, m <= grid <= what
 // sptrsv_ordered_blocks_* reports. The front door's solve.
 int sptrsv_ordered_f32(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
-                int stage_bytes, int n_stages, int m, int grid, int64_t n, const void* perm,
-                const void* b, void* out, void* scratch, void* stream) {
-  return level::launch_ordered<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                                    level_chunk, n_levels, W, stage_bytes, n_stages, m, grid, n,
-                                    perm, b, out, scratch, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+    int stage_bytes, int n_stages, int m, int grid, int64_t n, const void* perm, const void* b,
+    void* out, void* scratch, void* stream) {
+  return level::launch_ordered<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, m, grid, n, perm,
+      b, out, scratch, stream);
 }
 
 int sptrsv_ordered_blocks_f32(int stage_bytes, int n_stages, int* blocks) {
@@ -151,13 +150,13 @@ int sptrsv_ordered_blocks_f32(int stage_bytes, int n_stages, int* blocks) {
 }
 
 int sptrsv_ordered_f64(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
-                int stage_bytes, int n_stages, int m, int grid, int64_t n, const void* perm,
-                const void* b, void* out, void* scratch, void* stream) {
-  return level::launch_ordered<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                                    level_chunk, n_levels, W, stage_bytes, n_stages, m, grid, n,
-                                    perm, b, out, scratch, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, int n_levels, int W,
+    int stage_bytes, int n_stages, int m, int grid, int64_t n, const void* perm, const void* b,
+    void* out, void* scratch, void* stream) {
+  return level::launch_ordered<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, n_levels, W, stage_bytes, n_stages, m, grid, n, perm,
+      b, out, scratch, stream);
 }
 
 int sptrsv_ordered_blocks_f64(int stage_bytes, int n_stages, int* blocks) {
@@ -169,23 +168,23 @@ int sptrsv_ordered_blocks_f64(int stage_bytes, int n_stages, int* blocks) {
 // sptrsv_level_bank_kernel). The serve layer's grouped, banked and
 // resident-slot solves.
 int sptrsv_bank_f32(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, const void* level_off,
-                const void* n_levels, const void* lane_idx, int W, int stage_bytes,
-                int n_stages, int m, int64_t rows, const void* b, void* x, void* stream) {
-  return level::launch_bank<float>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                                 level_chunk, level_off, n_levels, lane_idx, W, stage_bytes,
-                                 n_stages, m, rows, b, x, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, const void* level_off,
+    const void* n_levels, const void* lane_idx, int W, int stage_bytes, int n_stages, int m,
+    int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_bank<float>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, level_off, n_levels, lane_idx, W, stage_bytes,
+      n_stages, m, rows, b, x, stream);
 }
 
 int sptrsv_bank_f64(const void* row_ids, const void* col_idx, const void* vals,
-                const void* diag, const void* accum, const void* vert_ptr,
-                const void* chunk_ptr, const void* level_chunk, const void* level_off,
-                const void* n_levels, const void* lane_idx, int W, int stage_bytes,
-                int n_stages, int m, int64_t rows, const void* b, void* x, void* stream) {
-  return level::launch_bank<double>(row_ids, col_idx, vals, diag, accum, vert_ptr, chunk_ptr,
-                                 level_chunk, level_off, n_levels, lane_idx, W, stage_bytes,
-                                 n_stages, m, rows, b, x, stream);
+    const void* diag, const void* accum, const void* vert_ptr, const void* level_ptr,
+    const void* chunk_ptr, const void* level_chunk, const void* level_off,
+    const void* n_levels, const void* lane_idx, int W, int stage_bytes, int n_stages, int m,
+    int64_t rows, const void* b, void* x, void* stream) {
+  return level::launch_bank<double>(row_ids, col_idx, vals, diag, accum, vert_ptr,
+      level_ptr, chunk_ptr, level_chunk, level_off, n_levels, lane_idx, W, stage_bytes,
+      n_stages, m, rows, b, x, stream);
 }
 
 }  // extern "C"

@@ -56,14 +56,16 @@ import torch
 
 from repro_torch.kernels import build, sptrsv
 from repro_torch.kernels.level_sweep import bits_equal, median_ms, nvcc_job
+from repro_torch.kernels.levels import level_chunks
+from repro_torch.kernels.sptrsv import device_chunks
 from repro_torch.solver.executor import pad_rhs
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# the unordered entries of both builds: the level tensors but level_ptr,
+# the unordered entries: the level tensors (the parent's: but level_ptr),
 # the chunk table, level count, W, stage layout (and m, rows), b, x, stream
-_SINGLE = [_P] * 8 + [_I] * 4 + [_P] * 3
-_COLS = [_P] * 8 + [_I] * 5 + [_I64] + [_P] * 3
+_SINGLE = [_P] * 9 + [_I] * 4 + [_P] * 3
+_COLS = [_P] * 9 + [_I] * 5 + [_I64] + [_P] * 3
 
 
 def _cells():
@@ -83,15 +85,24 @@ def _cells():
 
 class _Unordered:
     """One build's unordered entry of a solver's walk, ``prefix`` naming
-    it in ``lib``: ``call(b_pad, x)``."""
+    it in ``lib``: ``call(b_pad, x)``. The parent's walk takes no level_ptr
+    and one level a chunk at most: its chunk table is cut at every level,
+    which packs none."""
 
-    def __init__(self, lib, prefix, solver, m):
+    def __init__(self, lib, prefix, solver, m, parent=False):
         kind = "single" if m is None else "mrhs"
         la = solver.bound._la
         self.fn = getattr(lib, f"{prefix}_{kind}_{_SUFFIX[la.vals.dtype]}")
-        self.fn.argtypes, self.fn.restype = (_SINGLE if m is None else _COLS), _I
-        ch = la.chunks
-        self.args = (*[t.data_ptr() for t in la[:6]], ch.chunk_ptr.data_ptr(),
+        types = _SINGLE if m is None else _COLS
+        ch, tensors = la.chunks, la[:7]
+        if parent:
+            types, tensors = types[1:], la[:6]
+            L = la.level_ptr.numel() - 1
+            self.chunks = ch = device_chunks(level_chunks(
+                la.vert_ptr.cpu().numpy(), la.level_ptr.cpu().numpy(), la.col_idx.shape[1],
+                la.vals.element_size(), cuts=np.arange(L + 1)), la.vals.device)
+        self.fn.argtypes, self.fn.restype = types, _I
+        self.args = (*[t.data_ptr() for t in tensors], ch.chunk_ptr.data_ptr(),
                      ch.level_chunk.data_ptr(), la.level_ptr.numel() - 1, la.col_idx.shape[1],
                      ch.stage_bytes, ch.n_stages)
         self.m, self.rows = m, la.n + 1
@@ -179,7 +190,8 @@ def main(argv=None) -> int:
             b_plan = pad_rhs(b[solver._perm])
             b_in = b_plan if m is None else b_plan.T.contiguous()
             x_par, x_new = torch.zeros_like(b_in), torch.zeros_like(b_in)
-            unordered = {"kernel_parent": (_Unordered(parent[par], par, solver, m), x_par),
+            unordered = {"kernel_parent": (_Unordered(parent[par], par, solver, m, parent=True),
+                                           x_par),
                          "kernel_unordered": (_Unordered(lib_new, "sptrsv", solver, m), x_new)}
             cols = 1 if m is None else m
             out_o = torch.empty_like(b)

@@ -86,9 +86,9 @@ PICK_MARGIN = 0.05  # a C > 1 ships only where it beats C = 1 by more than this
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _LEVEL = [_P] * 7 + [_I, _I]  # the level tensors, level count, W
-# the staged walk's (csrc/level.cuh): the level tensors but level_ptr, the
-# chunk table, level count, W, stage bytes and stages
-_STAGED = [_P] * 8 + [_I] * 4
+# the staged walk's (csrc/level.cuh): the level tensors, the chunk table,
+# level count, W, stage bytes and stages
+_STAGED = [_P] * 9 + [_I] * 4
 # the columns a group at which the sweep runs the walk, per type: a row of
 # C entries is 4 to 32 bytes (C = 1 is the column grid that ships)
 GROUP_COLS = {torch.float32: (1, 2, 4, 8), torch.float64: (1, 2, 4)}
@@ -216,7 +216,7 @@ class _Lib:
         L, W = la.level_ptr.numel() - 1, la.col_idx.shape[1]
         if self.staged:
             ch = la.chunks
-            return _STAGED, (*[t.data_ptr() for t in la[:6]], ch.chunk_ptr.data_ptr(),
+            return _STAGED, (*[t.data_ptr() for t in la[:7]], ch.chunk_ptr.data_ptr(),
                              ch.level_chunk.data_ptr(), L, W, ch.stage_bytes, ch.n_stages)
         return _LEVEL, (*[t.data_ptr() for t in la[:7]], L, W)
 

@@ -170,37 +170,52 @@ CHUNK_VERTICES = 992
 
 class LevelChunks(NamedTuple):
     """The level walk's chunk table and stage layout (``level_chunks``).
-    A chunk is a run of at most ``CHUNK_VERTICES`` vertices inside one
-    level; the kernel stages each chunk's slices of the level tensors in
-    shared memory ahead of the barrier before it (csrc/level.cuh)."""
+    A chunk is one stage load: a run of at most ``CHUNK_VERTICES`` vertices
+    inside one level, or several consecutive whole levels of at most
+    ``CHUNK_VERTICES`` vertices each. The kernel stages each chunk's slices
+    of the level tensors, its level bounds included, in shared memory ahead
+    of the barrier before it (csrc/level.cuh)."""
 
     chunk_ptr: Any  # int32[C+1, 2]: (first vertex, first lane-step) of each chunk, then the ends
-    level_chunk: Any  # int32[L+1]: level i covers chunks [level_chunk[i], level_chunk[i+1])
+    # int32[L+1]: the chunk that holds level i's first vertex, then C; level
+    # i covers chunks [level_chunk[i], level_chunk[i+1]], the last of them
+    # only where it is shared with level i+1
+    level_chunk: Any
     n_stages: int  # stages in the ring, 2 to MAX_STAGES
     stage_bytes: int  # bytes a stage holds, a multiple of 16
     # bool[C] (host): the chunk fits a stage; else it is one vertex, read in place
     staged: np.ndarray
+    # bool[L+1] (host): level i begins a chunk, so a level range may start
+    # or end there (L: True)
+    cuttable: np.ndarray
 
     def stats(self) -> dict:
-        """The staging counter of ``describe()``: how often the stages engage."""
+        """The staging counter of ``describe()``: how often the stages
+        engage, and ``packed_levels``, the levels that share their chunk
+        with another level."""
+        alone = self.cuttable[:-1] & self.cuttable[1:]
         return {"stages": self.n_stages, "stage_bytes": self.stage_bytes,
                 "chunks": int(self.staged.size),
                 "chunks_staged": int(np.count_nonzero(self.staged)),
-                "levels": len(self.level_chunk) - 1}
+                "levels": len(self.level_chunk) - 1,
+                "packed_levels": int(alone.size - np.count_nonzero(alone))}
 
 
-def stage_need(nv, np_, W: int, itemsize: int):
-    """Bytes a stage needs for a chunk of ``nv`` vertices and ``np_``
-    lane-steps (scalars or int64 arrays): its slices of vert_ptr (nv + 1),
-    col_idx and vals (np_ * W), row_ids, diag and accum (np_), each rounded
-    out to 16-byte bounds wherever it starts, as ``cp.async.bulk`` copies
-    it. The kernel decides whether a chunk is staged by the same sum."""
-    nv, np_ = np.asarray(nv, np.int64), np.asarray(np_, np.int64)
+def stage_need(nv, np_, W: int, itemsize: int, nl=1):
+    """Bytes a stage needs for a chunk of ``nv`` vertices, ``np_``
+    lane-steps and ``nl`` levels (scalars or int64 arrays): its slices of
+    vert_ptr (nv + 1), col_idx and vals (np_ * W), row_ids, diag and accum
+    (np_), and, where it holds more than one level, of level_ptr (nl + 1),
+    each rounded out to 16-byte bounds wherever it starts, as
+    ``cp.async.bulk`` copies it. The kernel decides whether a chunk is
+    staged by the same sum."""
+    nv, np_, nl = (np.asarray(a, np.int64) for a in (nv, np_, nl))
     lens = (4 * (nv + 1), 4 * np_ * W, itemsize * np_ * W, 4 * np_, itemsize * np_, np_)
-    return sum((n + 30) // 16 * 16 for n in lens)
+    levels = np.where(nl > 1, (4 * (nl + 1) + 30) // 16 * 16, 0)
+    return sum((n + 30) // 16 * 16 for n in lens) + levels
 
 
-def level_chunks(vert_ptr, level_ptr, W: int, itemsize: int) -> LevelChunks:
+def level_chunks(vert_ptr, level_ptr, W: int, itemsize: int, cuts=()) -> LevelChunks:
     """The chunk table of a level order (host arrays) for elements of
     ``itemsize`` bytes and plan width ``W``, and its stage layout.
 
@@ -210,8 +225,13 @@ def level_chunks(vert_ptr, level_ptr, W: int, itemsize: int) -> LevelChunks:
     as the room holds, 2 to ``MAX_STAGES``. A chunk that does not fit a
     stage is cut again, as many vertices at a time as fit; a vertex that
     alone does not fit is a chunk of its own, not staged (the kernel reads
-    it in place). One pass over the levels; only chunks that do not fit are
-    cut in a loop."""
+    it in place). Then consecutive levels that are each one staged chunk
+    are packed into one chunk, greedily, as many as fit a stage with their
+    level bounds, so a stage load carries many narrow levels. No chunk
+    spans a level of ``cuts`` (level indices: the level ranges that are
+    launched on their own, ``kernels.sptrsv.sptrsv_level_range_cuda``),
+    which begins a chunk. One pass over the levels; only chunks that do
+    not fit are cut in a loop, and packing takes a step a chunk."""
     vp = np.asarray(vert_ptr, np.int64)
     lp = np.asarray(level_ptr, np.int64)
     widths = np.diff(lp)
@@ -229,22 +249,63 @@ def level_chunks(vert_ptr, level_ptr, W: int, itemsize: int) -> LevelChunks:
 
     starts = [first]
     for v, end in zip(first[need > stage_bytes], last[need > stage_bytes]):
-        cuts = []
+        cuts_v = []
         while v < end:  # stage_need rises with the vertices taken
             fits = stage_need(np.arange(1, end - v + 1), vp[v + 1 : end + 1] - vp[v], W, itemsize)
             v += max(int(np.count_nonzero(fits <= stage_bytes)), 1)
-            cuts.append(v)
-        starts.append(np.asarray(cuts[:-1], np.int64))
+            cuts_v.append(v)
+        starts.append(np.asarray(cuts_v[:-1], np.int64))
     starts = np.unique(np.concatenate(starts)) if len(starts) > 1 else first
+    starts = _pack_levels(starts, vp, lp, W, itemsize, stage_bytes, cuts)
+
     ends = np.append(starts[1:], lp[-1])
     bounds = np.append(starts, lp[-1])
+    level_chunk = np.searchsorted(starts, lp, side="right") - 1
+    level_chunk[-1] = starts.size
+    levels_in = np.maximum(np.bincount(level_chunk[:-1], minlength=starts.size), 1)
     return LevelChunks(
         chunk_ptr=np.stack([bounds, vp[bounds]], axis=1).astype(np.int32),
-        level_chunk=np.searchsorted(starts, lp).astype(np.int32),
+        level_chunk=level_chunk.astype(np.int32),
         n_stages=int(n_stages),
         stage_bytes=int(stage_bytes),
-        staged=stage_need(ends - starts, vp[ends] - vp[starts], W, itemsize) <= stage_bytes,
+        staged=stage_need(ends - starts, vp[ends] - vp[starts], W, itemsize,
+                          levels_in) <= stage_bytes,
+        cuttable=np.isin(lp, bounds),
     )
+
+
+def _pack_levels(starts, vp, lp, W, itemsize, stage_bytes, cuts):
+    """``starts`` (the chunk starts of each level cut on its own) with the
+    starts of packed levels taken out: from each level that is one staged
+    chunk, the longest run of such levels that follow it, none of them in
+    ``cuts``, whose vertices, lane-steps and level bounds fit one stage
+    (``stage_need`` rises with each level taken). The run is sought in a
+    window of levels that doubles while the run fills it."""
+    L = lp.size - 1
+    lc = np.searchsorted(starts, lp)
+    nv, np_ = np.diff(lp), vp[lp[1:]] - vp[lp[:-1]]
+    one = (np.diff(lc) == 1) & (stage_need(nv, np_, W, itemsize) <= stage_bytes)
+    opens = np.zeros(L + 1, bool)  # a level that must begin a chunk
+    opens[np.asarray(cuts, np.int64)] = True
+    keep = np.ones(starts.size, bool)
+    i = 0
+    while i < L:
+        if not one[i]:
+            i += 1
+            continue
+        window = 32
+        while True:
+            j = np.arange(i + 1, min(L, i + window) + 1)  # pack levels [i, j)
+            ok = np.append(True, one[j[:-1]] & ~opens[j[:-1]])
+            fits = stage_need(lp[j] - lp[i], vp[lp[j]] - vp[lp[i]], W, itemsize,
+                              j - i) <= stage_bytes
+            take = int(np.argmin(np.append(ok & fits, False)))  # the leading levels that fit
+            if take < j.size or j[-1] == L:
+                break
+            window *= 2
+        keep[lc[i + 1 : i + take]] = False
+        i += take
+    return starts[keep]
 
 
 def _run_starts(a: np.ndarray) -> np.ndarray:

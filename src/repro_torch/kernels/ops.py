@@ -93,13 +93,15 @@ class LevelArrays(NamedTuple):
 
 
 def level_plan_arrays(
-    plan: ExecPlan, *, dtype=torch.float32, device=None, order: LevelOrder | None = None
+    plan: ExecPlan, *, dtype=torch.float32, device=None, order: LevelOrder | None = None,
+    cuts=(),
 ) -> LevelArrays:
     """The plan tensors gathered into level order on ``device`` (``None``:
     the card, raising without CUDA), index contents checked, with the
     order's chunk table for the kernel's stages (one pass over the level
-    bounds). ``order`` is ``plan``'s level order where the caller has it
-    already."""
+    bounds; no chunk across a level of ``cuts``, where level ranges are
+    launched on their own). ``order`` is ``plan``'s level order where the
+    caller has it already."""
     check_plan_indices(plan)
     device = resolve_device(device)
     if order is None:
@@ -121,8 +123,8 @@ def level_plan_arrays(
         perm=put(perm, torch.int64),
         n=plan.n,
         order=order,
-        chunks=device_chunks(level_chunks(order.vert_ptr, order.level_ptr, W, dtype.itemsize),
-                             device),
+        chunks=device_chunks(level_chunks(order.vert_ptr, order.level_ptr, W, dtype.itemsize,
+                                          cuts), device),
     )
 
 
@@ -167,12 +169,14 @@ def round_level_arrays(plan: ExecPlan, bounds, *, dtype=torch.float32,
                        device=None) -> RoundLevels:
     """``plan`` in the bulk level order on ``device`` (``None``: the card,
     raising without CUDA) with the level ranges of the exchange rounds cut
-    at ``bounds`` (superstep indices, ``kernels.levels.round_ranges``) and
-    its level-ordered value sources."""
+    at ``bounds`` (superstep indices, ``kernels.levels.round_ranges``), its
+    chunk table cut there too (no levels packed across a round), and its
+    level-ordered value sources."""
     order = level_order(plan)
-    la = level_plan_arrays(plan, dtype=dtype, device=device, order=order)
+    ranges = round_ranges(order, bounds)
+    la = level_plan_arrays(plan, dtype=dtype, device=device, order=order, cuts=ranges)
     val_src, diag_src = level_sources(plan, order, device=la.vals.device)
-    return RoundLevels(la=la, ranges=tuple(int(v) for v in round_ranges(order, bounds)),
+    return RoundLevels(la=la, ranges=tuple(int(v) for v in ranges),
                        val_src=val_src, diag_src=diag_src)
 
 
@@ -298,6 +302,7 @@ def _concat_chunks(las) -> LevelChunks:
         n_stages=min(c.n_stages for c in chunks),
         stage_bytes=max(c.stage_bytes for c in chunks),
         staged=np.concatenate([c.staged for c in chunks]),
+        cuttable=np.concatenate([c.cuttable[:-1] for c in chunks] + [[True]]),
     )
 
 

@@ -30,7 +30,10 @@ keeps what earlier ranges wrote: the distributed backend's rounds, one
 launch per position and round, with an exchange between rounds. It needs
 no kernel of its own: the level walk reads absolute chunk bounds from
 ``level_chunk[0]`` on and keeps no state across launches, so the range is
-the walk started at ``level_chunk + lo`` with ``hi - lo`` levels.
+the walk started at ``level_chunk + lo`` and ``level_ptr + lo`` with
+``hi - lo`` levels. Its chunk table must begin a chunk at ``lo`` and at
+``hi`` (``kernels.levels.level_chunks`` packs no levels across its
+``cuts``).
 
 ``sptrsv_ordered_cuda`` is the front door's solve
 (``pipeline.TriangularSolver.solve`` on the card): one cooperative launch
@@ -46,7 +49,8 @@ Every entry also takes the level order's chunk table and stage layout
 (``kernels.levels.LevelChunks``, the kernel's stages in shared memory):
 ``chunks=`` the one bound with the level tensors (``LevelArrays.chunks``,
 ``LevelBank.chunks``), else the wrapper builds it from ``vert_ptr`` and
-``level_ptr`` on the host, a copy from the device and one pass, per call.
+``level_ptr`` on the host, a copy from the device and one pass, per call
+(for a range, cut at its two ends).
 
 ``launches`` counts the kernel launches per entry point, under a lock (the
 serve layer launches from several threads), so a run can show that its
@@ -82,12 +86,13 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-_SINGLE = [_P] * 8 + [_I] * 4 + [_P] * 3
-_COLS = [_P] * 8 + [_I] * 5 + [_I64] + [_P] * 3
-_BANK = [_P] * 11 + [_I] * 4 + [_I64] + [_P] * 3
-# the ordered solve: the level tensors but level_ptr and the chunk table;
-# level count, W, stage layout, m, grid; n; perm, b, out, scratch, stream
-_ORDERED = [_P] * 8 + [_I] * 6 + [_I64] + [_P] * 5
+# the level tensors and the chunk table; level count, W, stage layout; ...
+_SINGLE = [_P] * 9 + [_I] * 4 + [_P] * 3
+_COLS = [_P] * 9 + [_I] * 5 + [_I64] + [_P] * 3
+_BANK = [_P] * 12 + [_I] * 4 + [_I64] + [_P] * 3
+# the ordered solve: the level tensors and the chunk table; level count, W,
+# stage layout, m, grid; n; perm, b, out, scratch, stream
+_ORDERED = [_P] * 9 + [_I] * 6 + [_I64] + [_P] * 5
 _ARGTYPES = {"single": _SINGLE, "mrhs": _COLS, "bank": _BANK, "ordered": _ORDERED}
 # an elastic or a range launch runs the entry point of its layout, and an
 # ordered solve of one or m columns, of the bulk or the elastic order, the
@@ -204,16 +209,17 @@ def device_chunks(host: LevelChunks, device) -> LevelChunks:
                          level_chunk=torch.as_tensor(host.level_chunk).to(device))
 
 
-def _stage_chunks(level, chunks, device):
+def _stage_chunks(level, chunks, device, cuts=()):
     """The chunk table the walk takes: ``chunks`` checked against the
     level tensors ``level`` and ``device``, or, where it is None, built
-    from the level tensors on the host (``kernels.levels.level_chunks``)."""
+    from the level tensors on the host (``kernels.levels.level_chunks``,
+    no chunk across a level of ``cuts``)."""
     if device.type != "cuda":
         raise ValueError(f"the SpTRSV kernels run on CUDA or CPU tensors, not {device}")
     vals, vert_ptr, level_ptr = level[2], level[5], level[6]
     if chunks is None:
         chunks = device_chunks(level_chunks(vert_ptr.cpu().numpy(), level_ptr.cpu().numpy(),
-                                            vals.shape[1], vals.element_size()), device)
+                                            vals.shape[1], vals.element_size(), cuts), device)
     return _check_chunks(chunks, level_ptr, device)
 
 
@@ -229,22 +235,25 @@ def _check_chunks(chunks, level_ptr, device):
             raise TypeError(f"chunks.{name} must be contiguous int32")
     if chunks.chunk_ptr.dim() != 2 or chunks.chunk_ptr.shape[1] != 2:
         raise ValueError(f"chunks.chunk_ptr must be [C+1, 2]; got {tuple(chunks.chunk_ptr.shape)}")
-    if chunks.level_chunk.shape != level_ptr.shape:
-        raise ValueError(f"chunks.level_chunk must be [L+1={level_ptr.shape[0]}]; got "
-                         f"{tuple(chunks.level_chunk.shape)}")
+    if chunks.level_chunk.shape != level_ptr.shape or chunks.cuttable.shape != level_ptr.shape:
+        raise ValueError(f"chunks.level_chunk and chunks.cuttable must be [L+1="
+                         f"{level_ptr.shape[0]}]; got {tuple(chunks.level_chunk.shape)}, "
+                         f"{chunks.cuttable.shape}")
     return chunks
 
 
-def _level_args(row_ids, col_idx, vals, diag, accum, vert_ptr, chunks, lo=0, hi=None):
-    """The level tensors' and the chunk table's pointers, the level count
-    (of levels ``[lo, hi)``, all by default), W and the stage layout: the
-    leading arguments of every level entry point but the bank's."""
-    ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, vert_ptr,
-                                   chunks.chunk_ptr)]
+def _level_args(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, chunks, lo=0,
+                hi=None):
+    """The level tensors' and the chunk table's pointers (level_ptr and
+    level_chunk from level ``lo`` on), the level count (of levels ``[lo,
+    hi)``, all by default), W and the stage layout: the leading arguments
+    of every level entry point but the bank's."""
+    ptrs = [t.data_ptr() for t in (row_ids, col_idx, vals, diag, accum, vert_ptr)]
     lc = chunks.level_chunk
     hi = lc.shape[0] - 1 if hi is None else hi
-    return (*ptrs, lc.data_ptr() + lo * lc.element_size(), hi - lo, col_idx.shape[1],
-            chunks.stage_bytes, chunks.n_stages)
+    return (*ptrs, level_ptr.data_ptr() + lo * level_ptr.element_size(),
+            chunks.chunk_ptr.data_ptr(), lc.data_ptr() + lo * lc.element_size(), hi - lo,
+            col_idx.shape[1], chunks.stage_bytes, chunks.n_stages)
 
 
 def _launch_level(single, mrhs, level, b_pad, chunks):
@@ -257,7 +266,7 @@ def _launch_level(single, mrhs, level, b_pad, chunks):
     if b_pad.numel() == 0:
         return torch.zeros_like(b_pad)
     chunks = _stage_chunks(level, chunks, b_pad.device)
-    args = _level_args(*level[:6], chunks)
+    args = _level_args(*level, chunks)
     if b_pad.dim() == 1:
         x = torch.zeros_like(b_pad)
         _launch(single, vals.dtype, b_pad.device, chunks.stage_bytes, *args, b_pad.data_ptr(),
@@ -302,10 +311,13 @@ def sptrsv_elastic_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr
     return _launch_level("elastic_single", "elastic_mrhs", level, b_pad, chunks)
 
 
-def _check_range(level, lo, hi, b, x):
+def _check_range(level, lo, hi, b, x, chunks=None):
     """``_check_level``'s checks of the level tensors and of ``b`` (f[rows]
-    or column-major f[m, rows]), plus ``0 <= lo <= hi <= L`` and ``x``
-    shaped, typed, laid out and placed as ``b``."""
+    or column-major f[m, rows]), plus ``0 <= lo <= hi <= L``, ``x``
+    shaped, typed, laid out and placed as ``b``, and, given a chunk table
+    ``chunks``, a chunk beginning at ``lo`` and at ``hi`` unless the range
+    is empty: the walk starts at ``lo``'s chunk and stops before ``hi``'s,
+    so a range that splits levels packed into one chunk is refused."""
     _check_level(*level, b)
     if not isinstance(x, torch.Tensor):
         raise TypeError("x must be a torch.Tensor")
@@ -320,6 +332,12 @@ def _check_range(level, lo, hi, b, x):
     lo, hi = operator.index(lo), operator.index(hi)
     if not 0 <= lo <= hi <= L:
         raise ValueError(f"level range [{lo}, {hi}) is not inside [0, {L}]")
+    if chunks is not None and hi > lo:
+        if not isinstance(chunks, LevelChunks) or chunks.cuttable.shape != (L + 1,):
+            raise TypeError(f"chunks must be a kernels.levels.LevelChunks of {L} levels")
+        if not (chunks.cuttable[lo] and chunks.cuttable[hi]):
+            raise ValueError(f"level range [{lo}, {hi}) splits a chunk of levels packed "
+                             f"together: build the chunk table with {lo} and {hi} among its cuts")
     return lo, hi
 
 
@@ -332,16 +350,18 @@ def sptrsv_level_range_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level
     ``x`` keeps what earlier ranges and the caller wrote; a walk of ranges
     that partition ``[0, L)``, in order, is bitwise one full
     ``sptrsv_level_cuda``. An empty range launches nothing. Returns
-    ``x``. CPU tensors take ``kernels.ref.sptrsv_level_range_ref``."""
+    ``x``. ``chunks`` must begin a chunk at ``lo`` and at ``hi`` (built
+    with both among its ``cuts``); None builds one so. CPU tensors take
+    ``kernels.ref.sptrsv_level_range_ref``."""
     level = (row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr)
-    lo, hi = _check_range(level, lo, hi, b, x)
+    lo, hi = _check_range(level, lo, hi, b, x, chunks)
     if b.device.type == "cpu":
         return sptrsv_level_range_ref(*level, lo, hi, b, x)
     if hi == lo or b.numel() == 0:
         return x
-    chunks = _stage_chunks(level, chunks, b.device)
+    chunks = _stage_chunks(level, chunks, b.device, (lo, hi))
     # the walk reads absolute chunk bounds from its level_chunk on
-    args = _level_args(*level[:6], chunks, lo, hi)
+    args = _level_args(*level, chunks, lo, hi)
     if b.dim() == 1:
         _launch("range_single", vals.dtype, b.device, chunks.stage_bytes, *args, b.data_ptr(),
                 x.data_ptr())
@@ -397,7 +417,7 @@ def sptrsv_level_bank_cuda(row_ids, col_idx, vals, diag, accum, vert_ptr, level_
     x = torch.zeros_like(b_col)
     m = b_col.shape[0]
     lanes = lane_idx.to(device=b_col.device, dtype=torch.int32)
-    ptrs = [t.data_ptr() for t in (*level[:6], chunks.chunk_ptr, chunks.level_chunk, level_off,
+    ptrs = [t.data_ptr() for t in (*level, chunks.chunk_ptr, chunks.level_chunk, level_off,
                                    n_levels, lanes)]
     _launch("bank", vals.dtype, b_col.device, chunks.stage_bytes, *ptrs, col_idx.shape[1],
             chunks.stage_bytes, chunks.n_stages, m, b_col.shape[1], b_col.data_ptr(),
@@ -441,8 +461,7 @@ def bind_ordered_walk(row_ids, col_idx, vals, diag, accum, vert_ptr, level_ptr, 
     n = operator.index(n)
     if perm.dtype != torch.int32 or perm.shape != (n,) or n < 1:
         raise ValueError(f"perm must be int32[n={n}], n >= 1; got {perm.dtype}{tuple(perm.shape)}")
-    ptrs = [t.data_ptr() for t in (*level[:6], chunks.chunk_ptr, chunks.level_chunk)]
-    args = (*ptrs, level_ptr.shape[0] - 1, col_idx.shape[1], chunks.stage_bytes, chunks.n_stages)
+    args = _level_args(*level, chunks)
     prefix = "elastic_" if elastic else ""
     return OrderedWalk(tensors=(*level, perm, chunks.chunk_ptr, chunks.level_chunk), args=args,
                        perm=perm.data_ptr(), single=f"{prefix}ordered_single",

@@ -63,7 +63,7 @@ def test_ordered_walk_binds_the_row_permutation(name, mode):
     assert all(a is b for a, b in zip(walk.tensors[:7], la[:7]))
     ch = la.chunks
     assert walk.tensors[8:] == (ch.chunk_ptr, ch.level_chunk)
-    assert walk.args == (*[t.data_ptr() for t in la[:6]], ch.chunk_ptr.data_ptr(),
+    assert walk.args == (*[t.data_ptr() for t in la[:7]], ch.chunk_ptr.data_ptr(),
                          ch.level_chunk.data_ptr(), la.level_ptr.numel() - 1,
                          la.col_idx.shape[1], ch.stage_bytes, ch.n_stages)
     prefix = "elastic_" if mode == "elastic" else ""
@@ -108,7 +108,7 @@ def test_bind_ordered_walk_checks_once():
     s, ola, args = _walk_args()
     walk = sptrsv.bind_ordered_walk(*args, chunks=ola.chunks)
     assert (walk.single, walk.mrhs, walk.n) == ("ordered_single", "ordered_mrhs", s.n)
-    assert walk.perm == args[7].data_ptr() and len(walk.args) == 12
+    assert walk.perm == args[7].data_ptr() and len(walk.args) == 13
     el = sptrsv.bind_ordered_walk(*args, chunks=ola.chunks, elastic=True)
     assert (el.single, el.mrhs) == ("elastic_ordered_single", "elastic_ordered_mrhs")
     meta = torch.device("meta")

@@ -18,11 +18,13 @@ elastic, one and 32 right-hand sides, f32 and f64; one device operation
 under torch.profiler; a new x every call.
 
 Every entry of the level walk (single, m-RHS, range, elastic, bank,
-ordered; f32 and f64) is also held bitwise to the plain version over three
+ordered; f32 and f64) is also held bitwise to the plain version over four
 stage layouts: a
 plan whose widest levels split into several chunks, chunks cut by bytes
 under a smaller shared-memory budget (with vertices that take the
-fallback), and a vertex wider than any stage at the card's budget.
+fallback), a vertex wider than any stage at the card's budget, and a deep
+narrow plan whose levels pack many to a chunk (range launches on a table
+cut at their bounds).
 
 ``chip_smoke.py`` makes the same comparison at the main path's shapes.
 The kernels must match the plain version run on the CPU bit for bit: both
@@ -572,11 +574,16 @@ def _wide_vertex_levels(dtype, device, K=40_000):
 def _walk_entries_match_plain(la_cpu, la, cuda, dtype):
     """Every entry of the level walk on ``la`` (on the card, its bound
     chunk table) against the plain version on ``la_cpu``, bitwise: one and
-    five right-hand sides, range launches over two ranges, the elastic
-    entries on the same tensors, a bank of two lanes (the plan and its
-    values halved), and the ordered entries under a random row order."""
+    five right-hand sides, range launches over three ranges (on the table
+    cut at their bounds), the elastic entries on the same tensors, a bank
+    of two lanes (the plan and its values halved), and the ordered entries
+    under a random row order."""
     n, L = la.n, la.level_ptr.numel() - 1
     rng = np.random.default_rng(22)
+    cuts = sorted({0, L // 3, L // 2, L})
+    cut = sptrsv.device_chunks(levels.level_chunks(
+        la_cpu.vert_ptr.numpy(), la_cpu.level_ptr.numpy(), la.col_idx.shape[1],
+        dtype.itemsize, cuts), cuda)
     for m in (None, 5):
         b_pad = pad_rhs(torch.as_tensor(
             rng.standard_normal(n if m is None else (n, m)), dtype=dtype))
@@ -586,8 +593,8 @@ def _walk_entries_match_plain(la_cpu, la, cuda, dtype):
             assert _bits_equal(fn(*la[:7], b, chunks=la.chunks), x_ref)
         b_r = b if m is None else b.T.contiguous()
         x_r = torch.zeros_like(b_r)
-        for lo, hi in ((0, L // 2), (L // 2, L)):
-            sptrsv.sptrsv_level_range_cuda(*la[:7], lo, hi, b_r, x_r, chunks=la.chunks)
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            sptrsv.sptrsv_level_range_cuda(*la[:7], lo, hi, b_r, x_r, chunks=cut)
         assert _bits_equal(x_r if m is None else x_r.T, x_ref)
     rows = torch.arange(n)
     las = [la, la._replace(vals=la.vals * 0.5)]
@@ -614,25 +621,32 @@ def _walk_entries_match_plain(la_cpu, la, cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("layout", ["wide_levels", "small_stages", "wide_vertex"])
+@pytest.mark.parametrize("layout", ["wide_levels", "small_stages", "wide_vertex",
+                                    "packed_levels"])
 def test_every_walk_entry_staged_matches_plain_bitwise(cuda, monkeypatch, layout, dtype):
     """"wide_levels": levels of several thousand vertices, each several
     chunks; "small_stages": two stages of 2 KB, chunks cut by bytes and the
     dense rows' vertices read in place; "wide_vertex": one vertex wider
-    than a stage at the card's budget, beside staged chunks."""
+    than a stage at the card's budget, beside staged chunks;
+    "packed_levels": a narrow-band plan (n = 3,000, accumulate rows) whose
+    levels of a few vertices pack many to a chunk."""
     if layout == "wide_vertex":
         la_cpu, la = (_wide_vertex_levels(dtype, d) for d in ("cpu", cuda))
     else:
         if layout == "small_stages":
             monkeypatch.setattr(levels, "SMEM_BYTES", 2 * (levels.STAGE_HEAD_BYTES + 4 * 1024))
-        L = erdos_renyi_lower(20000, 2e-5, seed=1) if layout == "wide_levels" else _arrow()
+        L = {"wide_levels": lambda: erdos_renyi_lower(20000, 2e-5, seed=1),
+             "small_stages": _arrow,
+             "packed_levels": lambda: narrow_band_lower(3000, 0.14, 10, seed=9)}[layout]()
         plan = repro_torch.TriangularSolver.plan(L, k=8, width=2, device="cpu").exec_plan
         la_cpu = level_plan_arrays(plan, dtype=dtype, device="cpu")
         la = level_plan_arrays(plan, dtype=dtype, device=cuda)
     st = la.chunks.stats()
     split = (np.diff(la.chunks.level_chunk.cpu().numpy()) > 1).any()
-    assert split or layout == "wide_vertex"
-    if layout == "wide_levels":
+    assert split or layout in ("wide_vertex", "packed_levels")
+    if layout == "packed_levels":
+        assert st["chunks"] < st["levels"] // 4 and st["packed_levels"] > st["levels"] // 2
+    if layout in ("wide_levels", "packed_levels"):
         assert st["chunks_staged"] == st["chunks"]
     else:  # some chunks take the fallback, the others are staged
         assert 0 < st["chunks_staged"] < st["chunks"]

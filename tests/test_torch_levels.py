@@ -28,14 +28,18 @@
     ``sptrsv_groups_ref`` == ``sptrsv_ref`` == the JAX scan executor,
     bitwise, in f32 and f64, signed zeros included;
   * the level walk's chunk table and stage layout
-    (``kernels.levels.level_chunks``) on ER-like and IC(0) plans, wide
+    (``kernels.levels.level_chunks``) on ER-like, NB and IC(0) plans, wide
     synthetic levels and a bank of two lanes, f32 and f64: the chunks cover
-    every vertex once and in order, none crosses a level or holds more than
-    992 vertices (the kernel's consumer threads), every staged chunk's
-    slices, rounded out to 16 bytes as the kernel copies them, fit its
-    stage, ``level_chunk`` sliced by a
-    level range or a lane's offset gives that range's or lane's chunks,
-    and a vertex wider than a stage is a chunk of its own, not staged;
+    every vertex once and in order, each is whole levels of at most 992
+    vertices each (the kernel's consumer threads) or a piece of at most
+    992 vertices of one level, ``level_chunk`` names the chunk of each
+    level's first vertex and never falls, every staged chunk's slices, its
+    level bounds included, rounded out to 16 bytes as the kernel copies
+    them, fit its stage at every alignment shift, ``level_chunk`` sliced by
+    a level range cut in the table or a lane's offset gives that range's
+    or lane's chunks, narrow levels pack (a narrow-band plan has fewer
+    chunks than levels), a level wider than 992 vertices or a vertex wider
+    than a stage never packs, and no chunk spans a cut;
   * the value refresh of bounds that hold level tensors
     (``ops.refresh_level_values`` through ``ops.level_sources``) bitwise
     the level tensors of the plan refreshed on the host, bulk, elastic and
@@ -567,16 +571,20 @@ def test_level_bank_wrapper_checks():
 
 
 # ------------------------------------------------- the level walk's chunks
-def _stage_copies(lo, hi, W, itemsize, bases):
-    """The kernel's copies of chunk [lo, hi) (vertex, lane-step bounds), as
-    csrc/level.cuh::issue makes them from tensors at byte addresses
-    ``bases``: (aligned source, bytes, stage offset) per slice."""
+def _stage_copies(lo, hi, lv, nl, W, itemsize, bases):
+    """The kernel's copies of chunk [lo, hi) (vertex, lane-step bounds) of
+    ``nl`` levels from level ``lv`` on, as csrc/level.cuh::issue makes them
+    from tensors at byte addresses ``bases``: (aligned source, bytes, stage
+    offset) per slice, level_ptr's only where ``nl > 1``."""
     (v0, p0), (v1, p1) = lo, hi
     nv, np_ = v1 - v0, p1 - p0
-    starts = (4 * v0, 4 * p0 * W, itemsize * p0 * W, 4 * p0, itemsize * p0, p0)
-    lens = (4 * (nv + 1), 4 * np_ * W, itemsize * np_ * W, 4 * np_, itemsize * np_, np_)
+    starts = (4 * v0, 4 * p0 * W, itemsize * p0 * W, 4 * p0, itemsize * p0, p0, 4 * lv)
+    lens = (4 * (nv + 1), 4 * np_ * W, itemsize * np_ * W, 4 * np_, itemsize * np_, np_,
+            4 * (nl + 1) if nl > 1 else 0)
     out, at = [], 0
     for base, start, n in zip(bases, starts, lens):
+        if n == 0:
+            continue
         a = base + start
         a0, end = a // 16 * 16, -(-(a + n) // 16) * 16
         out.append((a0, end - a0, at))
@@ -584,33 +592,54 @@ def _stage_copies(lo, hi, W, itemsize, bases):
     return out
 
 
-def _check_chunks(ch, vert_ptr, level_ptr, W, itemsize):
+def _check_chunks(ch, vert_ptr, level_ptr, W, itemsize, cuts=()):
     vp, lp = np.asarray(vert_ptr, np.int64), np.asarray(level_ptr, np.int64)
     cp, lc = np.asarray(ch.chunk_ptr, np.int64), np.asarray(ch.level_chunk, np.int64)
-    C = cp.shape[0] - 1
+    C, L = cp.shape[0] - 1, lp.shape[0] - 1
     # every vertex once, in order; lane-step bounds read off vert_ptr
     assert cp[0, 0] == lp[0] == 0 and cp[-1, 0] == lp[-1]
     assert (np.diff(cp[:, 0]) > 0).all() and np.array_equal(cp[:, 1], vp[cp[:, 0]])
-    # no chunk crosses a level: each level is exactly its chunks
-    assert lc[0] == 0 and lc[-1] == C and (np.diff(lc) > 0).all()
-    assert np.array_equal(cp[lc, 0], lp)
-    assert (np.diff(cp[:, 0]) <= levels.CHUNK_VERTICES).all()
+    # level_chunk names the chunk of each level's first vertex, never falls,
+    # and ends at C
+    assert lc[0] == 0 and lc[-1] == C and (np.diff(lc) >= 0).all()
+    assert (cp[lc[:-1], 0] <= lp[:-1]).all() and (lp[:-1] < cp[lc[:-1] + 1, 0]).all()
+    # a chunk is whole levels of at most 992 vertices each, or a piece of at
+    # most 992 vertices of one level: every level bound is a chunk bound or
+    # lies inside a chunk of whole levels
+    first = np.searchsorted(lp, cp[:-1, 0], side="right") - 1  # the level of its first vertex
+    nl = np.searchsorted(lp, cp[1:, 0] - 1, side="right") - first  # its levels
+    packed = nl > 1
+    assert np.isin(cp[:-1][packed, 0], lp).all() and np.isin(cp[1:][packed, 0], lp).all()
+    widths = np.diff(lp)
+    for c in np.flatnonzero(packed):
+        assert (widths[first[c] : first[c] + nl[c]] <= levels.CHUNK_VERTICES).all()
+    assert (np.diff(cp[:, 0])[~packed] <= levels.CHUNK_VERTICES).all()
+    # the levels a range may start or end at, cuts among them, and the count
+    # of levels that share a chunk
+    assert np.array_equal(ch.cuttable, np.isin(lp, cp[:, 0]))
+    assert ch.cuttable[np.asarray(cuts, np.int64)].all()
+    shared = np.zeros(L, bool)
+    for c in np.flatnonzero(packed):
+        shared[first[c] : first[c] + nl[c]] = True
+    assert ch.stats()["packed_levels"] == int(shared.sum())
     # the stage layout fits the block's shared memory
     assert levels.MIN_STAGES <= ch.n_stages <= levels.MAX_STAGES
     assert ch.stage_bytes % 16 == 0
     # the stage layout fits half the block's shared memory: the rest stays L1
     assert levels.STAGE_HEAD_BYTES + ch.n_stages * ch.stage_bytes <= levels.SMEM_BYTES // 2
-    # a staged chunk's copies fit its stage, 16-byte aligned, wherever the
-    # tensors start; an unstaged chunk is a single vertex
+    # a staged chunk's copies, its level bounds included, fit its stage,
+    # 16-byte aligned, wherever the tensors start; an unstaged chunk is a
+    # single vertex
     nv, np_ = np.diff(cp[:, 0]), np.diff(cp[:, 1])
     assert ch.staged.shape == (C,)
-    assert np.array_equal(ch.staged, levels.stage_need(nv, np_, W, itemsize) <= ch.stage_bytes)
+    assert np.array_equal(ch.staged,
+                          levels.stage_need(nv, np_, W, itemsize, nl) <= ch.stage_bytes)
     assert (nv[~ch.staged] == 1).all()
     for shift in (0, 4, 8, 12):
         bases = [4096 * (i + 1) + shift * (itemsize if i in (2, 4) else 1) // 4 * 4
-                 for i in range(6)]
+                 for i in range(7)]
         for c in np.flatnonzero(ch.staged):
-            copies = _stage_copies(cp[c], cp[c + 1], W, itemsize, bases)
+            copies = _stage_copies(cp[c], cp[c + 1], first[c], nl[c], W, itemsize, bases)
             assert all(a % 16 == 0 and n % 16 == 0 and at % 16 == 0 for a, n, at in copies)
             assert sum(n for _, n, _ in copies) <= ch.stage_bytes
     return cp, lc
@@ -645,10 +674,17 @@ def test_level_chunks_cover_levels_and_fit_stages(name, k, width, dtype):
     assert ch.staged.all()  # no vertex of these is wider than a stage
     assert ch.stats() == {"stages": ch.n_stages, "stage_bytes": ch.stage_bytes,
                           "chunks": cp.shape[0] - 1, "chunks_staged": cp.shape[0] - 1,
-                          "levels": len(level_ptr) - 1}
-    # a level range's chunks are level_chunk sliced as level_ptr is sliced
+                          "levels": len(level_ptr) - 1,
+                          "packed_levels": ch.stats()["packed_levels"]}
+    # a level range cut in the table: its chunks are level_chunk sliced as
+    # level_ptr is sliced
     L = len(level_ptr) - 1
-    for lo, hi in ((0, L), (1, max(1, L // 2)), (L // 2, L), (L - 1, L)):
+    ranges = ((0, L), (1, max(1, L // 2)), (L // 2, L), (L - 1, L))
+    cuts = sorted({v for r in ranges for v in r})
+    cut = levels.level_chunks(vert_ptr, level_ptr, W, itemsize, cuts)
+    cp, lc = _check_chunks(cut, vert_ptr, level_ptr, W, itemsize, cuts)
+    assert (cut.stage_bytes, cut.n_stages) == (ch.stage_bytes, ch.n_stages)
+    for lo, hi in ranges:
         c_lo, c_hi = lc[lo], lc[hi]
         assert cp[c_lo, 0] == level_ptr[lo] and cp[c_hi, 0] == level_ptr[hi]
     if name == "wide":  # the wide levels are cut: by 992 vertices, and by bytes at W = 12
@@ -677,6 +713,85 @@ def test_level_chunks_leave_a_vertex_wider_than_a_stage_unstaged(dtype):
     assert cp[wide + 1, 0] == 4 and not ch.staged[wide]
     assert ch.staged.sum() == ch.staged.size - 1
     assert ch.stats()["chunks_staged"] == ch.stats()["chunks"] - 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("slack", [1, 8])
+def test_level_chunks_pack_a_narrow_band_plans_levels(slack, dtype):
+    """A deep DAG of narrow levels (narrow band, n = 3,000): many levels a
+    stage load, fewer chunks than levels; the same table cut at every level
+    packs nothing and is the table of a level a chunk at most."""
+    itemsize = torch.empty(0, dtype=_TORCH[dtype]).element_size()
+    plan = repro_torch.TriangularSolver.plan(narrow_band_lower(3000, 0.14, 10, seed=4),
+                                             device="cpu", backend="scan").exec_plan
+    order = level_order(plan, slack)
+    ch = levels.level_chunks(order.vert_ptr, order.level_ptr, plan.W, itemsize)
+    _check_chunks(ch, order.vert_ptr, order.level_ptr, plan.W, itemsize)
+    st = ch.stats()
+    assert st["chunks"] < st["levels"] // 4 and st["packed_levels"] > st["levels"] // 2
+    L = order.n_levels
+    alone = levels.level_chunks(order.vert_ptr, order.level_ptr, plan.W, itemsize,
+                                np.arange(L + 1))
+    cp, lc = _check_chunks(alone, order.vert_ptr, order.level_ptr, plan.W, itemsize,
+                           np.arange(L + 1))
+    assert alone.stats()["packed_levels"] == 0 and (np.diff(lc) > 0).all()
+    assert np.array_equal(cp[lc, 0], order.level_ptr)
+    assert (alone.stage_bytes, alone.n_stages) == (ch.stage_bytes, ch.n_stages)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_level_chunks_never_pack_a_wide_level(dtype):
+    """Levels wider than 992 vertices, and a level of fewer that does not
+    fit a stage, keep their own chunks between narrow levels that pack."""
+    itemsize = torch.empty(0, dtype=_TORCH[dtype]).element_size()
+    W = 12
+    widths = [3, 4, 993, 2, 2, 5000, 1, 1, 1, 992, 7, 7]
+    vert_ptr, level_ptr = _synthetic_levels(6, widths, 3)
+    ch = levels.level_chunks(vert_ptr, level_ptr, W, itemsize)
+    cp, lc = _check_chunks(ch, vert_ptr, level_ptr, W, itemsize)
+    assert ch.stats()["packed_levels"] > 0
+    lp = np.asarray(level_ptr, np.int64)
+    for i, w in enumerate(widths):
+        if w > levels.CHUNK_VERTICES:  # chunks of its own, bounded by its level bounds
+            assert cp[lc[i], 0] == lp[i] and cp[lc[i + 1], 0] == lp[i + 1]
+            assert lc[i + 1] - lc[i] >= 2
+    # a level of 992 vertices of up to 3 lane-steps at W = 12 passes the
+    # largest stage, so it is cut by bytes, not packed
+    assert ch.cuttable[9] and ch.cuttable[10] and lc[10] - lc[9] >= 2
+    # narrow levels beside the wide ones share chunks
+    assert not ch.cuttable[1] and not ch.cuttable[4]
+
+
+def test_level_chunks_never_pack_across_a_cut():
+    """Round cuts begin chunks: ``round_level_arrays`` cuts its chunk table
+    at its rounds' level ranges; a range launch refuses a range that
+    splits levels packed into one chunk."""
+    plan = _port_plan("nb", 8, None)
+    order = level_order(plan)
+    L = order.n_levels
+    packed = levels.level_chunks(order.vert_ptr, order.level_ptr, plan.W, 4)
+    assert packed.stats()["packed_levels"] > 0
+    for bounds in (np.arange(plan.n_supersteps + 1), [0, plan.n_supersteps // 3,
+                                                      plan.n_supersteps]):
+        rl = ops.round_level_arrays(plan, bounds, device="cpu")
+        ch = rl.la.chunks
+        _check_chunks(ch, order.vert_ptr, order.level_ptr, plan.W, 4, rl.ranges)
+        assert ch.stats()["packed_levels"] > 0
+        # each round's levels are whole chunks
+        cp, lc = np.asarray(ch.chunk_ptr), np.asarray(ch.level_chunk)
+        for lo, hi in zip(rl.ranges[:-1], rl.ranges[1:]):
+            assert cp[lc[lo], 0] == order.level_ptr[lo] and cp[lc[hi], 0] == order.level_ptr[hi]
+    # a range inside a packed chunk: refused before any walk; one on chunk
+    # bounds runs (the plain version on the CPU)
+    la = level_plan_arrays(plan, device="cpu", order=order)
+    inner = int(np.flatnonzero(~la.chunks.cuttable)[0])
+    b = pad_rhs(torch.ones(plan.n))
+    with pytest.raises(ValueError, match="splits a chunk"):
+        sptrsv.sptrsv_level_range_cuda(*la[:7], inner, L, b, torch.zeros_like(b),
+                                       chunks=la.chunks)
+    x = torch.zeros_like(b)
+    sptrsv.sptrsv_level_range_cuda(*la[:7], 0, L, b, x, chunks=la.chunks)
+    assert torch.equal(x, sptrsv_level_ref(*la[:7], b))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -713,9 +828,13 @@ def test_kernel_bound_describes_its_staging(name, mode):
          "ichol": lambda: ichol0(poisson2d_matrix(45))}[name]()
     d = repro_torch.TriangularSolver.plan(L, device="cpu", mode=mode).bound.describe()
     st = d["staging"]
-    assert set(st) == {"stages", "stage_bytes", "chunks", "chunks_staged", "levels"}
-    assert st["levels"] == d["n_levels"] and st["chunks"] >= st["levels"]
+    assert set(st) == {"stages", "stage_bytes", "chunks", "chunks_staged", "levels",
+                       "packed_levels"}
+    # a level alone takes a chunk or more, packed levels share theirs
+    assert st["levels"] == d["n_levels"] and st["chunks"] >= st["levels"] - st["packed_levels"]
     assert st["chunks_staged"] == st["chunks"]
+    if name == "ichol":  # deep and narrow: levels pack
+        assert st["packed_levels"] > 0 and st["chunks"] < st["levels"]
     assert levels.STAGE_HEAD_BYTES + st["stages"] * st["stage_bytes"] <= levels.SMEM_BYTES // 2
 
 

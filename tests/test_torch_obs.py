@@ -370,9 +370,9 @@ def test_ordered_front_door_nests_one_launch(monkeypatch, mode, m):
     # m, the grid (at least sptrsv.ORDERED_SPREAD blocks), n, the permutation
     # bound once, then b and x as the caller holds them
     walk = s.bound._walk
-    assert calls[0][:12] == walk.args
-    assert calls[0][12:16] == (1 if m is None else m, sptrsv.ORDERED_SPREAD, s.n, walk.perm)
-    assert calls[0][17] == x.data_ptr() and len(calls[0]) == 20
+    assert calls[0][:13] == walk.args
+    assert calls[0][13:17] == (1 if m is None else m, sptrsv.ORDERED_SPREAD, s.n, walk.perm)
+    assert calls[0][18] == x.data_ptr() and len(calls[0]) == 21
     records = sorted(buf.spans(), key=lambda r: (r.t0_ns, r.t0_ns - r.t1_ns))
     assert [r.name for r in records] == ["executor.solve", "kernel.solve", "kernel.launch"]
     assert _innermost_parents([(r.t0_ns, r.t1_ns) for r in records]) == [None, 0, 1]
